@@ -1,0 +1,131 @@
+"""Fused vocabulary classification: logits -> softmax -> top-k.
+
+Port of ``scd_tpu/ops/topk.py::classify_topk``.  Dispatch by device:
+
+- a CUDA tensor with k <= 16 and V >= k runs the hand-written kernel
+  (``csrc/topk_softmax.cu``, replacing the TPU kernel
+  ``scd_tpu/ops/pallas_kernels.py::topk_softmax_pallas``); the [N, V]
+  logits never exist in device memory;
+- a CPU tensor runs :func:`classify_topk_plain`, which mirrors the JAX
+  package's ``_classify_topk_xla`` and chunks rows to bound memory;
+- anything else raises.  There is no fallback from the kernel to the plain
+  version.
+
+The vocabulary-sharded variant comes with the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from scd_tpu_torch.ops import build
+
+KERNEL_MAX_K = 16
+
+
+def classify_topk(feats: torch.Tensor, weights: torch.Tensor, k: int,
+                  scale: float = 100.0,
+                  apply_softmax: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k names per row.  feats [N, D] (L2-normalized), weights [D, V].
+
+    Returns (values [N, k] f32, indices [N, k] int32) on the inputs'
+    device.  ``apply_softmax`` returns ``softmax(scale * feats @ W)``
+    values (softmax is monotonic, so the indices are the same); otherwise
+    raw scaled logits.  Ties go to the lowest vocabulary index.
+    """
+    v = weights.shape[1]
+    if v < k:
+        raise ValueError(f"classify_topk requires V >= k (V={v}, k={k})")
+    if feats.is_cuda:
+        if k > KERNEL_MAX_K:
+            raise ValueError(f"the topk_softmax kernel takes k <= "
+                             f"{KERNEL_MAX_K}, got k={k}")
+        m, s, vals, idx = topk_softmax_cuda(feats, weights, k, scale=scale)
+        if apply_softmax:
+            vals = torch.exp(vals - m[:, None]) / s[:, None]
+        return vals, idx
+    if feats.device.type != "cpu":
+        raise ValueError(f"classify_topk: unsupported device {feats.device}")
+    return classify_topk_plain(feats, weights, k, scale, apply_softmax)
+
+
+def classify_topk_plain(feats: torch.Tensor, weights: torch.Tensor, k: int,
+                        scale: float = 100.0, apply_softmax: bool = True,
+                        chunk_rows: int = 4096
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernel, on any device: rank raw
+    logits (a stable descending sort, so ties keep the lowest index, as
+    ``jax.lax.top_k`` does), then normalize only the selected values with
+    the full row's log-sum-exp.  Rows go in chunks of ``chunk_rows`` to
+    bound the [chunk, V] logits."""
+    w = weights.float()
+    out_v, out_i = [], []
+    for lo in range(0, feats.shape[0], chunk_rows):
+        logits = scale * torch.matmul(feats[lo:lo + chunk_rows].float(), w)
+        vals, idx = torch.sort(logits, dim=1, descending=True, stable=True)
+        vals, idx = vals[:, :k], idx[:, :k]
+        if apply_softmax:
+            m = logits.max(dim=1, keepdim=True).values
+            denom = torch.exp(logits - m).sum(dim=1, keepdim=True)
+            vals = torch.exp(vals - m) / denom
+        out_v.append(vals)
+        out_i.append(idx.to(torch.int32))
+    if not out_v:
+        return (torch.empty(0, k, device=feats.device),
+                torch.empty(0, k, dtype=torch.int32, device=feats.device))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def topk_softmax_cuda(feats: torch.Tensor, weights: torch.Tensor, k: int,
+                      scale: float = 100.0):
+    """Launch the kernel.  feats [N, D] f32, weights [D, V] f32, both
+    contiguous on one CUDA device; 1 <= k <= 16 and V >= k.
+
+    Returns (m [N], s [N], vals [N, k], idx [N, k] int32): the row's
+    online logit max and sum of exp(logit - m), and the top-k raw scaled
+    logits with their indices.  Counts its launches in
+    ``topk_softmax_cuda.launches``."""
+    if not (feats.is_cuda and weights.is_cuda
+            and feats.device == weights.device):
+        raise ValueError("topk_softmax_cuda takes CUDA tensors on one device")
+    if feats.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError(f"topk_softmax_cuda takes f32, got {feats.dtype} / "
+                        f"{weights.dtype}")
+    if feats.dim() != 2 or weights.dim() != 2 or \
+            feats.shape[1] != weights.shape[0]:
+        raise ValueError(f"shapes {tuple(feats.shape)} @ "
+                         f"{tuple(weights.shape)} do not chain")
+    if not (feats.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("topk_softmax_cuda takes contiguous tensors")
+    n, d = feats.shape
+    v = weights.shape[1]
+    if not 1 <= k <= KERNEL_MAX_K or v < k:
+        raise ValueError(f"topk_softmax_cuda needs 1 <= k <= {KERNEL_MAX_K} "
+                         f"and V >= k (k={k}, V={v})")
+    lib = build.load("topk_softmax")
+    fn = lib.topk_softmax_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    dev = feats.device
+    m = torch.empty(n, dtype=torch.float32, device=dev)
+    s = torch.empty(n, dtype=torch.float32, device=dev)
+    vals = torch.empty(n, k, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, k, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(feats.data_ptr(), weights.data_ptr(), n, d, v, k,
+                float(scale), m.data_ptr(), s.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), stream)
+    build.check(rc, "topk_softmax")
+    topk_softmax_cuda.launches += 1
+    return m, s, vals, idx
+
+
+topk_softmax_cuda.launches = 0

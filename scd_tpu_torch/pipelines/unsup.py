@@ -1,0 +1,245 @@
+"""Unsupervised SCD pipeline — the ``main_unsup.py`` equivalent, in PyTorch.
+
+Port of ``scd_tpu/pipelines/unsup.py::run_unsup`` from the stage cache
+onward: cached features -> clustering (KM / SSKM) -> ACC v2 -> vocabulary
++ zero-shot weights -> per-image top-k names (the ``topk_softmax`` kernel)
+-> iterative voting loop with per-iteration ACC/sACC/Soft-sACC printouts
+-> name-set IoU.  The metric lines are byte-identical to the JAX
+package's.  Extraction, the vocabulary build and the synthetic dataset
+come with later slices (ROADMAP).
+
+Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name imagenet_100
+--root_dir ROOT --cache_dir CACHE --cluster SSKM --n_cluster 100 --corpus
+wordnet --device cuda`` with the features and zero-shot caches present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict
+
+import numpy as np
+
+from scd_tpu_torch.core.cache import tensors_from_arrays
+from scd_tpu_torch.core.config import (
+    ClusterConfig,
+    DataConfig,
+    FeatureConfig,
+    MeshConfig,
+    NamingConfig,
+    PipelineConfig,
+)
+from scd_tpu_torch.core.device import resolve_device
+from scd_tpu_torch.data import get_class_splits, get_datasets
+from scd_tpu_torch.metrics import name_set_iou, split_cluster_acc_v2
+from scd_tpu_torch.naming.classnames import (remap_cidx_to_cname,
+                                             resolve_class_names)
+from scd_tpu_torch.naming.loop import voting_loop
+from scd_tpu_torch.naming.vote import topk_names
+from scd_tpu_torch.pipelines.common import (
+    cluster_cache_key,
+    load_shared_features,
+    load_zeroshot_weights,
+    print_acc_block,
+    run_clustering,
+    stage_cache,
+)
+
+
+def load_vocabulary(cfg: PipelineConfig, extras: Dict):
+    """Returns (nouns, taxonomy_or_None).  Corpus names follow the reference
+    (wordnet | wikibird | wikidog | a path, ``clip_lang_util.py:139-149``)."""
+    corpus = cfg.naming.corpus
+    if cfg.data.dataset_name == "synthetic" or corpus == "synthetic":
+        raise NotImplementedError(
+            "the synthetic vocabulary needs models/synthetic.py, which the "
+            "port gains with ROADMAP's slice (c) (asset-free synthetic run)")
+
+    taxonomy = None
+    if corpus == "wordnet":
+        from scd_tpu_torch.naming.wordnet import Taxonomy
+
+        if cfg.data.wordnet_db_dir:
+            taxonomy = Taxonomy.from_wndb(cfg.data.wordnet_db_dir)
+        else:
+            taxonomy = Taxonomy.from_nltk()
+        path = os.path.join(cfg.data.corpus_dir, "wordnet_all_noun.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                nouns = [line.rstrip("\n") for line in f]
+        else:
+            nouns = taxonomy.all_names()
+    elif corpus in ("wikibird", "wikidog"):
+        fname = ("wiki_birdclass_names.txt" if corpus == "wikibird"
+                 else "wiki_dogclass_names.txt")
+        with open(os.path.join(cfg.data.corpus_dir, fname)) as f:
+            nouns = [line.rstrip("\n") for line in f]
+        nouns = [n.lower().replace("'s", "").replace(" ", "_") for n in nouns]
+    else:
+        with open(corpus) as f:
+            nouns = [line.rstrip("\n") for line in f]
+    nouns = [n.lower().replace("-", "_") for n in nouns]
+    return nouns, taxonomy
+
+
+def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
+    """The unsupervised pipeline on ``device`` (``"cuda"`` unless the
+    caller asks for ``"cpu"``; no card raises).  Returns the JAX package's
+    result dict plus ``stage_seconds`` (host clock per stage; each stage
+    ends in a host fetch, so the times include the device work)."""
+    dev = resolve_device(device)
+    stage_seconds: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    cache = stage_cache(cfg)
+    train_classes, unlabeled_classes = get_class_splits(cfg.data)
+    _train, _test, _unlab, extras = get_datasets(cfg.data)
+    feats, clip_feats = load_shared_features(cfg, cache)
+    stage_seconds["load"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cluster_result = cache.load_or_compute(
+        "cluster", cluster_cache_key(cfg),
+        lambda: run_clustering(cfg, feats, device=dev),
+        refresh=cfg.run_cluster)
+    stage_seconds["cluster"] = time.perf_counter() - t0
+
+    u_preds = cluster_result["u_preds"].astype(np.int64)
+    u_targets = cluster_result["u_targets"].astype(np.int64)
+    mask = cluster_result["mask"].astype(bool)
+    all_acc, old_acc, new_acc = split_cluster_acc_v2(u_targets, u_preds, mask)
+    print(f"{cfg.cluster.algorithm} Accuracies: All {all_acc} | Old {old_acc} "
+          f"| New {new_acc}")
+
+    t0 = time.perf_counter()
+    nouns, taxonomy = load_vocabulary(cfg, extras)
+    zw = tensors_from_arrays(
+        {"weights": load_zeroshot_weights(cfg, cache)}, dev)["weights"]
+    cidx_to_cname = remap_cidx_to_cname(
+        resolve_class_names(
+            cfg.data.dataset_name, extras, nouns, zw,
+            wnid_to_name=taxonomy.wnid_to_name if taxonomy else None,
+            corpus=cfg.naming.corpus),
+        train_classes, unlabeled_classes)
+    # only the unlabelled rows vote
+    mask_lab = clip_feats["mask_lab"].astype(bool)
+    clip_u_feats = tensors_from_arrays(
+        {"all_feats": clip_feats["all_feats"][~mask_lab]}, dev)["all_feats"]
+    stage_seconds["vocabulary"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    name_idx_u, _vals = topk_names(clip_u_feats, zw, cfg.naming.topk,
+                                   scale=cfg.naming.logit_scale)
+    stage_seconds["topk"] = time.perf_counter() - t0
+
+    name_sim = taxonomy.name_similarity if taxonomy else None
+    eval_soft = cfg.eval_soft_sacc and cfg.data.dataset_name != "cub"
+
+    def metrics_cb(it: int, preds: np.ndarray, cand_names) -> Dict:
+        print(f"iter: {it}")
+        out = print_acc_block("vote", u_targets, preds, mask, cidx_to_cname,
+                              cand_names, name_similarity=name_sim,
+                              eval_soft=eval_soft)
+        out["cand_names"] = list(cand_names)
+        return out
+
+    t0 = time.perf_counter()
+    result = voting_loop(nouns, name_idx_u, clip_u_feats, zw, u_preds,
+                         cfg.cluster.n_clusters, cfg.naming,
+                         metrics_cb=metrics_cb)
+
+    if cfg.naming.textual_enhancement:
+        from scd_tpu_torch.naming.loop import voting_loop_te
+
+        print("-- textual enhancement round --")
+        result = voting_loop_te(nouns, name_idx_u, clip_u_feats, zw, result,
+                                cfg.cluster.n_clusters, cfg.naming,
+                                alpha=cfg.naming.te_alpha,
+                                metrics_cb=metrics_cb)
+    stage_seconds["voting"] = time.perf_counter() - t0
+
+    gt_names = list(cidx_to_cname.values())
+    iou = name_set_iou(result.cand_names, gt_names)
+    print(f"IoU: {iou}")
+
+    return {"cluster_acc": (all_acc, old_acc, new_acc),
+            "voting": result, "iou": iou,
+            "history": result.history,
+            "cidx_to_cname": cidx_to_cname,
+            "stage_seconds": stage_seconds}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Unsupervised SCD pipeline "
+                                            "(PyTorch/CUDA)")
+    p.add_argument("--batch_size", default=256, type=int)
+    p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--root_dir", type=str, default="/data")
+    p.add_argument("--dataset_name", type=str, default="synthetic")
+    p.add_argument("--feat_model", type=str, default="synthetic",
+                   help="synthetic | clip | dino_vit | dino_vit_s | "
+                        "dino_vit_t | vit_supervised | resnet50 | gcd")
+    p.add_argument("--prop_train_labels", type=float, default=0.5)
+    p.add_argument("--cluster", type=str, default="SSKM",
+                   help="KM | SSKM (ConSSKM and FINCH are not ported yet)")
+    p.add_argument("--n_cluster", type=int, default=10)
+    p.add_argument("--cluster_size_min", type=int, default=0)
+    p.add_argument("--cluster_size_max", type=int, default=10 ** 9)
+    p.add_argument("--corpus", type=str, default="synthetic")
+    p.add_argument("--topk", type=int, default=5)
+    p.add_argument("--num_common_vote", type=int, default=20)
+    p.add_argument("--num_common_linear", type=int, default=4)
+    p.add_argument("--te", action="store_true",
+                   help="textual-enhancement re-ranking round (w/TE)")
+    p.add_argument("--te_alpha", type=float, default=0.5)
+    p.add_argument("--extract_feat", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="W8A8 int8 towers (kept for config parity; the "
+                        "towers are not ported yet)")
+    p.add_argument("--run_cluster", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--cache_dir", type=str, default="artifacts")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="data-axis size (kept for config parity)")
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a card) | cpu")
+    return p
+
+
+def config_from_args(args, partially_supervised: bool = False) -> PipelineConfig:
+    """The same PipelineConfig the JAX package builds from the same flags,
+    so both derive the same cache keys."""
+    return PipelineConfig(
+        mesh=MeshConfig(data=getattr(args, "mesh_data", 0),
+                        model=getattr(args, "mesh_model", 1)),
+        data=DataConfig(dataset_name=args.dataset_name, root_dir=args.root_dir,
+                        prop_train_labels=args.prop_train_labels,
+                        batch_size=args.batch_size,
+                        num_workers=args.num_workers,
+                        cache_dir=args.cache_dir),
+        feature=FeatureConfig(feat_model=args.feat_model,
+                              dense_int8=getattr(args, 'int8', False)),
+        cluster=ClusterConfig(algorithm=args.cluster,
+                              n_clusters=args.n_cluster,
+                              size_min=args.cluster_size_min,
+                              size_max=args.cluster_size_max),
+        naming=NamingConfig(corpus=args.corpus, topk=args.topk,
+                            num_common_vote=args.num_common_vote,
+                            num_common_linear=args.num_common_linear,
+                            textual_enhancement=args.te,
+                            te_alpha=args.te_alpha),
+        partially_supervised=partially_supervised,
+        extract_feat=args.extract_feat,
+        run_cluster=args.run_cluster,
+    )
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    return run_unsup(config_from_args(args), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

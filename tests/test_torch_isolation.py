@@ -1,0 +1,37 @@
+"""The port imports neither JAX nor anything of the JAX package.
+
+A fresh interpreter imports every ``scd_tpu_torch`` module and
+``chip_smoke``, then looks at ``sys.modules``.  ``scd_tpu_torch`` itself
+starts with ``scd_tpu``, so the check matches the JAX package by exact name
+or the ``scd_tpu.`` prefix.
+"""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import scd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(scd_tpu_torch.__path__,
+                                              "scd_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "scd_tpu" or m.startswith("scd_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_scd_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    n_modules, bad = res.stdout.strip().split(" ", 1)
+    assert int(n_modules) >= 25
+    assert bad == "[]", bad

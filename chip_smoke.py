@@ -6,20 +6,36 @@
 Phases, each printing its own lines and seconds:
 
 1. device and build: the card's name and power limit (``nvidia-smi``),
-   then both CUDA kernels built from ``scd_tpu_torch/csrc`` (one ``nvcc``
+   then every CUDA kernel built from ``scd_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) with the compiler's register report;
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes and at edge shapes, with the stated
-   tolerances; the fused EM kernel must also repeat its bits exactly;
-3. the main path: an ImageNet-100-scale root fabricated from ``--seed``
-   (N = 130,048 images, 768-d / 512-d features, V = 68,000 nouns) and
-   ``scd_tpu_torch.pipelines.unsup.run_unsup`` with SSKM, K = 100,
-   n_init = 10, max_iterations = 10, with every kernel's launch count set
-   to 0 just before and read just after; ACC and IoU must clear floors,
-   and on a small root the run on the card must print the same metric
-   lines as the same run on the CPU (plain versions);
-4. timing at the main path's shapes: each kernel, its plain version and a
+   card, at the main paths' shapes and at edge shapes, with the stated
+   tolerances; every kernel must also repeat its bits exactly;
+3. the warm main path: an ImageNet-100-scale root fabricated from
+   ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
+   nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
+   cache with SSKM, K = 100, n_init = 10, max_iterations = 10; ACC and IoU
+   must clear floors, and on a small root the run on the card must print
+   the same metric lines as the same run on the CPU (plain versions);
+4. the cold main path under ``--int8``: a root with N = 10,000 ImageNet-100
+   images (224 x 224 x 3 uint8 made from ``(seed, path)`` at load time),
+   V = 8,000 names, and full-width DINO ViT-B/16 and CLIP ViT-B/16 (image
+   and text) weights and a BPE merges file fabricated from the seed;
+   ``run_unsup`` with empty caches extracts features through both image
+   towers, builds the vocabulary through the text tower, then clusters,
+   names and votes.  8 images' features and 64 names' columns are held
+   against the same computed on the CPU (plain versions, f32), one DINO
+   pass with ``pad_seq_to=0`` over 256 images drives ``w8a8_prequant``
+   and is held against the CPU too, and the int8 features' cosine to the
+   bf16 towers' is printed;
+5. timing at the main paths' shapes: each kernel, its plain version and a
    yardstick PyTorch call, beside the least time the card could take.
+
+Each main path runs with every kernel's launch count set to 0 just before
+it and read just after; a kernel of the path that never launched fails
+the run.  The ``kernels`` line reports ``topk_softmax`` and
+``fused_em_step`` from phase 3, ``w8a8_fusedq`` from phase 4's
+``run_unsup`` and ``w8a8_prequant`` from phase 4's ``pad_seq_to=0`` pass.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -41,10 +57,13 @@ import time
 
 # published H100 SXM peaks (NVIDIA data sheet), used for the bound only
 PEAK_F32_FLOPS = 67e12     # f32 FMA outside the tensor cores
+PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12   # HBM3
 
 N_IMAGES, D_FEAT, D_CLIP, VOCAB, K = 130_048, 768, 512, 68_000, 100
 TOPK = 5
+# the cold path: images, vocabulary, extraction batch, padded ViT sequence
+COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
 
 # tolerances, with their reasons:
 # - top-k logits are scale * f32 dot products summed in another order than
@@ -58,6 +77,20 @@ EM_DIST_TOL = 1e-4
 #   each summed in another order than the plain version's matmul
 EM_SUM_RTOL, EM_SUM_ATOL = 1e-4, 1e-4
 EM_INERTIA_RTOL = 1e-4
+# - W8A8: the kernels repeat the plain versions' arithmetic step by step
+#   (IEEE division, round half to even, exact int32 products, each dequant
+#   step rounded), so outputs before the activation are equal; after it
+#   exp / tanh / erf may differ in the last f32 bit: at most one bf16 ulp
+#   (|v| * 2^-7) in bf16, W8A8_F32_RTOL relative in f32
+W8A8_F32_RTOL = 2e-6
+# - towers on the card (bf16 activations, int8 kernels) against the CPU
+#   (f32 activations, the plain int8 chain): bf16 rounding through 12
+#   blocks of random weights, and the int8 rounding flips it causes.  Read
+#   on an H100 at this seed: min 0.999866 (DINO), 0.999959 (CLIP image),
+#   0.999979 (zero-shot columns).  The whole int8-vs-bf16 gap of the DINO
+#   tower reads 0.999785 mean, 0.999730 min, so the limit lies between the
+#   two: a card path that skipped the quantization fails it
+TOWER_COS_TOL = 0.9998
 # floors of the fabricated structure (class signal far above the noise)
 ACC_FLOOR, IOU_FLOOR = 0.90, 0.80
 
@@ -104,13 +137,13 @@ def phase_build():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
-    reports = build.build(["topk_softmax", "fused_em"])
+    reports = build.build(["topk_softmax", "fused_em", "w8a8"])
     for name, log in reports.items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
-    build.load("topk_softmax")
-    build.load("fused_em")
+    for name in ("topk_softmax", "fused_em", "w8a8"):
+        build.load(name)
     print(f"built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -223,11 +256,118 @@ def em_parity(n, d, k, gen, masked=False, x_bf16=False, tag=""):
     return err
 
 
+def w8a8_inputs(n, d, f, gen):
+    """bf16 activations, weights prepared as the towers prepare them."""
+    import torch
+
+    from scd_tpu_torch.ops import w8a8
+
+    x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    wq_t, s_w = w8a8.prepare_weight(
+        0.02 * torch.randn(d, f, generator=gen, device="cuda"))
+    bias = 0.1 * torch.randn(f, generator=gen, device="cuda")
+    return x, wq_t, s_w, bias
+
+
+def _w8a8_check(got, want, act, tag):
+    """The W8A8 contract (see W8A8_F32_RTOL); returns max abs error."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if act is None:
+        check(torch.equal(got, want), f"{tag}: not bit-equal before the "
+              f"activation (max abs err {err.max().item():.3e})")
+    elif got.dtype == torch.bfloat16:
+        check(bool((err <= want.float().abs() * 2.0 ** -7).all()),
+              f"{tag}: beyond one bf16 ulp")
+    else:
+        check(bool((err <= want.abs() * W8A8_F32_RTOL + 1e-7).all()),
+              f"{tag}: beyond {W8A8_F32_RTOL} relative")
+    return err.max().item()
+
+
+def fusedq_parity(n, d, f, act, out, gen, tag):
+    import torch
+
+    from scd_tpu_torch.ops import w8a8
+
+    x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
+    want = w8a8.dense_w8a8_fusedq_plain(x, wq_t, s_w, bias, out, act)
+    got = w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, out, act)
+    again = w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, out, act)
+    torch.cuda.synchronize()
+    name = f"w8a8_fusedq {tag}"
+    check(torch.equal(got, again), f"{name}: two runs differ")
+    err = _w8a8_check(got, want, act, name)
+    if act is not None:  # and before the activation, bit-equal
+        pre = w8a8.dense_w8a8_fusedq_plain(x, wq_t, s_w, bias, out, None)
+        _w8a8_check(w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, out, None),
+                    pre, None, f"{name} pre-activation")
+    print(f"  {name} N={n} D={d} F={f} act={act} out={str(out)[6:]}: max "
+          f"abs err {err:.3e}")
+    return err
+
+
+def prequant_parity(shape, f, out, gen, tag):
+    import torch
+
+    from scd_tpu_torch.ops import w8a8
+
+    d = shape[-1]
+    n = 1
+    for s_ in shape[:-1]:
+        n *= s_
+    x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
+    xq, s_x = w8a8.quantize_rows(x.reshape(*shape))
+    fn = w8a8.dense_w8a8_3d if len(shape) == 3 else w8a8.dense_w8a8
+    got = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
+    again = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"w8a8_prequant {tag}: two runs differ")
+    want = w8a8.dense_w8a8_plain(xq.reshape(n, d), wq_t, s_x, s_w, bias,
+                                 out).reshape(got.shape)
+    err = _w8a8_check(got, want, None, f"w8a8_prequant {tag}")
+    # the int32 accumulators themselves: unit scales, zero bias, f32 out
+    acc = w8a8.w8a8_prequant_cuda(
+        xq.reshape(n, d), torch.ones(n, device="cuda"), wq_t,
+        torch.ones(f, device="cuda"), torch.zeros(f, device="cuda"),
+        torch.float32)
+    check(d * 127 * 127 < 2 ** 24 and torch.equal(
+        acc.double(), xq.reshape(n, d).double() @ wq_t.double().t()),
+        f"w8a8_prequant {tag}: int32 accumulators differ")
+    print(f"  w8a8_prequant {tag} shape={tuple(shape)} F={f} "
+          f"out={str(out)[6:]}: max abs err {err:.3e}, accumulators equal")
+    return err
+
+
 def phase_parity(seed: int):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     errs = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_img = BATCH * L_PAD  # one padded image batch: 26,624 rows
+    errs["w8a8_fusedq"] = max(
+        fusedq_parity(n_img, 768, 2_304, None, bf16, gen, "vit-qkv"),
+        fusedq_parity(n_img, 768, 3_072, "gelu_tanh", bf16, gen,
+                      "dino-fc1"),
+        fusedq_parity(n_img, 768, 3_072, "quick_gelu", bf16, gen,
+                      "clip-fc1"),
+        fusedq_parity(64 * 80 * 16, 512, 1_536, None, bf16, gen,
+                      "text-qkv-L16"),
+        fusedq_parity(64 * 80 * 32, 512, 2_048, "quick_gelu", bf16, gen,
+                      "text-fc1-L32"))
+    fusedq_parity(1_001, 768, 200, "gelu", f32, gen, "edge-ragged")
+    fusedq_parity(129, 64, 130, "gelu_tanh", f32, gen, "edge-tiny")
+    fusedq_parity(3_000, 512, 1_000, "quick_gelu", f32, gen, "edge-f32")
+    fusedq_parity(77, 16, 9, None, bf16, gen, "edge-d16")
+    fusedq_parity(300, 80, 129, "quick_gelu", bf16, gen, "edge-d80")
+    fusedq_parity(500, 1_536, 300, "gelu_tanh", bf16, gen, "edge-d1536")
+    errs["w8a8_prequant"] = max(
+        prequant_parity((BATCH, L_VIT, 768), 2_304, bf16, gen, "vit-qkv-L197"),
+        prequant_parity((BATCH, L_VIT, 768), 3_072, bf16, gen, "vit-fc1-L197"))
+    prequant_parity((1_001, 512), 200, f32, gen, "edge-ragged")
+    prequant_parity((3, 13, 64), 130, f32, gen, "edge-3d")
     errs["topk_softmax"] = topk_parity(N_IMAGES - 32_512, D_CLIP, VOCAB,
                                        TOPK, gen, tag="slice")[0]
     topk_parity(1_005, 64, 1_003, 1, gen, tag="edge-k1")
@@ -327,6 +467,307 @@ def phase_main_path(seed: int, workdir: str):
 
 # ------------------------------------------------------------- phase 4
 
+def _reset_counts():
+    from scd_tpu_torch.ops import em, topk, w8a8
+
+    for fn in (topk.topk_softmax_cuda, em.fused_em_step_cuda,
+               w8a8.w8a8_fusedq_cuda, w8a8.w8a8_prequant_cuda):
+        fn.launches = 0
+
+
+def _counts():
+    from scd_tpu_torch.ops import em, topk, w8a8
+
+    return {"topk_softmax": topk.topk_softmax_cuda.launches,
+            "fused_em_step": em.fused_em_step_cuda.launches,
+            "w8a8_fusedq": w8a8.w8a8_fusedq_cuda.launches,
+            "w8a8_prequant": w8a8.w8a8_prequant_cuda.launches}
+
+
+def _row_cos(a, b):
+    import numpy as np
+    import torch
+
+    a, b = np.asarray(a) if not isinstance(a, torch.Tensor) else a, \
+        np.asarray(b) if not isinstance(b, torch.Tensor) else b
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)))
+
+
+def _towers(cfg, device, dtype, int8, pad_seq_to="auto"):
+    """The cold root's CLIP model and DINO tower at ``dtype`` compute."""
+    import dataclasses
+
+    import torch
+
+    from scd_tpu_torch.models import (CLIPModel, VisionTransformer,
+                                      clip_vit_b16_config,
+                                      dino_vit_b16_config, load_dino_weights,
+                                      load_openai_clip_weights,
+                                      params_from_flax)
+
+    ccfg = clip_vit_b16_config(dtype, dense_int8=int8)
+    dcfg = dataclasses.replace(
+        dino_vit_b16_config(dtype, gelu_tanh=cfg.feature.gelu_tanh,
+                            dense_int8=int8), pad_seq_to=pad_seq_to)
+    clip = CLIPModel(ccfg, device=device)
+    clip.load_state_dict(params_from_flax(load_openai_clip_weights(
+        torch.load(cfg.data.clip_weights), ccfg)))
+    dino = VisionTransformer(dcfg, device=device)
+    dino.load_state_dict(params_from_flax(load_dino_weights(
+        torch.load(cfg.data.dino_weights), dcfg)))
+    return clip.eval(), dino.eval()
+
+
+def phase_cold(seed: int, workdir: str):
+    """The cold main path at full width and depth under --int8."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.core.cache import ArtifactCache
+    from scd_tpu_torch.data import get_datasets
+    from scd_tpu_torch.data.transforms import device_normalize_clip
+    from scd_tpu_torch.models import (CLIPTokenizer, clip_vit_b16_config,
+                                      dino_vit_b16_config)
+    from scd_tpu_torch.naming.templates import IMAGENET_TEMPLATES
+    from scd_tpu_torch.naming.zeroshot import (build_zeroshot_weights,
+                                               truncate_to_eot_bucket)
+    from scd_tpu_torch.pipelines.common import (feature_cache_key,
+                                                pipeline_transform)
+    from scd_tpu_torch.pipelines.unsup import run_unsup
+    from scd_tpu_torch.testing.fabricate import (cold_config,
+                                                 fabricate_cold_root,
+                                                 fabricated_images)
+
+    t0 = time.perf_counter()
+    cfg = cold_config(os.path.join(workdir, "cold"), dense_int8=True,
+                      batch_size=BATCH, num_workers=8)
+    info = fabricate_cold_root(
+        cfg, clip_vit_b16_config(dense_int8=True),
+        dino_vit_b16_config(gelu_tanh=cfg.feature.gelu_tanh,
+                            dense_int8=True),
+        seed=seed, n_images=COLD_IMAGES, vocab=COLD_VOCAB)
+    print(f"fabricated N={COLD_IMAGES} images, V={len(info['nouns'])} "
+          f"names, CLIP ViT-B/16 + DINO ViT-B/16 weights and merges in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with fabricated_images(seed), contextlib.redirect_stdout(out):
+        res = run_unsup(cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    lines = _metric_lines(out.getvalue())
+    for ln in lines[:3] + lines[-2:]:
+        print("  " + ln)
+    print("stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["stage_seconds"].items())
+        + f" | run_unsup {wall:.3f} s")
+    print(f"launches in the cold run_unsup: {launches}")
+    check(all(launches[k] > 0 for k in ("w8a8_fusedq", "topk_softmax",
+                                         "fused_em_step")),
+          f"a kernel of the cold path never launched: {launches}")
+    print(f"cold ACC {res['cluster_acc'][0]:.4f} (SSKM), voted "
+          f"{res['history'][-1]['all_acc']:.4f}, IoU {res['iou']:.4f} "
+          "(random weights: no floor)")
+
+    # ---- the card's outputs against the CPU's (plain versions, f32)
+    store = ArtifactCache(cfg.data.cache_dir)
+    feats = store.load("features", feature_cache_key(cfg, "feat"))
+    clip_feats = store.load("features", feature_cache_key(cfg, "clip"))
+    zw = store.load("zeroshot", feature_cache_key(cfg, "zw_wordnet"))
+    for name, arr in (("feat", feats["all_feats"]),
+                      ("clip", clip_feats["all_feats"]),
+                      ("zeroshot", zw["weights"])):
+        check(bool(np.isfinite(arr).all()), f"cold {name}: non-finite")
+    check(feats["all_feats"].shape == (COLD_IMAGES, D_FEAT)
+          and clip_feats["all_feats"].shape == (COLD_IMAGES, D_CLIP)
+          and zw["weights"].shape == (D_CLIP, COLD_VOCAB),
+          "cold caches: unexpected shapes")
+    tf = pipeline_transform(cfg)
+    with fabricated_images(seed):
+        train, _t, _u, _e = get_datasets(cfg.data, train_transform=tf,
+                                         test_transform=tf)
+        images = np.stack([train[i][0] for i in range(256)])
+    t0 = time.perf_counter()
+    cpu_clip, cpu_dino = _towers(cfg, "cpu", torch.float32, True)
+    x8 = device_normalize_clip(torch.from_numpy(images[:8]))
+    with torch.inference_mode():
+        ref_feat = cpu_dino(x8).numpy()
+        ref_clip = cpu_clip.encode_image(x8).numpy()
+    cos_feat = _row_cos(feats["all_feats"][:8], ref_feat).min().item()
+    cos_clip = _row_cos(clip_feats["all_feats"][:8], ref_clip).min().item()
+    tok = CLIPTokenizer(os.path.join(cfg.data.corpus_dir,
+                                     "bpe_simple_vocab_16e6.txt.gz"))
+    nouns = info["nouns"]
+    cols = np.linspace(0, len(nouns) - 1, 64).round().astype(int)
+
+    def cpu_text(texts):
+        toks = truncate_to_eot_bucket(np.asarray(tok(texts), np.int32))
+        with torch.inference_mode():
+            return cpu_clip.encode_text(torch.from_numpy(toks)).numpy()
+
+    ref_zw = build_zeroshot_weights(cpu_text, [nouns[c] for c in cols],
+                                    IMAGENET_TEMPLATES)
+    cos_zw = _row_cos(zw["weights"][:, cols].T, ref_zw.T).min().item()
+    print(f"card vs CPU (f32, plain int8 chain), min cosine: 8 DINO "
+          f"features {cos_feat:.6f}, 8 CLIP features {cos_clip:.6f}, 64 "
+          f"zero-shot columns {cos_zw:.6f} (tolerance {TOWER_COS_TOL}; "
+          f"{time.perf_counter() - t0:.1f} s on the CPU)")
+    check(min(cos_feat, cos_clip, cos_zw) >= TOWER_COS_TOL,
+          "cold path: the card disagrees with the CPU")
+
+    # ---- the unpadded DINO tower: w8a8_prequant on a path
+    _, dino0 = _towers(cfg, "cuda", torch.bfloat16, True, pad_seq_to=0)
+    x256 = device_normalize_clip(torch.from_numpy(images).cuda())
+    _reset_counts()
+    with torch.inference_mode():
+        f0 = torch.cat([dino0(x256[i:i + BATCH])
+                        for i in range(0, 256, BATCH)])
+    torch.cuda.synchronize()
+    pad0 = _counts()
+    print(f"launches in the pad_seq_to=0 DINO pass over 256 images: {pad0}")
+    check(pad0["w8a8_prequant"] > 0 and pad0["w8a8_fusedq"] == 0,
+          f"the unpadded tower did not run w8a8_prequant alone: {pad0}")
+    t0 = time.perf_counter()
+    _, cpu_dino0 = _towers(cfg, "cpu", torch.float32, True, pad_seq_to=0)
+    with torch.inference_mode():
+        ref0 = cpu_dino0(device_normalize_clip(torch.from_numpy(images)))
+    cos0 = _row_cos(f0.float().cpu(), ref0).min().item()
+    cos_pad = _row_cos(f0.float().cpu(), feats["all_feats"][:256]).min(
+    ).item()
+    print(f"pad_seq_to=0 DINO (w8a8_prequant) vs CPU, min cosine over 256 "
+          f"images: {cos0:.6f} ({time.perf_counter() - t0:.1f} s on the "
+          f"CPU); vs the padded tower's cached features: {cos_pad:.6f}")
+    check(cos0 >= TOWER_COS_TOL, "pad_seq_to=0 DINO: card disagrees with CPU")
+    del dino0, cpu_dino0, cpu_clip, cpu_dino
+
+    # ---- int8 against the bf16 towers (printed, not gated)
+    bf_clip, bf_dino = _towers(cfg, "cuda", torch.bfloat16, False)
+    with torch.inference_mode():
+        bf_feat = torch.cat([bf_dino(x256[i:i + BATCH])
+                             for i in range(0, 256, BATCH)]).cpu()
+        bf_img = torch.cat([bf_clip.encode_image(x256[i:i + BATCH])
+                            for i in range(0, 256, BATCH)]).cpu()
+    cf = _row_cos(feats["all_feats"][:256], bf_feat)
+    cc = _row_cos(clip_feats["all_feats"][:256], bf_img)
+    print(f"int8 vs bf16 towers over 256 images, cosine mean / min: DINO "
+          f"{cf.mean().item():.6f} / {cf.min().item():.6f}, CLIP "
+          f"{cc.mean().item():.6f} / {cc.min().item():.6f}")
+
+    # ---- one batch through each tower, int8 against bf16 (device time)
+    q_clip, q_dino = _towers(cfg, "cuda", torch.bfloat16, True)
+    xb = x256[:BATCH]
+    toks = torch.from_numpy(truncate_to_eot_bucket(tok.prompt_tokens(
+        IMAGENET_TEMPLATES, [nouns[c] for c in cols]))).cuda()
+    with torch.inference_mode():
+        for tag, q, b in (
+                ("DINO ViT-B/16, 128 images", lambda: q_dino(xb),
+                 lambda: bf_dino(xb)),
+                ("CLIP image, 128 images", lambda: q_clip.encode_image(xb),
+                 lambda: bf_clip.encode_image(xb)),
+                (f"CLIP text, {toks.shape[0]} prompts x {toks.shape[1]} "
+                 "tokens", lambda: q_clip.encode_text(toks),
+                 lambda: bf_clip.encode_text(toks))):
+            t_q, t_b = cuda_ms(q, reps=5), cuda_ms(b, reps=5)
+            print(f"  tower {tag}: int8 {t_q:.2f} ms, bf16 {t_b:.2f} ms")
+    del bf_clip, bf_dino, q_clip, q_dino
+    return {"w8a8_fusedq": launches["w8a8_fusedq"],
+            "w8a8_prequant": pad0["w8a8_prequant"]}
+
+
+# ------------------------------------------------------------- phase 5
+
+def _w8a8_bound(n, d, f, x_bytes, out_bytes):
+    ops = 2.0 * n * d * f
+    nbytes = (n * d * x_bytes + d * f + 8.0 * f + n * out_bytes * f
+              + (4.0 * n if x_bytes == 1 else 0.0))
+    by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_HBM_BYTES \
+        else "bytes"
+    return max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3, by, ops
+
+
+def time_w8a8(gen):
+    """Both W8A8 entry points at the towers' shapes: kernel, plain, the
+    yardstick (``torch._int_mm`` with the same quantization chain and
+    dequant), and the bf16 ``F.linear`` of the same layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from scd_tpu_torch.ops import w8a8
+
+    bf16 = torch.bfloat16
+    out = {}
+    shapes = [("vit-qkv", BATCH * L_PAD, 768, 2_304, None),
+              ("vit-fc1", BATCH * L_PAD, 768, 3_072, "gelu_tanh"),
+              ("text-qkv", 64 * 80 * 32, 512, 1_536, None),
+              ("text-fc1", 64 * 80 * 32, 512, 2_048, "quick_gelu")]
+    for tag, n, d, f, act in shapes:
+        x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
+        wq, w_bf = wq_t.t().contiguous(), (wq_t.float().t() * s_w).to(bf16)
+
+        def library():
+            xq, s_x = w8a8.quantize_rows(x)
+            y = torch._int_mm(xq, wq).float() * s_x * s_w + bias
+            return w8a8.act_plain(y, act).to(bf16)
+
+        ms = cuda_ms(lambda: w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, bf16,
+                                                   act), reps=20, warmup=2)
+        ms_again = cuda_ms(lambda: w8a8.w8a8_fusedq_cuda(
+            x, wq_t, s_w, bias, bf16, act), reps=20, warmup=2)
+        plain = cuda_ms(lambda: w8a8.dense_w8a8_fusedq_plain(
+            x, wq_t, s_w, bias, bf16, act), reps=3)
+        lib = cuda_ms(library, reps=20, warmup=2)
+        lin = cuda_ms(lambda: F.linear(x, w_bf.t(), bias.to(bf16)), reps=20,
+                      warmup=2)
+        bound, by, ops = _w8a8_bound(n, d, f, 2, 2)
+        print(f"  w8a8_fusedq {tag} N={n} D={d} F={f} act={act}: kernel "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s; again "
+              f"{ms_again:.4f} ms), plain "
+              f"{plain:.4f} ms, library (_int_mm chain) {lib:.4f} ms, bf16 "
+              f"F.linear {lin:.4f} ms, bound {bound:.4f} ms ({by})")
+        out.setdefault("w8a8_fusedq", (ms, plain, lib, bound, by))
+    n, d, f = BATCH * L_VIT, 768, 2_304
+    x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
+    xq, s_x = w8a8.quantize_rows(x)
+    wq = wq_t.t().contiguous()
+    ms = cuda_ms(lambda: w8a8.w8a8_prequant_cuda(xq, s_x, wq_t, s_w, bias,
+                                                 bf16), reps=20, warmup=2)
+    plain = cuda_ms(lambda: w8a8.dense_w8a8_plain(xq, wq_t, s_x, s_w, bias,
+                                                  bf16), reps=3)
+    lib = cuda_ms(lambda: (torch._int_mm(xq, wq).float() * s_x * s_w
+                           + bias).to(bf16), reps=20, warmup=2)
+    bound, by, ops = _w8a8_bound(n, d, f, 1, 2)
+    print(f"  w8a8_prequant vit-qkv-L197 N={n} D={d} F={f}: kernel "
+          f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s), plain {plain:.4f} ms, "
+          f"library (_int_mm + dequant) {lib:.4f} ms, bound {bound:.4f} ms "
+          f"({by})")
+    out["w8a8_prequant"] = (ms, plain, lib, bound, by)
+    return out
+
+
+def bounds_to_port():
+    """The least time of the TPU kernels still to port, at the shapes of
+    the paths that will run them (computed, not measured)."""
+
+    def line(what, ops, peak, nbytes):
+        t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
+        by = "operations" if t_ops > t_bytes else "bytes"
+        print(f"  bound {what}: {max(t_ops, t_bytes) * 1e3:.4f} ms ({by})")
+
+    n, d, k = N_IMAGES - 32_512, D_FEAT, K  # row 1: the EM shape, f32 x
+    line(f"estep_assign (pallas_kernels.py:86) N={n} D={d} K={k} f32",
+         2.0 * n * k * d + n * d, PEAK_F32_FLOPS,
+         4.0 * (n * d + k * d) + 8.0 * n)
+    b, length, h, hd = BATCH, L_VIT, 12, 64  # rows 3, 4: ViT-B/16 attention
+    for name, at in (("vit_attention", 309), ("qkv_attention", 392)):
+        # q, k, v (or the packed qkv) read once, the output written once
+        line(f"{name} (pallas_kernels.py:{at}) B={b} L={length} H={h} "
+             f"d={hd} bf16", 4.0 * b * h * length * length * hd, 989e12,
+             4 * 2.0 * b * length * h * hd)
+
+
 def phase_timing(seed: int, estep):
     import torch
 
@@ -383,10 +824,12 @@ def phase_timing(seed: int, estep):
           f"x_bf16={bool(estep[1])}: kernel {t_em:.4f} ms, plain "
           f"{t_em_plain:.4f} ms, library {t_em_lib:.4f} ms, bound "
           f"{em_bound:.4f} ms ({em_by})")
+    bounds_to_port()
     return {
         "topk_softmax": (t_topk, t_topk_plain, t_topk_lib, topk_bound,
                          topk_by),
         "fused_em_step": (t_em, t_em_plain, t_em_lib, em_bound, em_by),
+        **time_w8a8(gen),
     }
 
 
@@ -395,6 +838,11 @@ KERNELS = {
                      "scd_tpu/ops/pallas_kernels.py:203"),
     "fused_em_step": ("scd_tpu_torch/csrc/fused_em.cu",
                       "scd_tpu/ops/pallas_kernels.py:545"),
+    "w8a8_fusedq": ("scd_tpu_torch/csrc/w8a8.cu",
+                    "scd_tpu/ops/pallas_kernels.py:876"),
+    "w8a8_prequant": ("scd_tpu_torch/csrc/w8a8.cu",
+                      "scd_tpu/ops/pallas_kernels.py:760 and "
+                      "scd_tpu/ops/pallas_kernels.py:696"),
 }
 
 
@@ -421,15 +869,20 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     errs = phase_parity(args.seed)
     print(f"phase 2 {time.perf_counter() - t0:.1f} s")
-    section("phase 3: main path (run_unsup, ImageNet-100 scale)")
+    section("phase 3: warm main path (run_unsup, ImageNet-100 scale)")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         launches, estep = phase_main_path(args.seed, workdir)
     print(f"phase 3 {time.perf_counter() - t0:.1f} s")
-    section("phase 4: timing at the main path's shapes")
+    section("phase 4: cold main path (extraction and vocabulary, --int8)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches.update(phase_cold(args.seed, workdir))
+    print(f"phase 4 {time.perf_counter() - t0:.1f} s")
+    section("phase 5: timing at the main paths' shapes")
     t0 = time.perf_counter()
     times = phase_timing(args.seed, estep)
-    print(f"phase 4 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 5 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

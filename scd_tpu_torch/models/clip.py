@@ -1,0 +1,183 @@
+"""CLIP ViT-B/16 (image and text towers) with OpenAI checkpoint loading.
+
+Port of ``scd_tpu/models/clip.py``, non-prefix modes: the visual tower is
+:class:`~scd_tpu_torch.models.vit.VisionTransformer`; the text tower is a
+causal pre-norm transformer over token and position embeddings, pooled at
+the EOT token (the highest id of each row) and projected.  Under the int8
+knob (one knob quantizes both towers) the token sequence is padded to a
+multiple of 16; the causal mask already hides the pad keys from every real
+query, and pooling reads a real position.  The prefix-KV modes (the
+``SCD_PREFIX_VOCAB=1`` vocabulary build) are not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from scd_tpu_torch.models.vit import (Block, LayerNorm, ViTConfig,
+                                      VisionTransformer, _param,
+                                      seq_pad_target)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    vision: ViTConfig
+    vocab_size: int = 49408
+    context_length: int = 77
+    text_width: int = 512
+    text_depth: int = 12
+    text_heads: int = 8
+    embed_dim: int = 512
+    compute_dtype: Any = torch.float32
+
+    def text_block_config(self) -> ViTConfig:
+        """The text tower's block config (QuickGELU, torch's LayerNorm eps;
+        ``dense_int8`` follows the visual tower's)."""
+        return ViTConfig(width=self.text_width, depth=self.text_depth,
+                         heads=self.text_heads, quick_gelu=True,
+                         norm_eps=1e-5, dense_int8=self.vision.dense_int8,
+                         compute_dtype=self.compute_dtype)
+
+
+def clip_vit_b16_config(compute_dtype=torch.float32,
+                        dense_int8: bool = False) -> CLIPConfig:
+    return CLIPConfig(
+        vision=ViTConfig(image_size=224, patch_size=16, width=768, depth=12,
+                         heads=12, quick_gelu=True, pre_post_norm=True,
+                         output_proj=512, patch_bias=False,
+                         dense_int8=dense_int8, norm_eps=1e-5,
+                         compute_dtype=compute_dtype),
+        compute_dtype=compute_dtype)
+
+
+class TextTransformer(nn.Module):
+    """tokens [B, L] int -> text features [B, embed_dim] f32 (not
+    normalized)."""
+
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = _param(cfg.vocab_size, cfg.text_width,
+                                      device=device)
+        self.pos_embed = _param(cfg.context_length, cfg.text_width,
+                                device=device)
+        blk = cfg.text_block_config()
+        for i in range(cfg.text_depth):
+            self.add_module(f"block_{i}", Block(blk, device=device))
+        self.ln_final = LayerNorm(cfg.text_width, 1e-5, device=device)
+        self.text_projection = _param(cfg.text_width, cfg.embed_dim,
+                                      device=device)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        b, length = tokens.shape
+        tokens = tokens.long()
+        x = (self.token_embedding[tokens] + self.pos_embed[None, :length]
+             ).to(c.compute_dtype)
+        pad_to = seq_pad_target(c.text_block_config(), length)
+        if pad_to > length:
+            x = F.pad(x, (0, 0, 0, pad_to - length))
+        for i in range(c.text_depth):
+            x = getattr(self, f"block_{i}")(x, causal=True)
+        x = self.ln_final(x)
+        eot = tokens.argmax(dim=-1)
+        pooled = x[torch.arange(b, device=x.device), eot]
+        return torch.matmul(pooled.float(), self.text_projection)
+
+
+class CLIPModel(nn.Module):
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = VisionTransformer(cfg.vision, device=device)
+        self.text = TextTransformer(cfg, device=device)
+        self.logit_scale = nn.Parameter(
+            torch.tensor(math.log(1 / 0.07), dtype=torch.float32,
+                         device=device), requires_grad=False)
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return self.visual(images)
+
+    def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.text(tokens)
+
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor
+                ) -> torch.Tensor:
+        img = self.encode_image(images)
+        txt = self.encode_text(tokens)
+        img = img / img.norm(dim=-1, keepdim=True)
+        txt = txt / txt.norm(dim=-1, keepdim=True)
+        return self.logit_scale.exp() * img @ txt.t()
+
+
+# ----------------------------------------------------------- weight loading
+
+def _t(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def load_openai_clip_weights(state_dict: Dict[str, Any],
+                             cfg: Optional[CLIPConfig] = None) -> Dict:
+    """An OpenAI CLIP ViT state dict (``visual.transformer.resblocks.N.
+    attn.in_proj_weight`` etc.; torch tensors or numpy arrays) -> the
+    model's parameter tree (``{"params": ...}``, numpy f32, Flax
+    layouts)."""
+    cfg = cfg or clip_vit_b16_config()
+    sd = {k: _t(v.cpu().numpy() if hasattr(v, "cpu") else v)
+          for k, v in state_dict.items()}
+
+    def block_params(prefix: str) -> Dict:
+        return {
+            "norm1": {"scale": sd[f"{prefix}.ln_1.weight"],
+                      "bias": sd[f"{prefix}.ln_1.bias"]},
+            "norm2": {"scale": sd[f"{prefix}.ln_2.weight"],
+                      "bias": sd[f"{prefix}.ln_2.bias"]},
+            "attn": {
+                "qkv": {"kernel": sd[f"{prefix}.attn.in_proj_weight"].T,
+                        "bias": sd[f"{prefix}.attn.in_proj_bias"]},
+                "proj": {"kernel": sd[f"{prefix}.attn.out_proj.weight"].T,
+                         "bias": sd[f"{prefix}.attn.out_proj.bias"]},
+            },
+            "mlp": {
+                "fc1": {"kernel": sd[f"{prefix}.mlp.c_fc.weight"].T,
+                        "bias": sd[f"{prefix}.mlp.c_fc.bias"]},
+                "fc2": {"kernel": sd[f"{prefix}.mlp.c_proj.weight"].T,
+                        "bias": sd[f"{prefix}.mlp.c_proj.bias"]},
+            },
+        }
+
+    visual = {
+        # torch conv [D, 3, P, P] -> [P, P, 3, D]
+        "patch_embed": {"kernel": sd["visual.conv1.weight"].transpose(
+            2, 3, 1, 0)},
+        "cls_token": sd["visual.class_embedding"].reshape(1, 1, -1),
+        "pos_embed": sd["visual.positional_embedding"][None],
+        "ln_pre": {"scale": sd["visual.ln_pre.weight"],
+                   "bias": sd["visual.ln_pre.bias"]},
+        "ln_post": {"scale": sd["visual.ln_post.weight"],
+                    "bias": sd["visual.ln_post.bias"]},
+        "proj": sd["visual.proj"],
+    }
+    for i in range(cfg.vision.depth):
+        visual[f"block_{i}"] = block_params(
+            f"visual.transformer.resblocks.{i}")
+
+    text = {
+        "token_embedding": sd["token_embedding.weight"],
+        "pos_embed": sd["positional_embedding"],
+        "ln_final": {"scale": sd["ln_final.weight"],
+                     "bias": sd["ln_final.bias"]},
+        "text_projection": sd["text_projection"],
+    }
+    for i in range(cfg.text_depth):
+        text[f"block_{i}"] = block_params(f"transformer.resblocks.{i}")
+
+    return {"params": {"visual": visual, "text": text,
+                       "logit_scale": sd["logit_scale"].reshape(())}}

@@ -3,11 +3,10 @@
 Port of ``scd_tpu/naming/classnames.py`` (reference
 ``main_unsup.py:397-502``): build ``cidx_to_cname`` — dataset class index
 -> vocabulary name.  Names missing from the corpus are repaired in the
-reference by matching their text embedding against the vocabulary; that
-needs the CLIP text tower, which comes with the encoder slice (ROADMAP
-"Slice (d): encoders and vocabulary"), so :func:`_match_missing` raises
-when a repair is actually needed.  ImageNet variants never need one: their
-names come straight from the taxonomy.
+reference by matching their prompt-ensembled text embedding against the
+vocabulary columns (:func:`_match_missing`, through the CLIP text tower).
+ImageNet variants never need one: their names come straight from the
+taxonomy.
 """
 
 from __future__ import annotations
@@ -15,23 +14,45 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def _match_missing(miss_names: List[str], candidate_names: List[str],
-                   candidate_weights: np.ndarray,
+                   candidate_weights,
                    encode_text: Optional[Callable],
                    templates: Optional[Sequence[str]],
                    unique: bool = False) -> List[str]:
-    """Match names missing from the corpus to their nearest vocabulary
-    column by text embedding (reference ``main_unsup.py:402-406``).  Not
-    ported yet: needs the text tower of the encoder slice."""
+    """Embed missing names (prompt-ensembled) and match each to its nearest
+    candidate column (reference ``main_unsup.py:402-406``); ``unique`` takes
+    the best not-yet-used candidate column (sdogs/wikidog branch,
+    ``main_unsup.py:461-469``).  ``candidate_weights`` [D, C] may be a
+    numpy array or a tensor."""
+    from scd_tpu_torch.naming.zeroshot import build_zeroshot_weights
+
     if not miss_names:
         return []
-    raise NotImplementedError(
-        f"{len(miss_names)} class name(s) are missing from the corpus "
-        f"(e.g. {miss_names[0]!r}); repairing them needs the CLIP text "
-        "tower, which the port gains with ROADMAP's encoder slice "
-        "(slice (d): encoders and vocabulary)")
+    if isinstance(candidate_weights, torch.Tensor):
+        candidate_weights = candidate_weights.detach().cpu().numpy()
+    w_miss = build_zeroshot_weights(encode_text, miss_names, templates)  # [D,M]
+    logits = w_miss.T @ candidate_weights  # [M, C]
+    if not unique:
+        top1 = logits.argmax(axis=1)
+        return [candidate_names[i] for i in top1]
+    order = np.argsort(-logits, axis=1)
+    matched: List[str] = []
+    used = set()
+    for i in range(len(miss_names)):
+        # uniqueness tracks candidate columns, not name strings
+        for j in range(order.shape[1]):
+            col = int(order[i, j])
+            if col not in used:
+                used.add(col)
+                matched.append(candidate_names[col])
+                break
+        else:
+            # more missing names than candidates: the best match
+            matched.append(candidate_names[int(order[i, 0])])
+    return matched
 
 
 def remap_cidx_to_cname(cidx_to_cname: Dict[int, str],

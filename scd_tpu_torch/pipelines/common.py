@@ -1,20 +1,18 @@
 """Shared pipeline stages for the unsup entry point.
 
-Port of the parts of ``scd_tpu/pipelines/common.py`` that the cached main
-path runs: the artifact cache and its keys, the cache-aware feature and
-zero-shot loaders, clustering (KM, SSKM) and the metric printout.  Every
-stage goes through the ``ArtifactCache`` under the JAX package's keys, so
-either package re-enters the other's caches.
-
-Extraction and the vocabulary build need the encoder towers, which come
-with ROADMAP's encoder slice (slice (d)); until then a cache miss that
-would need them raises.
+Port of the single-device parts of ``scd_tpu/pipelines/common.py``: the
+artifact cache and its keys, feature extraction (one dataset pass feeding
+both image towers, built lazily so a fully cached run loads no weights),
+the zero-shot vocabulary build, clustering (KM, SSKM) and the metric
+printout.  Every stage goes through the ``ArtifactCache`` under the JAX
+package's keys, so either package re-enters the other's caches.
 """
 
 from __future__ import annotations
 
+import collections
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,52 +20,196 @@ import torch
 from scd_tpu_torch.core.cache import ArtifactCache, tensors_from_arrays
 from scd_tpu_torch.core.config import PipelineConfig, config_hash
 from scd_tpu_torch.cluster.kmeans import fit_kmeans, fit_sskm
+from scd_tpu_torch.data.loader import iterate_batches
 from scd_tpu_torch.metrics import (
     evaluate_semantic_acc,
     split_cluster_acc_v2,
 )
 from scd_tpu_torch.metrics.semantic import evaluate_soft_semantic_acc
 
-_ENCODER_SLICE = ("ROADMAP's encoder slice (slice (d): encoders and "
-                  "vocabulary)")
+def _prefetched(batches, depth: int = 2, stage_fn=None):
+    """Stage the next ``depth`` batches (``stage_fn``, e.g. the copy to the
+    device) while the current one is encoded."""
+    stage_fn = stage_fn or (lambda images: images)
+    q = collections.deque()
+
+    def stage(item):
+        images, *rest = item
+        return (stage_fn(images), *rest)
+
+    it = iter(batches)
+    for item in it:
+        q.append(stage(item))
+        if len(q) >= depth:
+            break
+    while q:
+        out = q.popleft()
+        for item in it:
+            q.append(stage(item))
+            break
+        yield out
 
 
-def load_shared_features(cfg: PipelineConfig, cache: ArtifactCache
-                         ) -> Tuple[Dict[str, np.ndarray],
-                                    Dict[str, np.ndarray]]:
-    """The clustering and CLIP feature dicts from the cache, under the JAX
-    package's keys (``feature_cache_key``).  Returns ``(feats,
-    clip_feats)`` as numpy dicts.  A miss, or ``extract_feat``, needs the
-    encoder towers and raises until they are ported."""
-    out = []
-    for which in ("feat", "clip"):
-        key = feature_cache_key(cfg, which)
-        if cfg.extract_feat or not cache.has("features", key):
-            raise NotImplementedError(
-                f"features cache miss for {which!r} (key {key} under "
-                f"{cache.root}): extraction needs the encoder towers, which "
-                f"the port gains with {_ENCODER_SLICE}")
-        out.append(cache.load("features", key))
-    return out[0], out[1]
+def _normalized(f: np.ndarray, normalize: bool) -> np.ndarray:
+    if normalize:
+        f = f / np.maximum(np.linalg.norm(f, axis=-1, keepdims=True), 1e-12)
+    return f
 
 
-def load_zeroshot_weights(cfg: PipelineConfig,
-                          cache: ArtifactCache) -> np.ndarray:
+def extract_features(encode_image: Callable, dataset,
+                     train_classes: Sequence[int], batch_size: int = 256,
+                     num_workers: int = 8,
+                     normalize: bool = True) -> Dict[str, np.ndarray]:
+    """Batched feature extraction with the reference's output contract
+    (``main_unsup.py:114-147``): all_feats (L2-normalized), mask_lab,
+    mask_cls, targets.  ``encode_image.stage``, when present, moves each
+    batch to the device during prefetch."""
+    return extract_features_multi({"feat": encode_image}, dataset,
+                                  train_classes, batch_size, num_workers,
+                                  normalize)["feat"]
+
+
+def extract_features_multi(encoders: Dict[str, Callable], dataset,
+                           train_classes: Sequence[int],
+                           batch_size: int = 256, num_workers: int = 8,
+                           normalize: bool = True
+                           ) -> Dict[str, Dict[str, np.ndarray]]:
+    """One pass over the dataset feeding every encoder (the reference
+    iterates once per encoder, paying decode and transfer twice).  Returns
+    ``{encoder_name: extract_features-style dict}``.  Batches are staged by
+    the encoders' common ``.stage`` when every encoder has one."""
+    stage_fns = [getattr(f, "stage", None) for f in encoders.values()]
+    common_stage = stage_fns[0] if all(
+        s is not None for s in stage_fns) else None
+
+    feats: Dict[str, list] = {k: [] for k in encoders}
+    targets, mask_lab, mask_cls = [], [], []
+    # dataset targets are remapped (labelled classes first), so Old-class
+    # membership is id < n_lab
+    n_lab = len(train_classes)
+    for images, labels, _uq, mlab in _prefetched(
+            iterate_batches(dataset, batch_size, num_workers=num_workers),
+            stage_fn=common_stage):
+        for k, enc in encoders.items():
+            feats[k].append(_normalized(
+                np.asarray(enc(images), np.float32), normalize))
+        targets.append(labels)
+        mask_lab.append(mlab)
+        mask_cls.append(np.asarray(labels) < n_lab)
+    meta = {
+        "targets": np.concatenate(targets).astype(np.float64),
+        "mask_lab": np.concatenate(mask_lab),
+        "mask_cls": np.concatenate(mask_cls),
+    }
+    return {k: {"all_feats": np.concatenate(v), **meta}
+            for k, v in feats.items()}
+
+
+def make_shared_extractor(feat_encode, clip_encode, dataset,
+                          train_classes: Sequence[int], batch_size: int,
+                          num_workers: int,
+                          needed: Sequence[str] = ("feat", "clip")):
+    """Memoized single-pass extraction for the feat + CLIP encoder pair.
+    ``needed``: the feature sets whose cache lookups missed; only those
+    towers run, in one shared dataset pass.  Returns ``extract(key)``."""
+    memo: Dict[str, Dict] = {}
+    by_key = {"feat": feat_encode, "clip": clip_encode}
+
+    def extract(key: str) -> Dict[str, np.ndarray]:
+        if key not in memo:
+            want = set(needed) | {key}
+            encoders = {k: by_key[k] for k in sorted(want)}
+            if encoders.get("clip") is encoders.get("feat"):
+                encoders.pop("clip")  # same tower: run once, alias below
+            memo.update(extract_features_multi(
+                encoders, dataset, train_classes, batch_size, num_workers))
+            if "clip" in want and "clip" not in memo:
+                memo["clip"] = memo["feat"]
+        return memo[key]
+
+    return extract
+
+
+class _LazyProxy:
+    """Call/attribute proxy that builds its target on first use, so a fully
+    cached run constructs no model and loads no weights."""
+
+    def __init__(self, get):
+        self._get = get
+
+    def __call__(self, *a, **kw):
+        return self._get()(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._get(), name)
+
+
+def lazy_encoders(factory) -> Tuple[Callable, Callable, Callable]:
+    """(feat_encode, clip_encode, encode_text) proxies over ``factory()``
+    (a ``build_encoders`` thunk), built at most once and only when an
+    encoder is actually used, i.e. on a cache miss."""
+    memo: list = []
+
+    def built():
+        if not memo:
+            memo.append(factory())
+        return memo[0]
+
+    return (_LazyProxy(lambda: built()[0]), _LazyProxy(lambda: built()[1]),
+            _LazyProxy(lambda: built()[2]))
+
+
+def load_shared_features(cfg: PipelineConfig, cache: ArtifactCache,
+                         feat_encode, clip_encode, dataset,
+                         train_classes: Sequence[int]) -> Tuple[Dict, Dict]:
+    """The clustering and CLIP feature dicts under the JAX package's keys
+    (``feature_cache_key``): loaded from the cache, or extracted in at most
+    one dataset pass for the sets that miss (or all, under
+    ``extract_feat``).  Returns ``(feats, clip_feats)``."""
+    feat_key = feature_cache_key(cfg, "feat")
+    clip_key = feature_cache_key(cfg, "clip")
+    needed = tuple(k for k, ck in (("feat", feat_key), ("clip", clip_key))
+                   if cfg.extract_feat or not cache.has("features", ck))
+    extract = make_shared_extractor(
+        feat_encode, clip_encode, dataset, train_classes,
+        cfg.data.batch_size, cfg.data.num_workers, needed=needed)
+    feats = cache.load_or_compute(
+        "features", feat_key, lambda: extract("feat"),
+        refresh=cfg.extract_feat)
+    clip_feats = cache.load_or_compute(
+        "features", clip_key, lambda: extract("clip"),
+        refresh=cfg.extract_feat)
+    return feats, clip_feats
+
+
+def pipeline_transform(cfg: PipelineConfig):
+    """The mains' transform: CLIP's own preprocess emitting uint8 for
+    on-device normalization (``main_unsup.py:271``); synthetic datasets
+    carry their own arrays (None)."""
+    if cfg.data.dataset_name == "synthetic":
+        return None
+    from scd_tpu_torch.data.transforms import clip_preprocess
+
+    return clip_preprocess(cfg.data.image_size, device_normalize=True)
+
+
+def load_zeroshot_weights(cfg: PipelineConfig, cache: ArtifactCache,
+                          encode_text, nouns) -> np.ndarray:
     """[D, V] zero-shot weights: an explicit ``--zeroshot_weights`` file
     (the reference's precomputed ``zeroshot_weights/*.pt``,
-    ``main_unsup.py:387-395``), else the cached build.  Building it needs
-    the CLIP text tower and raises until it is ported."""
+    ``main_unsup.py:387-395``), else the cached build through the CLIP
+    text tower."""
+    from scd_tpu_torch.naming.templates import IMAGENET_TEMPLATES
+    from scd_tpu_torch.naming.zeroshot import build_zeroshot_weights
+
     if cfg.data.zeroshot_weights:
         return (np.load(cfg.data.zeroshot_weights)["weights"]
                 if cfg.data.zeroshot_weights.endswith(".npz")
                 else np.load(cfg.data.zeroshot_weights))
-    key = feature_cache_key(cfg, f"zw_{cfg.naming.corpus}")
-    if not cache.has("zeroshot", key):
-        raise NotImplementedError(
-            f"zeroshot cache miss (key {key} under {cache.root}): building "
-            f"the vocabulary matrix needs the CLIP text tower, which the "
-            f"port gains with {_ENCODER_SLICE}")
-    return cache.load("zeroshot", key)["weights"]
+    return cache.load_or_compute(
+        "zeroshot", feature_cache_key(cfg, f"zw_{cfg.naming.corpus}"),
+        lambda: {"weights": build_zeroshot_weights(
+            encode_text, nouns, IMAGENET_TEMPLATES)})["weights"]
 
 
 def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],

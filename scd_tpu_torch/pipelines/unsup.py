@@ -1,16 +1,21 @@
 """Unsupervised SCD pipeline — the ``main_unsup.py`` equivalent, in PyTorch.
 
-Port of ``scd_tpu/pipelines/unsup.py::run_unsup`` from the stage cache
-onward: cached features -> clustering (KM / SSKM) -> ACC v2 -> vocabulary
-+ zero-shot weights -> per-image top-k names (the ``topk_softmax`` kernel)
--> iterative voting loop with per-iteration ACC/sACC/Soft-sACC printouts
--> name-set IoU.  The metric lines are byte-identical to the JAX
-package's.  Extraction, the vocabulary build and the synthetic dataset
-come with later slices (ROADMAP).
+Port of ``scd_tpu/pipelines/unsup.py::run_unsup``: encoders (built only
+on a cache miss) -> feature extraction through the DINO and CLIP image
+towers (cached) -> clustering (KM / SSKM) -> ACC v2 -> vocabulary + the
+zero-shot weights through the CLIP text tower (cached) -> per-image top-k
+names (the ``topk_softmax`` kernel) -> iterative voting loop with
+per-iteration ACC/sACC/Soft-sACC printouts -> name-set IoU.  The metric
+lines are byte-identical to the JAX package's.  ``--int8`` runs the towers'
+qkv and fc1 layers through the W8A8 kernels.  The synthetic dataset, the
+``resnet50`` backbone and the other clusterers come with later slices
+(ROADMAP).
 
 Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name imagenet_100
 --root_dir ROOT --cache_dir CACHE --cluster SSKM --n_cluster 100 --corpus
-wordnet --device cuda`` with the features and zero-shot caches present.
+wordnet --device cuda`` with the caches present, or ``run_unsup(cfg)`` with
+the weight paths in ``cfg.data`` (``clip_weights``, ``dino_weights``,
+``corpus_dir`` holding ``bpe_simple_vocab_16e6.txt.gz``).
 """
 
 from __future__ import annotations
@@ -37,15 +42,145 @@ from scd_tpu_torch.metrics import name_set_iou, split_cluster_acc_v2
 from scd_tpu_torch.naming.classnames import (remap_cidx_to_cname,
                                              resolve_class_names)
 from scd_tpu_torch.naming.loop import voting_loop
+from scd_tpu_torch.naming.templates import IMAGENET_TEMPLATES
 from scd_tpu_torch.naming.vote import topk_names
 from scd_tpu_torch.pipelines.common import (
     cluster_cache_key,
+    lazy_encoders,
     load_shared_features,
     load_zeroshot_weights,
+    pipeline_transform,
     print_acc_block,
     run_clustering,
     stage_cache,
 )
+
+
+def vit_feature_backbones() -> Dict:
+    """feat_model -> (ViT config factory, device normalization) for the
+    ViT extraction backbones.  One loader serves every checkpoint (the
+    ``blocks.N.*`` layout).  Normalization follows what each reference
+    branch feeds its model: dino_vit / gcd the mains' CLIP preprocess,
+    dino_vit_s (PASS) and dino_vit_t torchvision ImageNet statistics,
+    vit_supervised mean/std 0/1."""
+    from scd_tpu_torch.data.transforms import (
+        device_normalize_clip,
+        device_normalize_imagenet,
+        device_normalize_unit,
+    )
+    from scd_tpu_torch.models import (
+        dino_vit_b16_config,
+        dino_vit_s16_config,
+        dino_vit_t16_config,
+    )
+
+    return {
+        "dino_vit": (dino_vit_b16_config, device_normalize_clip),
+        "gcd": (dino_vit_b16_config, device_normalize_clip),
+        "vit_supervised": (dino_vit_b16_config, device_normalize_unit),
+        "dino_vit_s": (dino_vit_s16_config, device_normalize_imagenet),
+        "dino_vit_t": (dino_vit_t16_config, device_normalize_imagenet),
+    }
+
+
+def _image_encoder(model, normalize, dev):
+    """``encode(images) -> np.ndarray`` over a tower: uint8 (or already
+    normalized float) NHWC batches, numpy or staged on ``dev`` by
+    ``encode.stage``, normalized on the device."""
+    import torch
+
+    def stage(images):
+        return torch.as_tensor(images).to(dev, non_blocking=True)
+
+    def encode(images):
+        with torch.inference_mode():
+            feats = model(normalize(stage(images)))
+        return feats.cpu().numpy()
+
+    encode.stage = stage
+    return encode
+
+
+def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
+    """Returns (feat_encode_image, clip_encode_image, encode_text), the
+    towers on ``device`` at bf16 compute with f32 LayerNorms (the JAX
+    package's recipe), W8A8 qkv/fc1 under ``cfg.feature.dense_int8``.
+
+    ``encode_text`` also exposes ``forward(model, tokens)``, ``variables``
+    (the CLIP model) and ``tokenize``, which the batched vocabulary build
+    uses."""
+    import torch
+
+    from scd_tpu_torch.data.transforms import device_normalize_clip
+    from scd_tpu_torch.models import (
+        CLIPModel,
+        CLIPTokenizer,
+        VisionTransformer,
+        clip_vit_b16_config,
+        load_dino_weights,
+        load_openai_clip_weights,
+        params_from_flax,
+    )
+    from scd_tpu_torch.naming.zeroshot import truncate_to_eot_bucket
+
+    dev = resolve_device(device)
+    name = cfg.feature.feat_model
+    if cfg.data.dataset_name == "synthetic" or name == "synthetic":
+        raise NotImplementedError(
+            "the synthetic encoders need models/synthetic.py, which the "
+            "port gains with ROADMAP's slice (c) (asset-free synthetic run)")
+    if name == "resnet50":
+        raise NotImplementedError(
+            "the resnet50 backbone is not ported yet (ROADMAP item 12: "
+            "training, models/resnet50.py)")
+    vit_feat_cfgs = vit_feature_backbones()
+    if name != "clip" and name not in vit_feat_cfgs:
+        raise ValueError(f"unknown feat_model {name!r}")
+    if not cfg.data.clip_weights:
+        raise FileNotFoundError(
+            "cfg.data.clip_weights must point to an OpenAI CLIP ViT-B/16 "
+            "checkpoint for non-synthetic datasets")
+
+    clip_cfg = clip_vit_b16_config(compute_dtype=torch.bfloat16,
+                                   dense_int8=cfg.feature.dense_int8)
+    clip_sd = torch.load(cfg.data.clip_weights, map_location="cpu")
+    clip_model = CLIPModel(clip_cfg, device=dev).eval()
+    clip_model.load_state_dict(params_from_flax(load_openai_clip_weights(
+        clip_sd.state_dict() if hasattr(clip_sd, "state_dict") else clip_sd,
+        clip_cfg)))
+    del clip_sd
+    tokenizer = CLIPTokenizer(cfg.data.corpus_dir
+                              + "/bpe_simple_vocab_16e6.txt.gz")
+    clip_encode_image = _image_encoder(clip_model.visual,
+                                       device_normalize_clip, dev)
+
+    def text_forward(model, tokens) -> "torch.Tensor":
+        with torch.inference_mode():
+            return model.encode_text(torch.as_tensor(tokens).to(dev))
+
+    def encode_text(texts) -> np.ndarray:
+        # EOT-bucket truncation is exact (causal tower, EOT pooling)
+        toks = truncate_to_eot_bucket(np.asarray(tokenizer(texts), np.int32))
+        return text_forward(clip_model, toks).cpu().numpy()
+
+    encode_text.forward = text_forward
+    encode_text.variables = clip_model
+    encode_text.tokenize = tokenizer
+
+    if name == "clip":
+        return clip_encode_image, clip_encode_image, encode_text
+    path = (f"{cfg.data.gcd_weights_dir}/"
+            f"{cfg.data.dataset_name}_model_best.pt"
+            if name == "gcd" else cfg.data.dino_weights)
+    cfg_fn, normalize = vit_feat_cfgs[name]
+    vit_cfg = cfg_fn(compute_dtype=torch.bfloat16,
+                     dense_int8=cfg.feature.dense_int8,
+                     gelu_tanh=cfg.feature.gelu_tanh)
+    dino = VisionTransformer(vit_cfg, device=dev).eval()
+    dino.load_state_dict(params_from_flax(load_dino_weights(
+        torch.load(path, map_location="cpu"), vit_cfg)))
+    return _image_encoder(dino, normalize, dev), clip_encode_image, \
+        encode_text
 
 
 def load_vocabulary(cfg: PipelineConfig, extras: Dict):
@@ -94,9 +229,19 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     t0 = time.perf_counter()
     cache = stage_cache(cfg)
     train_classes, unlabeled_classes = get_class_splits(cfg.data)
-    _train, _test, _unlab, extras = get_datasets(cfg.data)
-    feats, clip_feats = load_shared_features(cfg, cache)
+    tf = pipeline_transform(cfg)
+    train_merged, _test, _unlab, extras = get_datasets(
+        cfg.data, train_transform=tf, test_transform=tf)
+    # the encoders build lazily: a fully cached run loads no weights
+    feat_encode, clip_encode, encode_text = lazy_encoders(
+        lambda: build_encoders(cfg, extras, device=dev))
     stage_seconds["load"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    # one dataset pass feeds both towers, for the sets whose caches miss
+    feats, clip_feats = load_shared_features(
+        cfg, cache, feat_encode, clip_encode, train_merged, train_classes)
+    stage_seconds["features"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     cluster_result = cache.load_or_compute(
@@ -114,11 +259,15 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
 
     t0 = time.perf_counter()
     nouns, taxonomy = load_vocabulary(cfg, extras)
-    zw = tensors_from_arrays(
-        {"weights": load_zeroshot_weights(cfg, cache)}, dev)["weights"]
+    stage_seconds["vocabulary"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    zw_np = load_zeroshot_weights(cfg, cache, encode_text, nouns)
+    zw = tensors_from_arrays({"weights": zw_np}, dev)["weights"]
     cidx_to_cname = remap_cidx_to_cname(
         resolve_class_names(
-            cfg.data.dataset_name, extras, nouns, zw,
+            cfg.data.dataset_name, extras, nouns, zw_np, encode_text,
+            IMAGENET_TEMPLATES,
             wnid_to_name=taxonomy.wnid_to_name if taxonomy else None,
             corpus=cfg.naming.corpus),
         train_classes, unlabeled_classes)
@@ -126,7 +275,7 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     mask_lab = clip_feats["mask_lab"].astype(bool)
     clip_u_feats = tensors_from_arrays(
         {"all_feats": clip_feats["all_feats"][~mask_lab]}, dev)["all_feats"]
-    stage_seconds["vocabulary"] = time.perf_counter() - t0
+    stage_seconds["zeroshot"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     name_idx_u, _vals = topk_names(clip_u_feats, zw, cfg.naming.topk,
@@ -195,8 +344,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--te_alpha", type=float, default=0.5)
     p.add_argument("--extract_feat", action="store_true")
     p.add_argument("--int8", action="store_true",
-                   help="W8A8 int8 towers (kept for config parity; the "
-                        "towers are not ported yet)")
+                   help="W8A8 int8 qkv/fc1 layers in the extraction and "
+                        "text towers (the w8a8 CUDA kernels)")
     p.add_argument("--run_cluster", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--cache_dir", type=str, default="artifacts")

@@ -11,13 +11,16 @@ Tolerances: raw top-k logits agree to 2e-3 and softmax values to 5e-4
 (f32 dot products summed in another order than cuBLAS's, at scale 100);
 EM sums to 1e-4 relative + 1e-4 absolute and inertia to 1e-4 relative
 (f32 sums in another order).  The inputs keep every margin far above
-those errors, so indices, labels and counts must be equal.
+those errors, so indices, labels and counts must be equal.  The W8A8
+kernels repeat the plain versions' arithmetic step by step, so their
+outputs are equal before the activation (see each test for after).
 """
 
 import contextlib
 import dataclasses
 import io
 
+import numpy as np
 import pytest
 import torch
 
@@ -138,3 +141,122 @@ def test_run_unsup_card_matches_cpu(cuda, tmp_path):
                       device=dev)
         lines[dev] = buf.getvalue().splitlines()
     assert lines["cuda"] == lines["cpu"]
+
+
+def _w8a8_inputs(cuda, n, d, f, seed):
+    from scd_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=cuda).to(torch.bfloat16)
+    wq_t, s_w = w8a8.prepare_weight(
+        0.02 * torch.randn(d, f, generator=g, device=cuda))
+    bias = 0.1 * torch.randn(f, generator=g, device=cuda)
+    return x, wq_t, s_w, bias
+
+
+def _within_one_bf16_ulp(got, want):
+    # one bf16 ulp of |v| is at most |v| * 2^-7
+    return bool(((got.float() - want.float()).abs()
+                 <= want.float().abs() * 2.0 ** -7 + 1e-30).all())
+
+
+@pytest.mark.parametrize("n,d,f,act,out", [
+    (1_000, 768, 2_304, None, torch.bfloat16),
+    (777, 512, 200, "quick_gelu", torch.float32),
+    (129, 64, 130, "gelu_tanh", torch.bfloat16),
+    (300, 128, 256, "gelu", torch.float32)])
+def test_w8a8_fusedq_kernel_matches_plain(cuda, n, d, f, act, out):
+    """Before the activation the kernel's output equals the plain
+    version's bit for bit (same quantization, exact int32 products, the
+    same rounded dequant steps); after it, within one bf16 ulp (bf16 out)
+    or 2e-6 relative (f32 out): exp, tanh and erf may differ in the last
+    f32 bit."""
+    from scd_tpu_torch.ops import w8a8
+
+    x, wq_t, s_w, bias = _w8a8_inputs(cuda, n, d, f, n + f)
+    before = w8a8.w8a8_fusedq_cuda.launches
+    got = w8a8.dense_w8a8_fusedq(x, wq_t, s_w, bias, out_dtype=out, act=act)
+    assert w8a8.w8a8_fusedq_cuda.launches == before + 1
+    assert torch.equal(got, w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, out,
+                                                  act))
+    want = w8a8.dense_w8a8_fusedq_plain(x, wq_t, s_w, bias, out, act)
+    assert got.shape == (n, f) and got.dtype == out
+    if act is None:
+        assert torch.equal(got, want)
+    elif out == torch.bfloat16:
+        assert _within_one_bf16_ulp(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-7)
+    pre = w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, torch.float32, None)
+    assert torch.equal(pre, w8a8.dense_w8a8_fusedq_plain(
+        x, wq_t, s_w, bias, torch.float32, None))
+
+
+@pytest.mark.parametrize("shape", [(1_003, 768), (4, 197, 512)])
+def test_w8a8_prequant_kernel_matches_plain(cuda, shape):
+    """Pre-quantized x, 2-D and rank 3 (L = 197, the unpadded tower):
+    equal bits to the plain version, f32 and bf16 out; the int32
+    accumulators equal the exact product (unit scales, zero bias)."""
+    from scd_tpu_torch.ops import w8a8
+
+    d, f = shape[-1], 2_000
+    x, wq_t, s_w, bias = _w8a8_inputs(cuda, int(np.prod(shape[:-1])), d, f,
+                                      d)
+    xq, s_x = w8a8.quantize_rows(x.reshape(*shape))
+    fn = w8a8.dense_w8a8_3d if len(shape) == 3 else w8a8.dense_w8a8
+    for out in (torch.float32, torch.bfloat16):
+        before = w8a8.w8a8_prequant_cuda.launches
+        got = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
+        assert w8a8.w8a8_prequant_cuda.launches == before + 1
+        want = w8a8.dense_w8a8_plain(xq.reshape(-1, d), wq_t, s_x, s_w, bias,
+                                     out).reshape(got.shape)
+        assert torch.equal(got, want)
+    n = xq.numel() // d
+    acc = w8a8.w8a8_prequant_cuda(xq.reshape(n, d), torch.ones(n, device=cuda),
+                                  wq_t, torch.ones(f, device=cuda),
+                                  torch.zeros(f, device=cuda), torch.float32)
+    exact = xq.reshape(n, d).double() @ wq_t.double().t()
+    assert torch.equal(acc.double(), exact)  # |acc| < 2^24 at D <= 1040
+
+
+def test_int8dense_routes_by_shape(cuda):
+    """Int8Dense on the card: [B, 208, D] -> w8a8_fusedq (the padded
+    tower), [B, 197, D] or D wider than w8a8_fusedq takes -> the
+    quantization chain + w8a8_prequant."""
+    from scd_tpu_torch.models.vit import Int8Dense
+    from scd_tpu_torch.ops import w8a8
+
+    layer = Int8Dense(64, 96, out_dtype=torch.bfloat16, act="quick_gelu",
+                      device=cuda)
+    with torch.no_grad():
+        layer.kernel.normal_(0, 0.05)
+        layer.bias.normal_(0, 0.1)
+    fq, pq = w8a8.w8a8_fusedq_cuda.launches, w8a8.w8a8_prequant_cuda.launches
+    y = layer(torch.randn(2, 208, 64, device=cuda))
+    assert y.shape == (2, 208, 96) and y.dtype == torch.bfloat16
+    assert w8a8.w8a8_fusedq_cuda.launches == fq + 1
+    y = layer(torch.randn(2, 197, 64, device=cuda))
+    assert y.shape == (2, 197, 96)
+    assert w8a8.w8a8_prequant_cuda.launches == pq + 1
+    d = w8a8.PANEL_MAX_D + 64
+    wide = Int8Dense(d, 32, out_dtype=torch.bfloat16, device=cuda)
+    with torch.no_grad():
+        wide.kernel.normal_(0, 0.05)
+    fq = w8a8.w8a8_fusedq_cuda.launches
+    x = torch.randn(2, 16, d, device=cuda)
+    y = wide(x)
+    assert w8a8.w8a8_fusedq_cuda.launches == fq
+    assert w8a8.w8a8_prequant_cuda.launches == pq + 2
+    wq_t, s_w = w8a8.prepare_weight(wide.kernel)
+    xq, s_x = w8a8.quantize_rows(x.reshape(-1, d))
+    assert torch.equal(y.reshape(-1, 32), w8a8.dense_w8a8_plain(
+        xq, wq_t, s_x, s_w, wide.bias, torch.bfloat16))
+    with pytest.raises(ValueError, match="D <= "):
+        w8a8.w8a8_fusedq_cuda(x.reshape(-1, d).bfloat16(), wq_t, s_w,
+                              wide.bias)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8.w8a8_fusedq_cuda(torch.randn(4, 40, device=cuda).bfloat16(),
+                              torch.zeros(8, 40, dtype=torch.int8,
+                                          device=cuda),
+                              torch.ones(8, device=cuda),
+                              torch.zeros(8, device=cuda))

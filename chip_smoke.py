@@ -29,13 +29,27 @@ Phases, each printing its own lines and seconds:
    and is held against the CPU too, and the int8 features' cosine to the
    bf16 towers' is printed;
 5. timing at the main paths' shapes: each kernel, its plain version and a
-   yardstick PyTorch call, beside the least time the card could take.
+   yardstick PyTorch call, beside the least time the card could take;
+6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
+   tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
+   (ImageNet-100's validation size) in batches of 128 from 100 names'
+   columns, top-5; images/s and p50 / p99 ms per batch; the attention
+   kernel must launch 40 batches x 12 blocks times; 8 images' features
+   are held against the CPU's plain f32 tower and their top-1 names must
+   be equal;
+7. the k-means runners: ``scd_tpu_torch.cluster.runners.main --optimal``
+   over fabricated, L2-normalised ImageNet-100-scale features (130,048 x
+   768, 100 classes) on the card (the ``estep_assign`` kernel) and on the
+   CPU (plain versions): the printed ACC lines must be equal.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
-the run.  The ``kernels`` line reports ``topk_softmax`` and
-``fused_em_step`` from phase 3, ``w8a8_fusedq`` from phase 4's
-``run_unsup`` and ``w8a8_prequant`` from phase 4's ``pad_seq_to=0`` pass.
+the run.  The ``kernels`` line has one row per TPU kernel of
+``scd_tpu/ops/pallas_kernels.py``: ``topk_softmax`` and ``fused_em_step``
+with phase 3's launches, ``w8a8_fusedq`` with phase 4's ``run_unsup``,
+``dense_w8a8`` and ``dense_w8a8_3d`` (one kernel, ``w8a8_prequant``) with
+phase 4's ``pad_seq_to=0`` pass, ``vit_attention`` and ``qkv_attention``
+(one kernel) with phase 6's, and ``estep_assign`` with phase 7's.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -46,6 +60,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import io
 import json
@@ -57,6 +72,7 @@ import time
 
 # published H100 SXM peaks (NVIDIA data sheet), used for the bound only
 PEAK_F32_FLOPS = 67e12     # f32 FMA outside the tensor cores
+PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12   # HBM3
 
@@ -64,6 +80,11 @@ N_IMAGES, D_FEAT, D_CLIP, VOCAB, K = 130_048, 768, 512, 68_000, 100
 TOPK = 5
 # the cold path: images, vocabulary, extraction batch, padded ViT sequence
 COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
+# the text tower's largest batch (64 names x 80 templates) and the k-means
+# runner's feature store (ImageNet-100's 130,048 training images)
+TEXT_BATCH, RUNNER_N = 5_120, 130_048
+# serving: ImageNet-100's validation size, K names, top-k
+SERVE_IMAGES, SERVE_NAMES, SERVE_TOPK = 5_000, 100, 5
 
 # tolerances, with their reasons:
 # - top-k logits are scale * f32 dot products summed in another order than
@@ -91,8 +112,21 @@ W8A8_F32_RTOL = 2e-6
 #   tower reads 0.999785 mean, 0.999730 min, so the limit lies between the
 #   two: a card path that skipped the quantization fails it
 TOWER_COS_TOL = 0.9998
+# - attention, bf16: both versions round p to bf16 after row sums taken in
+#   another order, so a p on a rounding boundary may land one bf16 ulp
+#   (2^-8 relative) apart; with sum(p) = 1 that moves an output by at most
+#   2^-8 max|v|, and the final rounding to bf16 by one ulp (2^-7 relative)
+ATTN_BF16_REL, ATTN_BF16_VREL = 2.0 ** -7, 2.0 ** -8
+# - attention, f32: dot products, exp and sums in another order than the
+#   plain version's matmuls: ~1e-6 of max|v|
+ATTN_F32_VREL = 1e-5
+# - estep_assign: squared distances of unit-norm rows in f32 (labels equal
+#   wherever the exact distances differ by more than EM_DIST_TOL)
+ESTEP_DIST_TOL = 1e-4
 # floors of the fabricated structure (class signal far above the noise)
 ACC_FLOOR, IOU_FLOOR = 0.90, 0.80
+# the kernel sources under scd_tpu_torch/csrc, built together in phase 1
+SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep")
 
 
 def fail(msg: str):
@@ -137,12 +171,12 @@ def phase_build():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
-    reports = build.build(["topk_softmax", "fused_em", "w8a8"])
+    reports = build.build(SOURCES)
     for name, log in reports.items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
-    for name in ("topk_softmax", "fused_em", "w8a8"):
+    for name in SOURCES:
         build.load(name)
     print(f"built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -340,6 +374,137 @@ def prequant_parity(shape, f, out, gen, tag):
     return err
 
 
+def _attn_inputs(b, length, h, d, dtype, packed, gen):
+    """(q, k, v) [B, L, H, d] views: of one packed [B, L, 3*H*d] buffer,
+    as the towers' qkv projection gives them, or three tensors."""
+    import torch
+
+    if packed:
+        qkv = torch.randn(b, length, 3 * h * d, generator=gen,
+                          device="cuda").to(dtype)
+        t = qkv.unflatten(-1, (3, h, d))
+        return qkv, (t[:, :, 0], t[:, :, 1], t[:, :, 2])
+    qkv = None
+    return qkv, tuple(torch.randn(b, length, h, d, generator=gen,
+                                  device="cuda").to(dtype) for _ in range(3))
+
+
+def attention_parity(b, length, h, d, dtype, gen, causal=False, l_valid=None,
+                     packed=True, tag=""):
+    """Kernel (through ``qkv_attention`` or ``vit_attention``) vs plain on
+    one shape, with the tolerances above; returns the max abs error."""
+    import torch
+
+    from scd_tpu_torch.ops import attention as A
+
+    scale = d ** -0.5
+    qkv, (q, k, v) = _attn_inputs(b, length, h, d, dtype, packed, gen)
+    if packed:
+        def run():
+            return A.qkv_attention(qkv, h, scale, causal, l_valid).reshape(
+                b, length, h, d)
+    else:
+        def run():
+            return A.vit_attention(q, k, v, scale, causal, l_valid)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    name = f"attention {tag}"
+    check(torch.equal(got, again), f"{name}: two runs differ")
+    want = A.attention_plain(q, k, v, scale, causal, l_valid)
+    err = (got.float() - want.float()).abs()
+    vmax = v.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        bound = ATTN_BF16_REL * want.float().abs() + ATTN_BF16_VREL * vmax
+    else:
+        bound = torch.full_like(err, ATTN_F32_VREL * vmax)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(bool((err <= bound).all()), f"{name}: error {err.max().item():.3e} "
+          f"beyond the stated bound")
+    print(f"  {name} B={b} L={length} H={h} d={d} {str(dtype)[6:]} "
+          f"causal={causal} l_valid={l_valid} "
+          f"{'qkv' if packed else 'vit'}: max abs err {err.max().item():.3e}"
+          f" (max |v| {vmax:.2f})")
+    return err.max().item()
+
+
+def estep_parity(n, d, k, gen, dup=False, tag=""):
+    """Kernel (through ``estep_assign``) vs plain on one shape: labels
+    equal wherever the exact (f64) distances of the two choices differ by
+    more than ESTEP_DIST_TOL, min distances within it, and ties to the
+    lowest index; returns the max abs error of the min distances."""
+    import torch
+
+    from scd_tpu_torch.ops.distance import estep_assign, estep_assign_plain
+
+    x, c = em_inputs(n, d, max(k, 1), gen)
+    if dup:  # exact ties: center 2j+1 repeats center 2j
+        c[1::2] = c[0::2][:c[1::2].shape[0]]
+    lab, md = estep_assign(x, c)
+    lab2, md2 = estep_assign(x, c)
+    torch.cuda.synchronize()
+    name = f"estep_assign {tag}"
+    check(torch.equal(lab, lab2) and torch.equal(md, md2),
+          f"{name}: two runs differ")
+    plab, pmd = estep_assign_plain(x, c)
+    diff = lab.long() != plab.long()
+    if bool(diff.any()):
+        rows = diff.nonzero().flatten()
+        x64 = x[rows].double()
+        dk = ((x64 - c[lab[rows].long()].double()) ** 2).sum(1)
+        dp = ((x64 - c[plab[rows].long()].double()) ** 2).sum(1)
+        gap = (dk - dp).abs().max().item()
+        check(gap <= ESTEP_DIST_TOL,
+              f"{name}: labels differ beyond the tie band ({gap:.3e})")
+    if dup:
+        check(bool((lab % 2 == 0).all()), f"{name}: a tie did not go to the "
+              "lowest index")
+    err = (md - pmd).abs().max().item()
+    check(err <= ESTEP_DIST_TOL, f"{name}: min distance error {err:.3e}")
+    print(f"  {name} N={n} D={d} K={k}: label mismatches "
+          f"{int(diff.sum())}, min distance max abs err {err:.3e}")
+    return err
+
+
+def parity_attention_estep(seed: int):
+    """Parity of the attention and estep kernels; returns the max abs
+    errors at the main paths' shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    errs = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs["vit_attention"] = attention_parity(BATCH, L_VIT, 12, 64, bf16, gen,
+                                             packed=False, tag="image")
+    errs["qkv_attention"] = max(
+        attention_parity(BATCH, L_VIT, 12, 64, bf16, gen, tag="image"),
+        attention_parity(BATCH, L_PAD, 12, 64, bf16, gen, l_valid=L_VIT,
+                         tag="image-int8-pad"),
+        attention_parity(TEXT_BATCH, 77, 8, 64, bf16, gen, causal=True,
+                         tag="text"),
+        attention_parity(TEXT_BATCH, 80, 8, 64, bf16, gen, causal=True,
+                         tag="text-int8-pad"))
+    attention_parity(3, 5, 5, 64, bf16, gen, tag="edge-L5")
+    attention_parity(7, 1, 3, 64, bf16, gen, causal=True, packed=False,
+                     tag="edge-L1")
+    attention_parity(3, 33, 5, 64, bf16, gen, causal=True, l_valid=20,
+                     tag="edge-BH15")
+    attention_parity(2, 16, 3, 64, bf16, gen, packed=False, tag="edge-L16")
+    attention_parity(5, 256, 7, 64, bf16, gen, causal=True, tag="edge-L256")
+    attention_parity(11, 129, 3, 64, bf16, gen, l_valid=100, packed=False,
+                     tag="edge-L129")
+    attention_parity(4, L_VIT, 12, 64, f32, gen, tag="f32-image")
+    attention_parity(3, 77, 8, 64, f32, gen, causal=True, packed=False,
+                     tag="f32-text")
+    attention_parity(3, 5, 2, 32, f32, gen, l_valid=4, tag="f32-d32")
+    errs["estep_assign"] = estep_parity(RUNNER_N, D_FEAT, K, gen,
+                                        tag="runner")
+    estep_parity(1_001, 768, 100, gen, tag="edge-ragged")
+    estep_parity(3_000, 64, 1, gen, tag="edge-K1")
+    estep_parity(20_000, 768, 300, gen, tag="edge-K300")
+    estep_parity(5_000, 100, 130, gen, dup=True, tag="edge-ties")
+    return errs
+
+
 def phase_parity(seed: int):
     import torch
 
@@ -381,6 +546,7 @@ def phase_parity(seed: int):
     em_parity(20_000, 768, 683, gen, masked=True, tag="edge-K683")
     em_parity(3_001, 100, 130, gen, x_bf16=True, masked=True,
               tag="edge-bf16")
+    errs.update(parity_attention_estep(seed))
     return errs
 
 
@@ -400,7 +566,6 @@ def phase_main_path(seed: int, workdir: str):
     import torch
 
     from scd_tpu_torch.cluster import kmeans
-    from scd_tpu_torch.ops import em, topk
     from scd_tpu_torch.pipelines.unsup import run_unsup
     from scd_tpu_torch.testing.fabricate import (fabricate_imagenet100,
                                                  imagenet100_config)
@@ -416,15 +581,14 @@ def phase_main_path(seed: int, workdir: str):
           f"{info['n_labelled']}), V={len(info['nouns'])} in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    topk.topk_softmax_cuda.launches = 0
-    em.fused_em_step_cuda.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         res = run_unsup(cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {"topk_softmax": topk.topk_softmax_cuda.launches,
-                "fused_em_step": em.fused_em_step_cuda.launches}
+    counts = _counts()
+    launches = {k: counts[k] for k in ("topk_softmax", "fused_em_step")}
     for ln in _metric_lines(out.getvalue()):
         print("  " + ln)
     print("stage seconds: " + ", ".join(
@@ -467,21 +631,25 @@ def phase_main_path(seed: int, workdir: str):
 
 # ------------------------------------------------------------- phase 4
 
-def _reset_counts():
-    from scd_tpu_torch.ops import em, topk, w8a8
+def _wrappers():
+    """{kernel: its wrapper}; each wrapper counts its own launches."""
+    from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
-    for fn in (topk.topk_softmax_cuda, em.fused_em_step_cuda,
-               w8a8.w8a8_fusedq_cuda, w8a8.w8a8_prequant_cuda):
+    return {"topk_softmax": topk.topk_softmax_cuda,
+            "fused_em_step": em.fused_em_step_cuda,
+            "w8a8_fusedq": w8a8.w8a8_fusedq_cuda,
+            "w8a8_prequant": w8a8.w8a8_prequant_cuda,
+            "attention": attention.attention_cuda,
+            "estep_assign": distance.estep_assign_cuda}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _counts():
-    from scd_tpu_torch.ops import em, topk, w8a8
-
-    return {"topk_softmax": topk.topk_softmax_cuda.launches,
-            "fused_em_step": em.fused_em_step_cuda.launches,
-            "w8a8_fusedq": w8a8.w8a8_fusedq_cuda.launches,
-            "w8a8_prequant": w8a8.w8a8_prequant_cuda.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _row_cos(a, b):
@@ -566,7 +734,7 @@ def phase_cold(seed: int, workdir: str):
         + f" | run_unsup {wall:.3f} s")
     print(f"launches in the cold run_unsup: {launches}")
     check(all(launches[k] > 0 for k in ("w8a8_fusedq", "topk_softmax",
-                                         "fused_em_step")),
+                                         "fused_em_step", "attention")),
           f"a kernel of the cold path never launched: {launches}")
     print(f"cold ACC {res['cluster_acc'][0]:.4f} (SSKM), voted "
           f"{res['history'][-1]['all_acc']:.4f}, IoU {res['iou']:.4f} "
@@ -747,25 +915,80 @@ def time_w8a8(gen):
     return out
 
 
-def bounds_to_port():
-    """The least time of the TPU kernels still to port, at the shapes of
-    the paths that will run them (computed, not measured)."""
+def _bound(ops, peak, nbytes):
+    """(least ms, what bounds it) for ``ops`` at ``peak`` and ``nbytes``
+    at the HBM rate."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
-    def line(what, ops, peak, nbytes):
-        t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
-        by = "operations" if t_ops > t_bytes else "bytes"
-        print(f"  bound {what}: {max(t_ops, t_bytes) * 1e3:.4f} ms ({by})")
 
-    n, d, k = N_IMAGES - 32_512, D_FEAT, K  # row 1: the EM shape, f32 x
-    line(f"estep_assign (pallas_kernels.py:86) N={n} D={d} K={k} f32",
-         2.0 * n * k * d + n * d, PEAK_F32_FLOPS,
-         4.0 * (n * d + k * d) + 8.0 * n)
-    b, length, h, hd = BATCH, L_VIT, 12, 64  # rows 3, 4: ViT-B/16 attention
-    for name, at in (("vit_attention", 309), ("qkv_attention", 392)):
-        # q, k, v (or the packed qkv) read once, the output written once
-        line(f"{name} (pallas_kernels.py:{at}) B={b} L={length} H={h} "
-             f"d={hd} bf16", 4.0 * b * h * length * length * hd, 989e12,
-             4 * 2.0 * b * length * h * hd)
+def _attention_bound(b, length, h, d, causal, l_valid, elem_bytes=2):
+    """q, k, v read once and the output written once; the products of
+    the score pairs this input keeps (causal: key <= query; keys < l_valid)
+    in q.k and p.v, at the bf16 tensor-core peak."""
+    rows = range(length)
+    pairs = sum(min(r + 1, l_valid) if causal else l_valid for r in rows)
+    return _bound(4.0 * b * h * d * pairs, PEAK_BF16_FLOPS,
+                  4.0 * elem_bytes * b * length * h * d)
+
+
+def time_attention_estep(gen):
+    """The attention kernel through both entry points at the image
+    towers' shape and the qkv entry at the text tower's, and the estep
+    kernel at the k-means runner's shape: kernel, plain version, the
+    library call (``F.scaled_dot_product_attention``; cuBLAS ``matmul`` +
+    ``min``), timed here and used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.ops.distance import estep_assign, estep_assign_plain
+
+    bf16, out = torch.bfloat16, {}
+    for tag, key, b, length, h, causal, packed in (
+            ("image", "vit_attention", BATCH, L_VIT, 12, False, False),
+            ("image", "qkv_attention", BATCH, L_VIT, 12, False, True),
+            ("text", "qkv_attention-text", TEXT_BATCH, 77, 8, True, True)):
+        qkv, (q, k, v) = _attn_inputs(b, length, h, 64, bf16, packed, gen)
+        if packed:
+            def kern():
+                return A.qkv_attention(qkv, h, 0.125, causal)
+        else:
+            def kern():
+                return A.vit_attention(q, k, v, 0.125, causal)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, d]
+        ms = cuda_ms(kern, reps=20, warmup=2)
+        ms_again = cuda_ms(kern, reps=20, warmup=2)
+        plain = cuda_ms(lambda: A.attention_plain(q, k, v, 0.125, causal),
+                        reps=3)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=20, warmup=2)
+        bound, by = _attention_bound(b, length, h, 64, causal, length)
+        print(f"  attention {key.split('-')[0]} {tag} B={b} L={length} H={h} "
+              f"d=64 causal={causal}: kernel {ms:.4f} ms (again "
+              f"{ms_again:.4f}), plain {plain:.4f} ms, library (SDPA) "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        out[key] = (ms, plain, lib, bound, by)
+        del qkv, q, k, v, qt, kt, vt
+
+    n, d, k = RUNNER_N, D_FEAT, K
+    x, c = em_inputs(n, d, k, gen)
+
+    def library():
+        d2 = (c * c).sum(1)[None, :] - 2.0 * torch.matmul(x, c.t())
+        return torch.min(d2, dim=1)
+
+    ms = cuda_ms(lambda: estep_assign(x, c), reps=20, warmup=2)
+    plain = cuda_ms(lambda: estep_assign_plain(x, c), reps=5)
+    lib = cuda_ms(library, reps=20, warmup=2)
+    bound, by = _bound(2.0 * n * k * d + n * d + k * d, PEAK_F32_FLOPS,
+                       4.0 * (n * d + k * d) + 8.0 * n)
+    print(f"  estep_assign N={n} D={d} K={k} f32: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library (matmul + min) {lib:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    out["estep_assign"] = (ms, plain, lib, bound, by)
+    return out
 
 
 def phase_timing(seed: int, estep):
@@ -824,26 +1047,202 @@ def phase_timing(seed: int, estep):
           f"x_bf16={bool(estep[1])}: kernel {t_em:.4f} ms, plain "
           f"{t_em_plain:.4f} ms, library {t_em_lib:.4f} ms, bound "
           f"{em_bound:.4f} ms ({em_by})")
-    bounds_to_port()
     return {
         "topk_softmax": (t_topk, t_topk_plain, t_topk_lib, topk_bound,
                          topk_by),
         "fused_em_step": (t_em, t_em_plain, t_em_lib, em_bound, em_by),
         **time_w8a8(gen),
+        **time_attention_estep(gen),
     }
 
 
-KERNELS = {
-    "topk_softmax": ("scd_tpu_torch/csrc/topk_softmax.cu",
-                     "scd_tpu/ops/pallas_kernels.py:203"),
-    "fused_em_step": ("scd_tpu_torch/csrc/fused_em.cu",
-                      "scd_tpu/ops/pallas_kernels.py:545"),
-    "w8a8_fusedq": ("scd_tpu_torch/csrc/w8a8.cu",
-                    "scd_tpu/ops/pallas_kernels.py:876"),
-    "w8a8_prequant": ("scd_tpu_torch/csrc/w8a8.cu",
-                      "scd_tpu/ops/pallas_kernels.py:760 and "
-                      "scd_tpu/ops/pallas_kernels.py:696"),
-}
+# ------------------------------------------------------------- phase 6
+
+def serving_images(seed: int, n: int):
+    """[n, 224, 224, 3] uint8 made in bulk from ``seed``: image i shows the
+    colour of class i % SERVE_NAMES plus noise of its own.  Returns
+    (images, class colours [SERVE_NAMES, 3])."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 6])
+    colors = rng.integers(32, 224, (SERVE_NAMES, 3))
+    out = np.empty((n, 224, 224, 3), np.uint8)
+    for lo in range(0, n, 500):
+        hi = min(n, lo + 500)
+        noise = rng.integers(-12, 13, (hi - lo, 224, 224, 3), dtype=np.int16)
+        cls = colors[np.arange(lo, hi) % SERVE_NAMES]
+        out[lo:hi] = (cls[:, None, None, :] + noise).astype(np.uint8)
+    return out, colors
+
+
+def phase_serving(seed: int, workdir: str):
+    """The serving entry point (``pipelines/infer.py``) at full CLIP
+    ViT-B/16 width, bf16: SERVE_IMAGES images in batches of BATCH, named
+    from SERVE_NAMES zero-shot columns, top-SERVE_TOPK."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.models import clip_vit_b16_config
+    from scd_tpu_torch.pipelines import infer
+
+    t0 = time.perf_counter()
+    images, colors = serving_images(seed, SERVE_IMAGES)
+    img_path = os.path.join(workdir, "images.npy")
+    np.save(img_path, images)
+    # the names' columns: the tower's features of each class's plain colour
+    cfg = clip_vit_b16_config(compute_dtype=torch.bfloat16)
+    enc = infer.build_clip_encoder(
+        infer._load_clip_variables("random", cfg), cfg, device="cuda")
+    protos = np.broadcast_to(colors[:, None, None, :].astype(np.uint8),
+                             (SERVE_NAMES, 224, 224, 3))
+    zw = enc(np.ascontiguousarray(protos)).float()
+    zw = (zw / zw.norm(dim=-1, keepdim=True)).t().contiguous().cpu().numpy()
+    zw_path = os.path.join(workdir, "zw.npy")
+    np.save(zw_path, zw)
+    names = [f"class_{i:03d}" for i in range(SERVE_NAMES)]
+    names_path = os.path.join(workdir, "names.txt")
+    with open(names_path, "w") as f:
+        f.write("\n".join(names) + "\n")
+    card8 = enc(images[:BATCH])[:8].float().cpu()
+    del enc
+    print(f"fabricated {SERVE_IMAGES} images 224x224x3 uint8, {SERVE_NAMES} "
+          f"names' columns in {time.perf_counter() - t0:.1f} s")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = infer.main([
+            "--dataset_name", "real", "--clip_weights", "random",
+            "--zeroshot_weights", zw_path, "--names", names_path,
+            "--images", img_path, "--batch_size", str(BATCH),
+            "--topk", str(SERVE_TOPK)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    lines = buf.getvalue().splitlines()
+    n_batches = -(-SERVE_IMAGES // BATCH)
+    print(f"launches in infer: {launches}")
+    check(launches["attention"] == n_batches * cfg.vision.depth,
+          f"attention launches {launches['attention']} != {n_batches} "
+          f"batches x {cfg.vision.depth} blocks")
+    check(res["count"] == SERVE_IMAGES and len(lines) == SERVE_IMAGES,
+          f"served {res['count']} images, {len(lines)} lines")
+    top1 = [ast.literal_eval(ln.split("\t")[0])[0] for ln in lines]
+    probs = np.array([ast.literal_eval(ln.split("\t")[1]) for ln in lines])
+    check(probs.shape == (SERVE_IMAGES, SERVE_TOPK)
+          and bool(np.isfinite(probs).all()) and bool((probs >= 0).all()),
+          "served probabilities: wrong shape or not finite")
+    acc = np.mean([t == names[i % SERVE_NAMES] for i, t in enumerate(top1)])
+    ms = np.array(res["batch_seconds"]) * 1e3
+    print(f"served {res['count']} images in {wall:.3f} s (set-up "
+          f"included): {res['count'] / (ms.sum() / 1e3):.1f} images/s over "
+          f"the batches, per batch of {BATCH} p50 {np.percentile(ms, 50):.2f}"
+          f" ms, p99 {np.percentile(ms, 99):.2f} ms (first "
+          f"{ms[0]:.2f} ms); top-1 = the image's colour class "
+          f"{acc:.4f} (random weights: no floor)")
+
+    # ---- the card's tower against the CPU's plain tower (f32) on 8 images
+    t0 = time.perf_counter()
+    cpu_cfg = clip_vit_b16_config(compute_dtype=torch.float32)
+    cpu_enc = infer.build_clip_encoder(
+        infer._load_clip_variables("random", cpu_cfg), cpu_cfg,
+        device="cpu")
+    cpu8 = cpu_enc(images[:8]).float()
+    cos = _row_cos(card8, cpu8)
+    fc = cpu8 / cpu8.norm(dim=-1, keepdim=True)
+    fk = card8 / card8.norm(dim=-1, keepdim=True)
+    cpu_top = [names[j] for j in (fc @ torch.from_numpy(zw)).argmax(1)]
+    band = 2.0 * 100.0 * (fc - fk).norm(dim=-1)  # the most a logit moves
+    flips = 0
+    for i in range(8):
+        if cpu_top[i] != top1[i]:
+            flips += 1
+            cols = [names.index(cpu_top[i]), names.index(top1[i])]
+            gap = 100.0 * (fc[i] @ torch.from_numpy(zw[:, cols])).diff().abs()
+            check(gap.item() <= band[i].item(), f"serving image {i}: top-1 "
+                  f"{top1[i]} on the card, {cpu_top[i]} on the CPU, "
+                  f"beyond the rounding band")
+    print(f"card (bf16) vs CPU (f32) CLIP image tower on 8 images: min cosine"
+          f" {cos.min().item():.6f} (tolerance {TOWER_COS_TOL}); top-1 names "
+          f"equal on {8 - flips} of 8 ({time.perf_counter() - t0:.1f} s on "
+          f"the CPU)")
+    check(cos.min().item() >= TOWER_COS_TOL,
+          "serving: the card's tower disagrees with the CPU")
+    check(flips == 0, "serving: top-1 names differ between card and CPU")
+    return {"attention": launches["attention"]}
+
+
+# ------------------------------------------------------------- phase 7
+
+def phase_runners(seed: int, workdir: str):
+    """The k-means runner's upper bound (``cluster/runners.py main
+    --optimal``) on fabricated, L2-normalised ImageNet-100-scale features:
+    RUNNER_N rows, 768-d, 100 classes, the first 50 old, half their rows
+    labelled."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.cluster import runners
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    cls = 3.0 * torch.randn(K, D_FEAT, generator=g, device="cuda")
+    targets = torch.randint(0, K, (RUNNER_N,), generator=g, device="cuda")
+    x = _unit(cls[targets] + 0.5 * torch.randn(RUNNER_N, D_FEAT, generator=g,
+                                               device="cuda"), 1)
+    lab = (targets < K // 2) & (torch.rand(RUNNER_N, generator=g,
+                                           device="cuda") < 0.5)
+    path = os.path.join(workdir, "features_packed.npz")
+    np.savez(path, features=x.cpu().numpy(), targets=targets.cpu().numpy(),
+             mask_lab=lab.cpu().numpy())
+    del x
+    print(f"fabricated N={RUNNER_N} D={D_FEAT} features of {K} classes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    argv = ["--features", path, "--n_train_classes", str(K // 2),
+            "--optimal"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runners.main(argv + ["--device", dev])
+        out[dev] = (buf.getvalue().splitlines(), _counts(),
+                    time.perf_counter() - t0)
+    lines, launches, wall = out["cuda"]
+    for ln in lines:
+        print("  " + ln)
+    print(f"launches in runners --optimal: {launches}; {wall:.3f} s on the "
+          f"card, {out['cpu'][2]:.3f} s on the CPU (plain versions)")
+    check(launches["estep_assign"] >= 1, "estep_assign never launched")
+    check(len(lines) == 3 and lines == out["cpu"][0],
+          "runners: the card's ACC lines differ from the CPU's")
+    return {"estep_assign": launches["estep_assign"]}
+
+
+# (kernels line name, source, the TPU kernel it replaces, key of the
+# launch count and the times); rows 3-4 share the attention kernel and
+# rows 6-7 the w8a8_prequant kernel, and each pair reports that kernel's
+# one launch count
+KERNELS = [
+    ("estep_assign", "scd_tpu_torch/csrc/estep.cu",
+     "scd_tpu/ops/pallas_kernels.py:86", "estep_assign"),
+    ("topk_softmax", "scd_tpu_torch/csrc/topk_softmax.cu",
+     "scd_tpu/ops/pallas_kernels.py:203", "topk_softmax"),
+    ("vit_attention", "scd_tpu_torch/csrc/attention.cu",
+     "scd_tpu/ops/pallas_kernels.py:309", "attention"),
+    ("qkv_attention", "scd_tpu_torch/csrc/attention.cu",
+     "scd_tpu/ops/pallas_kernels.py:392", "attention"),
+    ("fused_em_step", "scd_tpu_torch/csrc/fused_em.cu",
+     "scd_tpu/ops/pallas_kernels.py:545", "fused_em_step"),
+    ("dense_w8a8_3d", "scd_tpu_torch/csrc/w8a8.cu",
+     "scd_tpu/ops/pallas_kernels.py:696", "w8a8_prequant"),
+    ("dense_w8a8", "scd_tpu_torch/csrc/w8a8.cu",
+     "scd_tpu/ops/pallas_kernels.py:760", "w8a8_prequant"),
+    ("w8a8_fusedq", "scd_tpu_torch/csrc/w8a8.cu",
+     "scd_tpu/ops/pallas_kernels.py:876", "w8a8_fusedq"),
+]
 
 
 def main(argv=None) -> int:
@@ -882,16 +1281,28 @@ def main(argv=None) -> int:
     section("phase 5: timing at the main paths' shapes")
     t0 = time.perf_counter()
     times = phase_timing(args.seed, estep)
-    print(f"phase 5 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 5 {time.perf_counter() - t0:.1f} s")
+    section("phase 6: serving (infer, CLIP ViT-B/16 bf16)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches.update(phase_serving(args.seed, workdir))
+    print(f"phase 6 {time.perf_counter() - t0:.1f} s")
+    section("phase 7: k-means runners (--optimal, ImageNet-100 scale)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches.update(phase_runners(args.seed, workdir))
+    print(f"phase 7 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []
-    for name, (src, replaces) in KERNELS.items():
-        ms, plain_ms, lib_ms, bound_ms, bound_by = times[name]
+    for name, src, replaces, key in KERNELS:
+        ms, plain_ms, lib_ms, bound_ms, bound_by = times[
+            name if name in times else key]
+        check(launches[key] > 0, f"{name}: no launch on a path")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "replaces": replaces, "launches": launches[key],
+                     "max_abs_err": errs[name if name in errs else key],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -151,6 +151,47 @@ def split_cluster_acc_v3(y_true, y_pred, mask) -> Tuple[float, float, float]:
     return total_acc, subset_acc(old_classes_gt), subset_acc(new_classes_gt)
 
 
+EVAL_FUNCS = {
+    "v1": split_cluster_acc_v1,
+    "v2": split_cluster_acc_v2,
+    "v3": split_cluster_acc_v3,
+}
+
+
+def log_accs_from_preds(y_true, y_pred, mask, eval_funcs, save_name: str,
+                        T: Optional[int] = None, writer=None,
+                        print_output: bool = False) -> Tuple[float, float, float]:
+    """Dispatch over ACC variants; returns the first variant's results
+    (reference ``cluster_and_log_utils.py:138-176``)."""
+    mask = np.asarray(mask).astype(bool)
+    y_true = np.asarray(y_true).astype(int)
+    y_pred = np.asarray(y_pred).astype(int)
+
+    to_return = None
+    for i, f_name in enumerate(eval_funcs):
+        all_acc, old_acc, new_acc = EVAL_FUNCS[f_name](y_true, y_pred, mask)
+        log_name = f"{save_name}_{f_name}"
+        if writer is not None:
+            writer.add_scalars(log_name, {"Old": old_acc, "New": new_acc,
+                                          "All": all_acc}, T)
+        if i == 0:
+            to_return = (all_acc, old_acc, new_acc)
+        if print_output:
+            print(f"Epoch {T}, {log_name}: All {all_acc:.4f} | Old {old_acc:.4f} "
+                  f"| New {new_acc:.4f}")
+    return to_return
+
+
+def topk_accuracy(logits, targets, ks=(1,)):
+    """Top-k accuracies in percent (reference ``clip_lang_util.py:151-154``
+    and ``general_utils.py:accuracy``)."""
+    logits = np.asarray(logits)
+    targets = np.asarray(targets)
+    order = np.argsort(-logits, axis=1)
+    return [float((order[:, :k] == targets[:, None]).any(axis=1).mean()
+                  * 100.0) for k in ks]
+
+
 def purity_score(y_true, y_pred) -> float:
     """Cluster purity (reference ``cluster_utils.py:65-75``)."""
     w = contingency_matrix(np.asarray(y_pred), np.asarray(y_true))

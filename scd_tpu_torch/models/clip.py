@@ -6,7 +6,9 @@ causal pre-norm transformer over token and position embeddings, pooled at
 the EOT token (the highest id of each row) and projected.  Under the int8
 knob (one knob quantizes both towers) the token sequence is padded to a
 multiple of 16; the causal mask already hides the pad keys from every real
-query, and pooling reads a real position.  The prefix-KV modes (the
+query, and pooling reads a real position.  Both towers' attention is the
+port's own (``ops/attention.py``: the ``csrc/attention.cu`` kernel on a
+CUDA device, causal for the text tower).  The prefix-KV modes (the
 ``SCD_PREFIX_VOCAB=1`` vocabulary build) are not ported yet (ROADMAP).
 """
 

@@ -24,9 +24,10 @@ the plain chain and the ``w8a8_prequant`` kernel multiplies.  On the CPU it foll
 (quantize the f32 input, int8 product, dequant), which is what the JAX
 package computes on a CPU, so the CPU tests compare with it.
 
-Attention is not a kernel of either package's default path: it is
-``F.scaled_dot_product_attention`` with the JAX package's masks (pad keys
-masked out, causal for the text tower).
+Attention goes through :func:`scd_tpu_torch.ops.attention.qkv_attention`
+on the packed qkv projection, with the JAX package's masks (pad keys
+masked out, causal for the text tower): on a CUDA device the hand-written
+kernel (``csrc/attention.cu``), on the CPU its plain version.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from scd_tpu_torch.ops import w8a8
+from scd_tpu_torch.ops.attention import qkv_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,21 +247,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, causal: bool = False,
                 real_len: Optional[int] = None) -> torch.Tensor:
         c = self.cfg
-        b, length, d = x.shape
-        qkv = self.qkv(x).to(c.compute_dtype)
-        q, k, v = qkv.view(b, length, 3, c.heads, d // c.heads).permute(
-            2, 0, 3, 1, 4)  # each [B, H, L, d]
-        mask = None
-        if real_len is not None and real_len < length:
-            mask = (torch.arange(length, device=x.device)
-                    < real_len)[None, None, None, :]
-            if causal:
-                tri = torch.ones(length, length, dtype=torch.bool,
-                                 device=x.device).tril()
-                mask = mask & tri[None, None]
-        out = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal and mask is None)
-        out = out.transpose(1, 2).reshape(b, length, d)
+        qkv = self.qkv(x).to(c.compute_dtype).contiguous()
+        out = qkv_attention(qkv, c.heads, float(c.width // c.heads) ** -0.5,
+                            causal=causal, l_valid=real_len)
         return self.proj(out).to(c.compute_dtype)
 
 

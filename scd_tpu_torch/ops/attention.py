@@ -1,0 +1,156 @@
+"""Masked softmax attention for the towers' short sequences.
+
+Port of ``scd_tpu/ops/pallas_kernels.py::vit_attention_pallas`` and
+``::qkv_attention_pallas``, with the JAX layouts at the public functions:
+
+- :func:`vit_attention` takes q, k, v [B, L, H, d] and returns [B, L, H, d];
+- :func:`qkv_attention` takes the packed projection [B, L, 3W] (q | k | v
+  on the feature axis, the output of the towers' fused ``qkv`` Dense) and
+  returns [B, L, W].
+
+Both compute scores in f32 from products of the input type, times
+``scale``; mask keys at or past ``l_valid`` and, under ``causal``, keys
+after the query; take the softmax in f32 (row max, exp, divide by the row
+sum); round p to v's type; and accumulate p . v in f32, stored in v's type.
+
+Dispatch by device: a CUDA tensor runs the hand-written kernel
+(``csrc/attention.cu``; one kernel for both entry points, since a packed
+qkv is three strided [B, L, H, d] views of one buffer); a CPU tensor runs
+:func:`attention_plain`.  There is no fallback: a CUDA tensor the kernel
+does not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from scd_tpu_torch.ops import build
+
+KERNEL_MAX_L = 256
+
+
+def qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
+                  causal: bool = False, l_valid: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Multi-head attention on the packed projection: [B, L, 3W] ->
+    [B, L, W] (``qkv_attention_pallas``'s contract; ``l_valid`` defaults
+    to L)."""
+    b, length, w3 = qkv.shape
+    if w3 % (3 * heads):
+        raise ValueError(f"packed width {w3} is not 3 x heads x head_dim "
+                         f"(heads={heads})")
+    t = qkv.unflatten(-1, (3, heads, w3 // (3 * heads)))  # strided views
+    out = vit_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2], scale, causal,
+                        l_valid)
+    return out.reshape(b, length, w3 // 3)
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool = False,
+                  l_valid: Optional[int] = None) -> torch.Tensor:
+    """Attention on [B, L, H, d] tensors or views (``vit_attention_pallas``'s
+    contract) -> [B, L, H, d] in v's dtype, contiguous.  The dispatch
+    point of both entry points."""
+    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
+        raise ValueError(f"q, k, v must share one [B, L, H, d] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    length = q.shape[1]
+    l_valid = length if l_valid is None else min(int(l_valid), length)
+    if l_valid < 1:
+        raise ValueError(f"l_valid must be >= 1, got {l_valid}")
+    if q.is_cuda:
+        return attention_cuda(q, k, v, scale, causal, l_valid)
+    if q.device.type != "cpu":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    return attention_plain(q, k, v, scale, causal, l_valid)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = False,
+                    l_valid: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device.  Products
+    of bf16 values are exact in f32, so f32 matmuls of the upcast inputs
+    (TF32 off) give the kernel's scores up to the order of the sums."""
+    length = q.shape[1]
+    l_valid = length if l_valid is None else min(int(l_valid), length)
+    # [B, H, L, L] scores
+    s = torch.matmul(q.float().transpose(1, 2),
+                     k.float().permute(0, 2, 3, 1)) * scale
+    if causal or l_valid < length:
+        col = torch.arange(length, device=q.device)
+        keep = (col < l_valid)[None, :].expand(length, length)
+        if causal:
+            keep = keep & (col[None, :] <= col[:, None])
+        s.masked_fill_(~keep, float("-inf"))
+    e = (s - s.amax(dim=-1, keepdim=True)).exp_()
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    out = torch.matmul(p.float(), v.float().transpose(1, 2))  # [B, H, L, d]
+    return out.to(v.dtype).transpose(1, 2).contiguous()
+
+
+def _strides(t: torch.Tensor):
+    sb, sl, sh, sd = t.stride()
+    if sd != 1:
+        raise ValueError("attention_cuda: the head dimension must be "
+                         "contiguous")
+    return sb, sl, sh
+
+
+def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, causal: bool = False,
+                   l_valid: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel on [B, L, H, d] views (any batch, sequence and
+    head strides, the last dimension contiguous), all bf16 or all f32 on
+    one CUDA device.  bf16 takes d = 64, L <= 256 and 16-byte-aligned
+    bases and strides; f32 takes L <= 256 and any d whose K, V, Q and
+    score rows fit in shared memory (else the launch fails).  Returns a
+    contiguous [B, L, H, d].  Counts its launches in
+    ``attention_cuda.launches``."""
+    dev = q.device
+    if not (q.is_cuda and k.device == dev and v.device == dev):
+        raise ValueError("attention_cuda takes CUDA tensors on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise TypeError(f"attention_cuda takes all-bf16 or all-f32 inputs, "
+                        f"got {q.dtype} / {k.dtype} / {v.dtype}")
+    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
+        raise ValueError(f"q, k, v shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, length, heads, hd = q.shape
+    l_valid = length if l_valid is None else min(int(l_valid), length)
+    if l_valid < 1 or not 1 <= length <= KERNEL_MAX_L:
+        raise ValueError(f"attention_cuda takes 1 <= L <= {KERNEL_MAX_L} and "
+                         f"l_valid >= 1 (L={length}, l_valid={l_valid})")
+    is_bf16 = q.dtype == torch.bfloat16
+    strides = [_strides(t) for t in (q, k, v)]
+    if is_bf16:
+        if hd != 64:
+            raise ValueError(f"the bf16 attention kernel takes head_dim 64, "
+                             f"got {hd}")
+        if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
+                s % 8 for st in strides for s in st):
+            raise ValueError("the bf16 attention kernel takes 16-byte-"
+                             "aligned bases and strides")
+    lib = build.load("attention")
+    out = torch.empty(b, length, heads, hd, dtype=q.dtype, device=dev)
+    fn = lib.attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                int(is_bf16), *strides[0], *strides[1], *strides[2],
+                *out.stride()[:3], b, heads, length, hd, l_valid,
+                int(bool(causal)), float(scale), stream)
+    build.check(rc, "attention")
+    attention_cuda.launches += 1
+    return out
+
+
+attention_cuda.launches = 0

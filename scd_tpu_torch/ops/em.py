@@ -6,7 +6,7 @@ Port of ``scd_tpu/ops/em.py::em_iteration``.  Dispatch by device:
   replacing the TPU kernel ``scd_tpu/ops/pallas_kernels.py::
   fused_em_step_pallas``): one pass over x gives labels, row-masked sums,
   counts and inertia, deterministically;
-- a CPU tensor runs :func:`em_iteration_plain`, ``estep_assign`` +
+- a CPU tensor runs :func:`em_iteration_plain`, ``estep_assign_plain`` +
   ``segment_sums`` as in ``scd_tpu/ops/em.py:61-67``.
 
 There is no fallback from the kernel to the plain version.  The sharded
@@ -66,13 +66,13 @@ def em_iteration(x: torch.Tensor, centers: torch.Tensor, k: int,
 
 def em_iteration_plain(x: torch.Tensor, centers: torch.Tensor, k: int,
                        row_w: Optional[torch.Tensor] = None) -> EMResult:
-    """The plain PyTorch version (``estep_assign`` + ``segment_sums``),
-    on any device; x in f32 or bf16, computed in f32."""
-    from scd_tpu_torch.ops.distance import estep_assign
+    """The plain PyTorch version (``estep_assign_plain`` +
+    ``segment_sums``), on any device; x in f32 or bf16, computed in f32."""
+    from scd_tpu_torch.ops.distance import estep_assign_plain
     from scd_tpu_torch.ops.segment import segment_sums
 
     x = x.float()
-    labels, mindist = estep_assign(x, centers)
+    labels, mindist = estep_assign_plain(x, centers)
     inertia = (mindist if row_w is None else mindist * row_w.float()).sum()
     sums, counts = segment_sums(x, labels, k, weights=row_w)
     return labels, sums, counts, inertia

@@ -7,11 +7,13 @@ zero-shot weights through the CLIP text tower (cached) -> per-image top-k
 names (the ``topk_softmax`` kernel) -> iterative voting loop with
 per-iteration ACC/sACC/Soft-sACC printouts -> name-set IoU.  The metric
 lines are byte-identical to the JAX package's.  ``--int8`` runs the towers'
-qkv and fc1 layers through the W8A8 kernels.  The synthetic dataset, the
-``resnet50`` backbone and the other clusterers come with later slices
-(ROADMAP).
+qkv and fc1 layers through the W8A8 kernels.  The synthetic dataset runs
+with the synthetic encoder pair (``models/synthetic.py``) and needs no
+assets.  The ``resnet50`` backbone and the other clusterers come with
+later slices (ROADMAP).
 
-Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name imagenet_100
+Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name synthetic
+--device cpu`` (asset-free), or ``... --dataset_name imagenet_100
 --root_dir ROOT --cache_dir CACHE --cluster SSKM --n_cluster 100 --corpus
 wordnet --device cuda`` with the caches present, or ``run_unsup(cfg)`` with
 the weight paths in ``cfg.data`` (``clip_weights``, ``dino_weights``,
@@ -126,9 +128,10 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
     dev = resolve_device(device)
     name = cfg.feature.feat_model
     if cfg.data.dataset_name == "synthetic" or name == "synthetic":
-        raise NotImplementedError(
-            "the synthetic encoders need models/synthetic.py, which the "
-            "port gains with ROADMAP's slice (c) (asset-free synthetic run)")
+        from scd_tpu_torch.models.synthetic import SyntheticCLIP
+
+        clip = SyntheticCLIP(extras["class_colors"], device=dev)
+        return clip.encode_image, clip.encode_image, clip.encode_text
     if name == "resnet50":
         raise NotImplementedError(
             "the resnet50 backbone is not ported yet (ROADMAP item 12: "
@@ -185,12 +188,13 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
 
 def load_vocabulary(cfg: PipelineConfig, extras: Dict):
     """Returns (nouns, taxonomy_or_None).  Corpus names follow the reference
-    (wordnet | wikibird | wikidog | a path, ``clip_lang_util.py:139-149``)."""
+    (wordnet | wikibird | wikidog | a path, ``clip_lang_util.py:139-149``);
+    synthetic builds a class-names+distractors list."""
     corpus = cfg.naming.corpus
     if cfg.data.dataset_name == "synthetic" or corpus == "synthetic":
-        raise NotImplementedError(
-            "the synthetic vocabulary needs models/synthetic.py, which the "
-            "port gains with ROADMAP's slice (c) (asset-free synthetic run)")
+        from scd_tpu_torch.models.synthetic import synthetic_vocabulary
+
+        return synthetic_vocabulary(extras["class_names"]), None
 
     taxonomy = None
     if corpus == "wordnet":
@@ -283,6 +287,10 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     stage_seconds["topk"] = time.perf_counter() - t0
 
     name_sim = taxonomy.name_similarity if taxonomy else None
+    if name_sim is None and cfg.data.dataset_name == "synthetic":
+        from scd_tpu_torch.models.synthetic import synthetic_name_similarity
+
+        name_sim = synthetic_name_similarity
     eval_soft = cfg.eval_soft_sacc and cfg.data.dataset_name != "cub"
 
     def metrics_cb(it: int, preds: np.ndarray, cand_names) -> Dict:

@@ -1,0 +1,125 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+- The plain ``qkv_attention`` / ``vit_attention`` against
+  ``*_attention_pallas(..., interpret=True)`` at f32: max abs error
+  <= 1e-5, as ``tests/test_pallas_kernels.py`` holds the Pallas kernels to
+  the XLA path (f32 sums in another order).  Shapes: the image towers'
+  (2, 197, 12, 64) through ``qkv_attention``, the causal text tower's
+  (3, 77, 8, 64) through ``vit_attention``, L 5 through both, and the
+  int8 image sequence padded to 208 with 197 valid keys (against the JAX
+  towers' masked ``dot_product_attention``, which the Pallas kernels do
+  not take).
+- ``models.vit.Attention`` on the CPU against the JAX ``Attention`` from
+  one Flax tree, causal and padded, at atol 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scd_tpu.ops.pallas_kernels import (qkv_attention_pallas,
+                                        vit_attention_pallas)
+from scd_tpu_torch.ops import attention as A
+
+TOL = 1e-5
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("b,length,h,d,causal", [
+    (2, 197, 12, 64, False), (2, 5, 3, 64, False)])
+def test_plain_matches_pallas_qkv(b, length, h, d, causal):
+    qkv = _rand((b, length, 3 * h * d), length)
+    want = np.asarray(qkv_attention_pallas(jnp.asarray(qkv), h, d ** -0.5,
+                                           causal, interpret=True))
+    got = A.qkv_attention(torch.from_numpy(qkv), h, d ** -0.5, causal).numpy()
+    assert got.shape == (b, length, h * d)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,length,h,d,causal", [
+    (3, 77, 8, 64, True), (2, 5, 3, 64, True)])
+def test_plain_matches_pallas_vit(b, length, h, d, causal):
+    q, k, v = (_rand((b, length, h, d), length + i) for i in range(3))
+    want = np.asarray(vit_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), d ** -0.5, causal,
+        interpret=True))
+    got = A.vit_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), d ** -0.5, causal).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_pad_keys_masked_like_jax(causal):
+    """L 208 with 197 valid keys (the int8 image sequence; causal + pad as
+    a text row padded 77 -> 80 would be): the JAX towers' masked
+    ``jax.nn.dot_product_attention``, and the real rows equal an unpadded
+    run on the first 197 positions."""
+    b, length, valid, h, d = 2, 208, 197, 4, 64
+    q, k, v = (_rand((b, length, h, d), 7 + i) for i in range(3))
+    mask = np.arange(length)[None, :] < valid
+    if causal:
+        mask = mask & np.tri(length, dtype=bool)
+    want = np.asarray(jax.nn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        mask=jnp.asarray(mask)[None, None]))
+    got = A.vit_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), d ** -0.5, causal,
+                          l_valid=valid).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    short = A.vit_attention(*(torch.from_numpy(t[:, :valid]) for t in
+                              (q, k, v)), d ** -0.5, causal).numpy()
+    np.testing.assert_allclose(got[:, :valid], short, atol=TOL, rtol=0)
+
+
+def test_bf16_rounds_p_before_pv():
+    """bf16 inputs: p is rounded to bf16 before p . v (the Pallas kernels'
+    ``p.astype(v.dtype)``), the output is bf16."""
+    b, length, h, d = 1, 9, 2, 64
+    q, k, v = (torch.from_numpy(_rand((b, length, h, d), 20 + i)).to(
+        torch.bfloat16) for i in range(3))
+    got = A.vit_attention(q, k, v, 0.125)
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * 0.125
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    want = torch.einsum("bhlm,bmhd->blhd", p, v.float()).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -7 * (
+        want.float().abs().max().item())
+
+
+def test_attention_module_matches_flax():
+    """One Flax tree through the JAX ``Attention`` and the port's, causal
+    with sequence padding (real_len 11 of 16)."""
+    from scd_tpu.models.vit import Attention as JAttention
+    from scd_tpu.models.vit import ViTConfig as JCfg
+    from scd_tpu_torch.models.params import params_from_flax
+    from scd_tpu_torch.models.vit import Attention, ViTConfig
+
+    kw = dict(width=32, heads=2, depth=1)
+    x = _rand((2, 16, 32), 3)
+    jmod = JAttention(JCfg(**kw), real_len=11)
+    tree = jax.jit(jmod.init, static_argnums=2)(jax.random.PRNGKey(0),
+                                                jnp.asarray(x), True)
+    want = np.asarray(jax.jit(jmod.apply, static_argnums=2)(
+        tree, jnp.asarray(x), True))
+    port = Attention(ViTConfig(**kw))
+    port.load_state_dict(params_from_flax(tree))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), causal=True, real_len=11).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+def test_dispatch_plain_on_cpu_and_kernel_refuses_cpu():
+    q = torch.zeros(1, 4, 2, 64)
+    before = A.attention_cuda.launches
+    out = A.vit_attention(q, q, q, 0.125)
+    assert out.shape == (1, 4, 2, 64) and A.attention_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        A.attention_cuda(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="l_valid"):
+        A.vit_attention(q, q, q, 0.125, l_valid=0)

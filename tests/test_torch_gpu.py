@@ -13,7 +13,10 @@ EM sums to 1e-4 relative + 1e-4 absolute and inertia to 1e-4 relative
 (f32 sums in another order).  The inputs keep every margin far above
 those errors, so indices, labels and counts must be equal.  The W8A8
 kernels repeat the plain versions' arithmetic step by step, so their
-outputs are equal before the activation (see each test for after).
+outputs are equal before the activation (see each test for after).  The
+attention kernel agrees with its plain version within the bound of
+``_attention_within`` (bf16 rounding of p after sums in another order);
+``estep_assign``'s labels are equal and its min distances within 1e-4.
 """
 
 import contextlib
@@ -260,3 +263,148 @@ def test_int8dense_routes_by_shape(cuda):
                                           device=cuda),
                               torch.ones(8, device=cuda),
                               torch.zeros(8, device=cuda))
+
+
+def _attention_within(got, want, v):
+    """bf16: one output ulp (2^-7 relative) plus 2^-8 max|v| for p values
+    that round one bf16 ulp apart after row sums in another order; f32:
+    1e-5 max|v| (sums in another order)."""
+    err = (got.float() - want.float()).abs()
+    vmax = v.float().abs().max()
+    if got.dtype == torch.bfloat16:
+        bound = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * vmax
+    else:
+        bound = 1e-5 * vmax
+    return bool((err <= bound).all())
+
+
+@pytest.mark.parametrize("b,length,h,causal,l_valid,dtype", [
+    (4, 197, 12, False, None, torch.bfloat16),
+    (3, 208, 12, False, 197, torch.bfloat16),
+    (6, 77, 8, True, None, torch.bfloat16),
+    (5, 80, 8, True, None, torch.bfloat16),
+    (3, 5, 5, False, None, torch.bfloat16),
+    (2, 77, 8, True, 60, torch.float32)])
+def test_attention_kernel_matches_plain(cuda, b, length, h, causal, l_valid,
+                                        dtype):
+    """Both entry points launch the kernel once each and agree with the
+    plain version (see ``_attention_within``); two runs repeat their
+    bits."""
+    from scd_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(length + h)
+    qkv = torch.randn(b, length, 3 * h * 64, generator=g,
+                      device=cuda).to(dtype)
+    t = qkv.unflatten(-1, (3, h, 64))
+    q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    before = A.attention_cuda.launches
+    got = A.qkv_attention(qkv, h, 0.125, causal, l_valid)
+    got_vit = A.vit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              0.125, causal, l_valid)
+    assert A.attention_cuda.launches == before + 2
+    assert got.shape == (b, length, h * 64) and got.dtype == dtype
+    assert torch.equal(got.reshape(b, length, h, 64), got_vit)
+    assert torch.equal(got, A.qkv_attention(qkv, h, 0.125, causal, l_valid))
+    want = A.attention_plain(q, k, v, 0.125, causal, l_valid)
+    assert _attention_within(got_vit, want, v)
+
+
+def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from scd_tpu_torch.ops import attention as A
+
+    x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        A.vit_attention(x, x, x, 0.125)
+    y = torch.zeros(1, 300, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="L <= 256"):
+        A.vit_attention(y, y, y, 0.125)
+    z = torch.zeros(1, 8, 2, 64, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        A.vit_attention(z, z, z, 0.125)
+
+
+def test_tower_attention_runs_the_kernel(cuda):
+    """A bf16 CLIP image tower on the card launches the attention kernel
+    once per block and agrees with the same tower on the CPU in f32."""
+    from scd_tpu_torch.models import CLIPModel, params_from_flax
+    from scd_tpu_torch.models.clip import CLIPConfig
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.fabricate import clip_state_dict
+    from scd_tpu_torch.models.clip import load_openai_clip_weights
+
+    def cfg(dt):
+        return CLIPConfig(vision=ViTConfig(
+            image_size=64, patch_size=16, width=128, depth=3, heads=2,
+            quick_gelu=True, pre_post_norm=True, output_proj=32,
+            patch_bias=False, norm_eps=1e-5, compute_dtype=dt),
+            vocab_size=100, context_length=16, text_width=64, text_depth=1,
+            text_heads=1, embed_dim=32, compute_dtype=dt)
+
+    sd = params_from_flax(load_openai_clip_weights(
+        clip_state_dict(cfg(torch.float32), seed=1), cfg(torch.float32)))
+    x = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    models = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        models[dev] = CLIPModel(cfg(dt), device=dev).eval()
+        models[dev].load_state_dict(sd)
+    before = A.attention_cuda.launches
+    with torch.inference_mode():
+        card = models["cuda"].encode_image(x.to(cuda)).cpu()
+        cpu = models["cpu"].encode_image(x)
+    assert A.attention_cuda.launches == before + 3
+    cos = torch.nn.functional.cosine_similarity(card.double(), cpu.double())
+    assert cos.min().item() > 0.999  # bf16 activations through 3 blocks
+
+
+@pytest.mark.parametrize("n,d,k,ties", [(5_000, 768, 100, False),
+                                        (1_001, 64, 1, False),
+                                        (3_000, 100, 130, True)])
+def test_estep_kernel_matches_plain(cuda, n, d, k, ties):
+    """Labels equal to the plain version's (unit rows, margins far above
+    f32 error; exact ties go to the lower index), min distances within
+    1e-4; two runs repeat their bits."""
+    from scd_tpu_torch.ops import distance as D
+
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    cls = 3.0 * torch.randn(k, d, generator=g, device=cuda)
+    lab = torch.randint(0, k, (n,), generator=g, device=cuda)
+    x = _unit(cls[lab] + 0.5 * torch.randn(n, d, generator=g, device=cuda), 1)
+    c = _unit(cls + 0.05 * torch.randn(k, d, generator=g, device=cuda), 1)
+    if ties:
+        c[1::2] = c[0::2]
+    before = D.estep_assign_cuda.launches
+    got = D.estep_assign(x, c)
+    assert D.estep_assign_cuda.launches == before + 1
+    again = D.estep_assign(x, c)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = D.estep_assign_plain(x, c)
+    assert torch.equal(got[0], want[0].to(torch.int32))
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-4)
+    if ties:
+        assert bool((got[0] % 2 == 0).all())
+
+
+def test_optimal_runner_card_matches_cpu(cuda, tmp_path):
+    """``main --optimal`` on the card (estep kernel) prints the CPU's
+    lines."""
+    from scd_tpu_torch.cluster.runners import main
+    from scd_tpu_torch.ops import distance as D
+
+    rng = np.random.default_rng(0)
+    targets = rng.integers(0, 20, 4_000)
+    feats = (3.0 * rng.standard_normal((20, 64)))[targets] \
+        + rng.standard_normal((4_000, 64))
+    path = str(tmp_path / "store.npz")
+    np.savez(path, features=feats.astype(np.float32), targets=targets,
+             mask_lab=(rng.random(4_000) < 0.3) & (targets < 10))
+    lines = {}
+    for dev in ("cuda", "cpu"):
+        before = D.estep_assign_cuda.launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["--features", path, "--n_train_classes", "10", "--optimal",
+                  "--device", dev])
+        lines[dev] = buf.getvalue().splitlines()
+        assert D.estep_assign_cuda.launches == before + (dev == "cuda")
+    assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) == 3

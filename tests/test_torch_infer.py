@@ -1,0 +1,110 @@
+"""The port's serving entry point against the JAX package's, on the CPU.
+
+- A tiny CLIP (width 64, depth 2, 32 px) from one Flax tree: the same
+  names and probabilities within 1e-4 through each package's
+  ``build_clip_encoder`` + ``NameClassifier`` (f32 towers, sums in another
+  order), and through ``classifier_from_run``.
+- ``iter_image_batches`` on ``.npy`` / ``.npz`` with a ragged tail: equal
+  batches and valid counts.
+- The synthetic CLI prints the JAX package's lines.
+"""
+
+import contextlib
+import io
+
+import numpy as np
+import pytest
+
+PROB_TOL = 1e-4
+
+
+def _tiny(vit_mod, clip_mod):
+    return clip_mod.CLIPConfig(
+        vision=vit_mod.ViTConfig(
+            image_size=32, patch_size=8, width=64, depth=2, heads=2,
+            quick_gelu=True, pre_post_norm=True, output_proj=32,
+            patch_bias=False, norm_eps=1e-5),
+        vocab_size=100, context_length=16, text_width=64, text_depth=2,
+        text_heads=2, embed_dim=32)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    from scd_tpu.models import clip as jclip
+    from scd_tpu.models import vit as jvit
+    from scd_tpu_torch.models import clip as tclip
+    from scd_tpu_torch.models import vit as tvit
+    from scd_tpu_torch.testing.fabricate import clip_state_dict
+
+    tcfg, jcfg = _tiny(tvit, tclip), _tiny(jvit, jclip)
+    sd = {k: v.numpy() for k, v in clip_state_dict(tcfg, seed=4).items()}
+    tree = jclip.load_openai_clip_weights(sd, jcfg)
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (6, 32, 32, 3)).astype(np.uint8)
+    nouns = [f"noun_{i}" for i in range(12)]
+    zw = rng.standard_normal((32, 12)).astype(np.float32)
+    zw /= np.linalg.norm(zw, axis=0, keepdims=True)
+    return {"tcfg": tcfg, "jcfg": jcfg, "tree": tree, "images": images,
+            "nouns": nouns, "zw": zw}
+
+
+def test_name_classifier_matches_jax(tiny):
+    from scd_tpu.pipelines import infer as J
+    from scd_tpu_torch.pipelines import infer as T
+
+    jenc = J.build_clip_encoder(tiny["tree"], tiny["jcfg"])
+    tenc = T.build_clip_encoder(tiny["tree"], tiny["tcfg"], device="cpu")
+    for make in (
+            lambda m, enc: m.NameClassifier(enc, tiny["zw"], tiny["nouns"]),
+            lambda m, enc: m.classifier_from_run(
+                enc, tiny["zw"], tiny["nouns"],
+                ["noun_7", "noun_2", "noun_9", "noun_0"])):
+        jnames, jprobs = make(J, jenc).classify(tiny["images"], topk=3)
+        tnames, tprobs = make(T, tenc).classify(tiny["images"], topk=3)
+        assert tnames == jnames
+        np.testing.assert_allclose(tprobs, np.asarray(jprobs), atol=PROB_TOL,
+                                   rtol=0)
+    with pytest.raises(KeyError):
+        T.classifier_from_run(tenc, tiny["zw"], tiny["nouns"], ["nope"])
+
+
+@pytest.mark.parametrize("suffix", [".npy", ".npz"])
+def test_iter_image_batches_ragged_tail(tmp_path, suffix):
+    from scd_tpu.pipelines import infer as J
+    from scd_tpu_torch.pipelines import infer as T
+
+    images = np.random.default_rng(0).integers(0, 256, (11, 8, 8, 3)).astype(
+        np.uint8)
+    path = str(tmp_path / f"batch{suffix}")
+    if suffix == ".npy":
+        np.save(path, images)
+    else:
+        np.savez(path, images)  # stored under arr_0
+    got = list(T.iter_image_batches(path, 4))
+    want = list(J.iter_image_batches(path, 4))
+    assert [n for _, n in got] == [n for _, n in want] == [4, 4, 3]
+    for (g, _), (w, _) in zip(got, want):
+        assert g.shape == (4, 8, 8, 3)
+        np.testing.assert_array_equal(g, w)
+    assert not got[-1][0][3:].any()  # the tail is zero-padded
+
+
+def test_synthetic_cli_prints_jax_lines():
+    from scd_tpu.pipelines.infer import main as jax_main
+    from scd_tpu_torch.pipelines.infer import main as torch_main
+
+    out = []
+    for fn, argv in ((jax_main, []), (torch_main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            acc = fn(["--topk", "3"] + argv)
+        out.append((acc, buf.getvalue().splitlines()))
+    assert out[1] == out[0] and len(out[0][1]) == 5
+    assert out[0][1][-1] == "top-3 accuracy on 16 synthetic test images: 1.0"
+
+
+def test_mesh_request_raises():
+    from scd_tpu_torch.pipelines.infer import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        main(["--mesh_data", "2", "--device", "cpu"])

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor anything of the JAX package.
 
 A fresh interpreter imports every ``scd_tpu_torch`` module (the towers,
-the tokenizer and the W8A8 ops among them) and ``chip_smoke``, then looks
+the tokenizer, the kernels' ops, the runners and the serving entry point
+among them) and ``chip_smoke``, then looks
 at ``sys.modules``.  ``scd_tpu_torch`` itself
 starts with ``scd_tpu``, so the check matches the JAX package by exact name
 or the ``scd_tpu.`` prefix.
@@ -34,5 +35,6 @@ def test_port_imports_no_jax_and_no_scd_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     n_modules, bad = res.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 44  # the towers, tokenizer, W8A8 ops included
+    # the towers, tokenizer, W8A8 and attention ops, runners, serving
+    assert int(n_modules) >= 48
     assert bad == "[]", bad

@@ -19,6 +19,7 @@ imported into one cache by ``scd_tpu.pipelines.interop``.
   runs at full size) goes through both packages too.
 - A cold run (extraction and the vocabulary build from JPEGs and weight
   files) goes through both packages on the same weights.
+- The asset-free synthetic run goes through both packages' ``main``.
 """
 
 import contextlib
@@ -171,6 +172,25 @@ def test_port_fabricator_root_byte_equal(tmp_path):
     _, jlines = _run(jax_run, jcfg)
     _, tlines = _run(torch_run, tcfg, device="cpu")
     assert tlines == jlines and len(tlines) > 3
+
+
+def test_synthetic_run_unsup_byte_equal(tmp_path):
+    """The asset-free synthetic run (both CLIs' default dataset) through
+    each package's ``main``: byte-equal metric lines (SSKM reaches the
+    same partition from either package's k-means++ draws)."""
+    from scd_tpu.pipelines.unsup import main as jax_main
+    from scd_tpu_torch.pipelines.unsup import main as torch_main
+
+    lines = []
+    for fn, extra in ((jax_main, []), (torch_main, ["--device", "cpu"])):
+        argv = ["--dataset_name", "synthetic", "--cache_dir",
+                str(tmp_path / f"cache{len(lines)}")] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        lines.append(_metric_lines(buf.getvalue()))
+    assert lines[1] == lines[0] and len(lines[0]) > 10
+    assert lines[0][-1] == "IoU: 1.0"
 
 
 def test_cuda_request_without_card_raises(monkeypatch):

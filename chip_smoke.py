@@ -36,7 +36,7 @@ Phases, each printing its own lines and seconds:
    columns, top-5; images/s and p50 / p99 ms per batch; the attention
    kernel must launch 40 batches x 12 blocks times; 8 images' features
    are held against the CPU's plain f32 tower and their top-1 names must
-   be equal;
+   be equal; the synthetic CLI must compute its naming head on the card;
 7. the k-means runners: ``scd_tpu_torch.cluster.runners.main --optimal``
    over fabricated, L2-normalised ImageNet-100-scale features (130,048 x
    768, 100 classes) on the card (the ``estep_assign`` kernel) and on the
@@ -172,14 +172,88 @@ def phase_build():
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
     reports = build.build(SOURCES)
-    for name, log in reports.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  {name}: {ln.strip()}")
     for name in SOURCES:
         build.load(name)
     print(f"built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
+    for name, log in reports.items():
+        for line in ptxas_summary(log):
+            print(f"  {name}: {line}")
+    sass = {name: sass_counts(build.library_path(name))
+            for name in ("attention", "w8a8")}
+    for name, per_fn in sass.items():
+        for fn, (hg, ig) in per_fn.items():
+            print(f"  {name} SASS {fn}: HGMMA {hg}, IGMMA {ig}")
+    check(any(hg > 0 for fn, (hg, _) in sass["attention"].items()
+              if "attn_bf16" in fn), "attention: no HGMMA in the bf16 kernel")
+    check(any(ig > 0 for fn, (_, ig) in sass["w8a8"].items()
+              if "fusedq" in fn), "w8a8: no IGMMA in the w8a8_fusedq kernel")
+
+
+def _short(mangled: str) -> str:
+    """A kernel's name and template arguments, from its mangled name (the
+    name follows its length, after the namespace's)."""
+    import re
+
+    name, end = mangled[:48], 0
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            cand = mangled[m.end():m.end() + int(digits[i:])]
+            if cand.endswith("_kernel") and cand.isidentifier():
+                name, end = cand, m.end() + len(cand)
+                break
+        if end:
+            break
+    tail = mangled[end:]
+    args = re.match(r"ILi(\d+)E", tail)
+    out = "bf16" if "bfloat16E" in tail[:24] else (
+        "f32" if tail[:12].count("f") and args else "")
+    targs = ",".join(a for a in (args.group(1) if args else "", out) if a)
+    return name + (f"<{targs}>" if targs else "")
+
+
+def ptxas_summary(log: str):
+    """One line per kernel from ``nvcc -Xptxas -v``: registers, shared
+    memory, spill bytes, and any wgmma serialization warning."""
+    import re
+
+    out, fn, info = [], None, {}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = _short(m.group(1))
+            info = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            info["spill"] = f"spill {m.group(1)} / {m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m and fn:
+            out.append(f"{fn}: {m.group(1)} registers, {m.group(2)} bytes "
+                       f"static smem, {info.get('spill', 'spill ?')}")
+        if "wgmma" in ln:
+            out.append(ln.strip())
+    return out
+
+
+def sass_counts(lib: str):
+    """{kernel: (HGMMA, IGMMA)} instruction counts in ``lib``'s SASS."""
+    from scd_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    counts, fn = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            fn = _short(ln.split("Function :")[1].strip())
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in ln
+            counts[fn][1] += "IGMMA" in ln
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 # ------------------------------------------------------------- phase 2
@@ -492,6 +566,15 @@ def parity_attention_estep(seed: int):
     attention_parity(5, 256, 7, 64, bf16, gen, causal=True, tag="edge-L256")
     attention_parity(11, 129, 3, 64, bf16, gen, l_valid=100, packed=False,
                      tag="edge-L129")
+    # every key-tile template and both masks, packed and not, with
+    # 7 x 19 = 133 (batch, head) pairs: not a multiple of the grid
+    for i, length in enumerate((1, 5, 16, 32, 77, 80, L_VIT, L_PAD, 256)):
+        for causal in (False, True):
+            attention_parity(
+                7, length, 19, 64, bf16, gen, causal=causal,
+                l_valid=L_VIT if length == L_PAD else None,
+                packed=(i + causal) % 2 == 0,
+                tag=f"edge-grid-L{length}{'-causal' if causal else ''}")
     attention_parity(4, L_VIT, 12, 64, f32, gen, tag="f32-image")
     attention_parity(3, 77, 8, 64, f32, gen, causal=True, packed=False,
                      tag="f32-text")
@@ -528,6 +611,9 @@ def phase_parity(seed: int):
     fusedq_parity(77, 16, 9, None, bf16, gen, "edge-d16")
     fusedq_parity(300, 80, 129, "quick_gelu", bf16, gen, "edge-d80")
     fusedq_parity(500, 1_536, 300, "gelu_tanh", bf16, gen, "edge-d1536")
+    fusedq_parity(1_001, 512, 1_001, None, bf16, gen, "edge-d512")
+    fusedq_parity(3_001, 768, 2_310, "quick_gelu", bf16, gen, "edge-d768")
+    fusedq_parity(129, 1_536, 2_305, None, f32, gen, "edge-d1536-f32")
     errs["w8a8_prequant"] = max(
         prequant_parity((BATCH, L_VIT, 768), 2_304, bf16, gen, "vit-qkv-L197"),
         prequant_parity((BATCH, L_VIT, 768), 3_072, bf16, gen, "vit-fc1-L197"))
@@ -949,7 +1035,11 @@ def time_attention_estep(gen):
     for tag, key, b, length, h, causal, packed in (
             ("image", "vit_attention", BATCH, L_VIT, 12, False, False),
             ("image", "qkv_attention", BATCH, L_VIT, 12, False, True),
-            ("text", "qkv_attention-text", TEXT_BATCH, 77, 8, True, True)):
+            ("text", "qkv_attention-text", TEXT_BATCH, 77, 8, True, True),
+            ("text-L16", "qkv_attention-text16", TEXT_BATCH, 16, 8, True,
+             True),
+            ("text-L32", "qkv_attention-text32", TEXT_BATCH, 32, 8, True,
+             True)):
         qkv, (q, k, v) = _attn_inputs(b, length, h, 64, bf16, packed, gen)
         if packed:
             def kern():
@@ -970,6 +1060,15 @@ def time_attention_estep(gen):
               f"{ms_again:.4f}), plain {plain:.4f} ms, library (SDPA) "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
         out[key] = (ms, plain, lib, bound, by)
+        if key == "qkv_attention":  # the host's share: tensor maps, launch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                kern()
+            host_us = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            print(f"  attention host time per call (three tensor maps "
+                  f"encoded, launch, wrapper): {host_us:.1f} us")
         del qkv, q, k, v, qt, kt, vt
 
     n, d, k = RUNNER_N, D_FEAT, K
@@ -1170,6 +1269,24 @@ def phase_serving(seed: int, workdir: str):
     check(cos.min().item() >= TOWER_COS_TOL,
           "serving: the card's tower disagrees with the CPU")
     check(flips == 0, "serving: top-1 names differ between card and CPU")
+
+    # ---- the synthetic CLI (a bound-method encoder) runs its head on the
+    # card: the head's device is the one asked for, not the encoder's
+    seen, head = [], infer.NameClassifier._head
+
+    def spy(self, feats, k):
+        seen.append(feats.device.type)
+        return head(self, feats, k)
+
+    infer.NameClassifier._head = spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            syn = infer.main(["--dataset_name", "synthetic", "--topk", "3"])
+    finally:
+        infer.NameClassifier._head = head
+    check(seen == ["cuda"], f"synthetic serving head ran on {seen}")
+    print(f"synthetic serving (default --device cuda): head on {seen[0]}, "
+          f"top-3 accuracy {syn}")
     return {"attention": launches["attention"]}
 
 

@@ -16,31 +16,51 @@
 // 3.35 TB/s, against 15 GFLOP of products (0.015 ms at 989 TFLOP/s bf16);
 // the text tower's (B 5,120, L 77, H 8, causal) moves 1.6 GB, 0.48 ms.
 //
-// Design.  L <= 256, so no online softmax is needed (the Pallas kernels make
-// the same choice): one block owns a (batch, head) pair and a tile of 64
-// queries, holds that head's whole K and V in shared memory, and keeps each
-// query's full score row in registers.  bf16 inputs take the tensor cores:
-// four warps, each with 16 query rows, run mma.sync m16n8k16 bf16 for
-// q . k^T (scores accumulate in f32 registers), apply scale and masks, take
-// the row max and sum across the four lanes that share a row, round p to
-// bf16 in the registers that already hold the scores (the accumulator
-// layout of two 8-column tiles is the A-operand layout of a 16-deep one),
-// and run a second mma.sync for p . v.  The number of 16-key tiles is a
-// template argument (1, 2, 5, 8, 13 or 16: the text buckets 16 / 32 / 80,
-// 128, the padded image sequence 208, and 256), so the score registers are
-// addressed statically; keys past L are zero in shared memory and masked.
-// Shared-memory rows are padded to 72 elements, so the fragment loads hit
-// 32 distinct banks.  K, V and the Q tile are staged with cp.async, every
-// 16-byte copy of a thread in flight at once (the first design's loop of
-// dependent loads and stores took 6x SDPA's time); K and V are re-read by
-// each query tile of a head, from L2 after the first.  A warp whose rows
-// all lie past L exits after the staging, and key tiles that every row of
-// a warp masks (causal, or past l_valid) skip both products: their p is
-// exactly 0, so the result is the same bit for bit.  f32 inputs (no
-// tensor-core path keeps f32 products exact) take a plain SIMT kernel
-// with the same contract: 32 queries per block, scores staged in shared
-// memory, fmaf dot products.
+// Design of the bf16 path (Hopper: TMA, mbarriers, wgmma).  L <= 256, so
+// no online softmax is needed (the Pallas kernels make the same choice):
+// a whole score row stays in registers.  The work unit is a whole head:
+// its K, V and Q are staged once in shared memory and every query tile of
+// the head runs against that one copy.  Blocks are persistent (1, 2 or 3
+// per SM as the score registers allow) and walk the (batch, head) pairs
+// with a stride of the grid; a block has three warpgroups where a score
+// row fits in 168 registers (128 and 208 keys), else two.  A ring of
+// stages holds the next heads (as many as fit: 2 at L 208, 3 at L 80):
+// per head three TMA loads of a 4-D tensor map over the strided view
+// (dims d, H, L, B; box 64 x 1 x rows x 1, 128-byte swizzle: a head row is
+// 128 bytes) complete on the stage's `full` mbarrier; rows past L arrive
+// as zeros.  The warpgroup that finishes with a stage last refills it, so
+// no warp is spent on loads alone.  Each query tile of 64 rows belongs to
+// one warpgroup (tile t of the block's n-th head to warpgroup (n + t) % W
+// of the block's W, which balances both the 4 tiles of L 197 and the
+// single tile of L <= 64):
+//   S = Q . K^T: wgmma m64nNk16, A and B from shared memory, both K-major
+//     (d contiguous), N = all the keys held (16 to 256);
+//   scale, mask, row max, expf, the row sum, then p = e / sum by one
+//     correctly rounded reciprocal per row and an FMA correction step
+//     (Markstein: the correctly rounded quotient, as IEEE division), and
+//     p rounded to bf16 in the registers that held the scores: the
+//     accumulator layout of a 16-key tile is the A-register layout of a
+//     16-deep wgmma;
+//   O = P . V: wgmma m64n64k16 with A from registers and V from shared
+//     memory as an MN-major B (the transpose bit).
+// No wgmma sits under a runtime branch (the compiler would serialize it),
+// so the products run over every key tile; a key tile that a warp's rows
+// all mask skips the softmax and feeds p = 0, and masks are applied only
+// in the tiles that straddle l_valid or the diagonal.  The ragged query
+// tile (5 rows at L 197, 13 at L 77) costs its m64 products, which are far
+// below the bound, while the warps whose 16 rows all lie past L skip the
+// softmax: the instructions, not the tensor cores, are what a ragged tile
+// would waste.  The number of 16-key tiles is a template argument (1, 2,
+// 5, 8, 13 or 16: the text buckets 16 / 32 / 80, 128, the padded image
+// sequence 208, and 256).  The tensor maps encode the base pointers, so
+// the host builds three per call (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: the library links no -lcuda).
+//
+// f32 inputs (no tensor-core path keeps f32 products exact) take a plain
+// SIMT kernel with the same contract: 32 queries per block, scores staged
+// in shared memory, fmaf dot products.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,14 +68,22 @@
 
 namespace {
 
-constexpr int HD = 64;        // head dimension of the bf16 path
-constexpr int QT = 64;        // query rows per block, bf16 path (4 warps x 16)
-constexpr int LDS = HD + 8;   // shared row stride in elements (144 bytes)
-constexpr int FQT = 32;       // query rows per block, f32 path
+constexpr int HD = 64;             // head dimension of the bf16 path
+constexpr int ROW_BYTES = HD * 2;  // one head row: 128 bytes, the swizzle span
+constexpr int QT = 64;             // query rows per tile (the wgmma M)
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_MAX = 232448;   // the SM's 227 KB
+constexpr int FQT = 32;            // query rows per block, f32 path
 constexpr int FTHREADS = 256;
 
 struct Strides {
   long long b, l, h;  // element strides of batch, sequence and head
+};
+
+struct Shape {
+  int heads, L, l_valid, causal, pairs, stages, qtiles;
+  float scale;
+  long long osb, osl, osh;  // output element strides
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -63,176 +91,444 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+// ---- wgmma
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Start copying rows [row0, row0 + nrows) of one head into shared memory
-// (row stride LDS), 16 bytes per cp.async, all in flight at once; rows at
-// or past L are zero.  The caller waits (cp_async_wait_all) and syncs.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long stride_l, int row0, int nrows, int L) {
-  for (int i = threadIdx.x; i < nrows * (HD / 8); i += blockDim.x) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    if (row0 + r < L)
-      cp_async16(dst + r * LDS + c, src + (row0 + r) * stride_l + c);
-    else
-      *reinterpret_cast<uint4*>(dst + r * LDS + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
+// keep the compiler from moving register accesses across wgmma
+template <int N, typename T>
+__device__ __forceinline__ void reg_fence(T* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&r[i]))::"memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+// Shared-memory operand descriptor of rows of 128 bytes with the 128-byte
+// swizzle (what TMA writes): start address >> 4, LBO 1 (unused), 8-row
+// groups 1024 bytes apart (SBO), layout type 1 (128B swizzle).  One
+// descriptor serves the K-major Q and K and the MN-major V.  A 16-deep step
+// along d advances the start by 32 bytes (2 units) inside the swizzle atom.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
+__device__ __forceinline__ void wgmma_bf16_ss_n16(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n32(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n80(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n208(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103"
+      "}, %104, %105, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n256(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// S = Q . K^T over all 16 KT keys: one wgmma m64nNk16 (N = 16 KT) per
+// 16-deep step of d.  One instruction per step keeps the compiler from
+// serializing them (it does when several accumulator pieces interleave),
+// and no key tile is skipped (a wgmma under a runtime branch is serialized
+// too); the products cost far less than the bound.
 template <int KT>
-__global__ void __launch_bounds__(128)
-attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 Strides sq, Strides sk, Strides sv, Strides so, int heads, int L,
-                 int l_valid, int causal, float scale, int qtiles) {
-  constexpr int LK = 16 * KT;  // keys held
-  constexpr int NT = 2 * KT;   // 8-key score tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + LK * LDS;
-  __nv_bfloat16* Qs = Vs + LK * LDS;
-
-  const int tile = blockIdx.x % qtiles;
-  const int bh = blockIdx.x / qtiles;
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = tile * QT;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-
-  stage_rows(Ks, k + b * sk.b + h * sk.h, sk.l, 0, LK, L);
-  stage_rows(Vs, v + b * sv.b + h * sv.h, sv.l, 0, LK, L);
-  stage_rows(Qs, q + b * sq.b + h * sq.h, sq.l, q0, QT, L);
-  cp_async_wait_all();
-  __syncthreads();
-  if (q0 + warp * 16 >= L) return;  // no row of this warp exists
-
-  // keys any row of this warp may see; key tiles past it skip both
-  // products (their p is exactly 0)
-  const int lv = min(l_valid, L);
-  const int kmax = causal ? min(lv, q0 + warp * 16 + 16) : lv;
-
-  // ---- this warp's 16 query rows as A fragments
-  const __nv_bfloat16* Qw = Qs + warp * 16 * LDS;
-  uint32_t qa[HD / 16][4];
+__device__ __forceinline__ void scores(float* s, uint64_t dq, uint64_t dk) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    qa[kk][0] = ld32(Qw + g * LDS + kk * 16 + 2 * t);
-    qa[kk][1] = ld32(Qw + (g + 8) * LDS + kk * 16 + 2 * t);
-    qa[kk][2] = ld32(Qw + g * LDS + kk * 16 + 8 + 2 * t);
-    qa[kk][3] = ld32(Qw + (g + 8) * LDS + kk * 16 + 8 + 2 * t);
+    if constexpr (KT == 1)
+      wgmma_bf16_ss_n16(s, dq + 2 * kk, dk + 2 * kk, kk);
+    else if constexpr (KT == 2)
+      wgmma_bf16_ss_n32(s, dq + 2 * kk, dk + 2 * kk, kk);
+    else if constexpr (KT == 5)
+      wgmma_bf16_ss_n80(s, dq + 2 * kk, dk + 2 * kk, kk);
+    else if constexpr (KT == 8)
+      wgmma_bf16_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk);
+    else if constexpr (KT == 13)
+      wgmma_bf16_ss_n208(s, dq + 2 * kk, dk + 2 * kk, kk);
+    else
+      wgmma_bf16_ss_n256(s, dq + 2 * kk, dk + 2 * kk, kk);
   }
+}
 
-  // ---- scores: s[j] is the 16 x 8 tile of keys 8j .. 8j + 7
-  float s[NT][4];
+// e / sum, correctly rounded, from inv = RN(1 / sum) (Markstein)
+__device__ __forceinline__ float quot(float e, float sum, float inv) {
+  const float q = __fmul_rn(e, inv);
+  return fmaf(fmaf(-sum, q, e), inv, q);
+}
+
+// One 64-row query tile [q0, q0 + 64) of a staged head, by one warpgroup.
+// Thread (warp w, lane 4g + t) holds rows q0 + 16w + g and + 8; in each
+// 16-key tile j its scores s[8j .. 8j + 7] are keys 16j + 2t + {0, 1}
+// (rows g: 0-1, g + 8: 2-3) and 16j + 8 + 2t + {0, 1} (4-5, 6-7).
+template <int KT>
+__device__ __forceinline__ void attend_tile(uint32_t q_addr, uint32_t k_addr, uint32_t v_addr,
+                                            __nv_bfloat16* __restrict__ out_bh, const Shape& sh,
+                                            int q0, int warp) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int L = sh.L, lv = min(sh.l_valid, L);
+  const bool causal = sh.causal != 0;
+
+  float s[KT * 8];
+  wg_fence();
+  scores<KT>(s, desc_sw128(q_addr), desc_sw128(k_addr));
+  wg_commit();
+  wg_wait_all();
+  reg_fence<KT * 8>(s);
+
+  // A warp whose 16 rows all lie past L sees no key: its p is all 0.
+  const int r_lo = q0 + warp * 16;
+  const int ra = r_lo + g, rb = ra + 8;
+  const bool live = r_lo < L;
+  const int kmax = !live ? 0 : causal ? min(lv, r_lo + 16) : lv;  // keys any row sees
+  const int kfull = !live ? 0 : causal ? min(lv, r_lo + 1) : lv;  // keys every row sees
+  uint32_t p[KT][4];
+  {
+    float ma = -INFINITY, mb = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if (j * 8 < kmax) {
-      const __nv_bfloat16* Kr = Ks + (j * 8 + g) * LDS + 2 * t;
+    for (int j = 0; j < KT; ++j) {
+      if (j * 16 >= kmax) continue;
+      float* sj = s + 8 * j;
+      if (j * 16 + 16 <= kfull) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma_bf16(s[j], qa[kk], ld32(Kr + kk * 16), ld32(Kr + kk * 16 + 8));
+        for (int e = 0; e < 8; ++e) sj[e] = __fmul_rn(sj[e], sh.scale);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j * 16 + c * 8 + 2 * t + e;
+            const bool ka = col < lv && (!causal || col <= ra);
+            const bool kb = col < lv && (!causal || col <= rb);
+            sj[4 * c + e] = ka ? __fmul_rn(sj[4 * c + e], sh.scale) : -INFINITY;
+            sj[4 * c + 2 + e] = kb ? __fmul_rn(sj[4 * c + 2 + e], sh.scale) : -INFINITY;
+          }
+      }
+      ma = fmaxf(ma, fmaxf(fmaxf(sj[0], sj[1]), fmaxf(sj[4], sj[5])));
+      mb = fmaxf(mb, fmaxf(fmaxf(sj[2], sj[3]), fmaxf(sj[6], sj[7])));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
+    }
+    // every row sees key 0, so its max is finite
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j * 16 >= kmax) continue;
+      float* sj = s + 8 * j;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sj[4 * c + e] = expf(sj[4 * c + e] - ma);
+          sj[4 * c + 2 + e] = expf(sj[4 * c + 2 + e] - mb);
+          sa += sj[4 * c + e];
+          sb += sj[4 * c + 2 + e];
+        }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sa += __shfl_xor_sync(0xffffffffu, sa, off);
+      sb += __shfl_xor_sync(0xffffffffu, sb, off);
+    }
+    const float ia = __frcp_rn(sa), ib = __frcp_rn(sb);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const float* sj = s + 8 * j;
+      if (j * 16 >= kmax) {  // every key masked: p is exactly 0
+        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0u;
+        continue;
+      }
+      p[j][0] = pack_bf16(quot(sj[0], sa, ia), quot(sj[1], sa, ia));
+      p[j][1] = pack_bf16(quot(sj[2], sb, ib), quot(sj[3], sb, ib));
+      p[j][2] = pack_bf16(quot(sj[4], sa, ia), quot(sj[5], sa, ia));
+      p[j][3] = pack_bf16(quot(sj[6], sb, ib), quot(sj[7], sb, ib));
     }
   }
 
-  // ---- scale, masks, row max (rows ra = g, rb = g + 8 of the warp's 16)
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  float ma = -INFINITY, mb = -INFINITY;
+  // ---- out = p . v
+  float o[32];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  reg_fence<32>(o);
+  reg_fence<4 * KT>(&p[0][0]);
+  wg_fence();
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = j * 8 + 2 * t + e;
-      const bool ka = col < lv && (!causal || col <= ra);
-      const bool kb = col < lv && (!causal || col <= rb);
-      s[j][e] = ka ? s[j][e] * scale : -INFINITY;
-      s[j][2 + e] = kb ? s[j][2 + e] * scale : -INFINITY;
-      ma = fmaxf(ma, s[j][e]);
-      mb = fmaxf(mb, s[j][2 + e]);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
-    mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
-  }
+  for (int j = 0; j < KT; ++j)
+    wgmma_bf16_rs_n64_tb(o, p[j], desc_sw128(v_addr + j * 16 * ROW_BYTES));
+  wg_commit();
+  wg_wait_all();
+  reg_fence<32>(o);
 
-  // ---- exp and row sums (every row has key 0 unmasked, so max is finite)
-  float sa = 0.f, sb = 0.f;
+  // ---- store the rows that exist: chunk c holds columns 8c + 2t, + 1
+  if (live) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j * 8 >= kmax) {  // every key masked: p is exactly 0
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      continue;
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[j][e] = expf(s[j][e] - ma);
-      s[j][2 + e] = expf(s[j][2 + e] - mb);
-      sa += s[j][e];
-      sb += s[j][2 + e];
+    for (int c = 0; c < HD / 8; ++c) {
+      if (ra < L)
+        *reinterpret_cast<uint32_t*>(out_bh + ra * sh.osl + c * 8 + 2 * t) =
+            pack_bf16(o[4 * c], o[4 * c + 1]);
+      if (rb < L)
+        *reinterpret_cast<uint32_t*>(out_bh + rb * sh.osl + c * 8 + 2 * t) =
+            pack_bf16(o[4 * c + 2], o[4 * c + 3]);
     }
   }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    sa += __shfl_xor_sync(0xffffffffu, sa, off);
-    sb += __shfl_xor_sync(0xffffffffu, sb, off);
-  }
+}
 
-  // ---- out = p . v, p rounded to bf16 (IEEE division first, as the TPU
-  // kernel's p / sum)
-  float o[HD / 8][4];
-#pragma unroll
-  for (int jd = 0; jd < HD / 8; ++jd) o[jd][0] = o[jd][1] = o[jd][2] = o[jd][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    if (kk * 16 >= kmax) continue;  // p is exactly 0 for these keys
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * kk][0] / sa, s[2 * kk][1] / sa);
-    pa[1] = pack_bf16(s[2 * kk][2] / sb, s[2 * kk][3] / sb);
-    pa[2] = pack_bf16(s[2 * kk + 1][0] / sa, s[2 * kk + 1][1] / sa);
-    pa[3] = pack_bf16(s[2 * kk + 1][2] / sb, s[2 * kk + 1][3] / sb);
-    const __nv_bfloat16* Vr = Vs + (kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-    for (int jd = 0; jd < HD / 8; ++jd) {
-      const __nv_bfloat16* vp = Vr + jd * 8;
-      mma_bf16(o[jd], pa, pack_pair(vp[0], vp[LDS]), pack_pair(vp[8 * LDS], vp[9 * LDS]));
-    }
-  }
+// Start the three loads of pair `pr` into the stage at `st`, completing on
+// the mbarrier `fb` (one thread).
+__device__ __forceinline__ void load_head(const CUtensorMap* mq, const CUtensorMap* mk,
+                                          const CUtensorMap* mv, uint32_t st, uint32_t fb,
+                                          uint32_t kv_bytes, uint32_t stage_bytes, int pr,
+                                          int heads) {
+  const int b = pr / heads, h = pr % heads;
+  mbar_expect_tx(fb, stage_bytes);
+  tma_load_4d(st, mk, fb, 0, h, 0, b);
+  tma_load_4d(st + kv_bytes, mv, fb, 0, h, 0, b);
+  tma_load_4d(st + 2 * kv_bytes, mq, fb, 0, h, 0, b);
+}
 
-  // ---- store the rows that exist
-  __nv_bfloat16* ob = out + b * so.b + h * so.h + 2 * t;
-#pragma unroll
-  for (int jd = 0; jd < HD / 8; ++jd) {
-    if (ra < L)
-      *reinterpret_cast<uint32_t*>(ob + ra * so.l + jd * 8) = pack_bf16(o[jd][0], o[jd][1]);
-    if (rb < L)
-      *reinterpret_cast<uint32_t*>(ob + rb * so.l + jd * 8) = pack_bf16(o[jd][2], o[jd][3]);
+// Warpgroups per block and blocks per SM, as the registers of a whole
+// score row allow: short rows take 2 or 3 blocks of 2 warpgroups; the 128-
+// and 208-key rows fit 3 warpgroups in one block (168 registers); the
+// 256-key row, 2.
+template <int KT>
+struct Config {
+  static constexpr int nwg = (KT == 8 || KT == 13) ? 3 : 2;
+  static constexpr int threads = nwg * 128;
+  static constexpr int per_sm = KT <= 2 ? 3 : (KT <= 5 ? 2 : 1);
+};
+
+// Persistent: block i takes the (batch, head) pairs i, i + gridDim.x, ...
+// Stage layout: K [16 KT rows], V [16 KT rows], Q [qtiles x 64 rows], each
+// row 128 bytes, swizzled; every part starts on a 1024-byte boundary.
+// Every warpgroup waits for a stage's `full` mbarrier; each then runs its
+// query tiles, syncs its own 128 threads, and counts itself done on the
+// stage; the last to finish refills the stage with the pair `stages`
+// further on.  Warpgroup and warp indices are broadcast from lane 0, so the
+// compiler sees them uniform and keeps the wgmma's asynchronous.
+template <int KT>
+__global__ void __launch_bounds__(Config<KT>::threads, Config<KT>::per_sm)
+attn_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
+                 Shape sh) {
+  constexpr uint32_t KV_BYTES = 16 * KT * ROW_BYTES;
+  constexpr int NWG = Config<KT>::nwg;
+  const uint32_t stage_bytes = 2 * KV_BYTES + sh.qtiles * QT * ROW_BYTES;
+  __shared__ __align__(8) uint64_t full[MAX_STAGES];
+  __shared__ int done[MAX_STAGES];
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < sh.stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0, pr = blockIdx.x; s < sh.stages && pr < sh.pairs; ++s, pr += gridDim.x)
+      load_head(&mq, &mk, &mv, base + s * stage_bytes, smem_u32(&full[s]), KV_BYTES,
+                stage_bytes, pr, sh.heads);
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, ((int)threadIdx.x / 32) & 3, 0);
+  int n = 0;
+  for (int pr = blockIdx.x; pr < sh.pairs; pr += gridDim.x, ++n) {
+    const int s = n % sh.stages, use = n / sh.stages;
+    mbar_wait(smem_u32(&full[s]), use & 1);
+    const uint32_t st = base + s * stage_bytes;
+    const int b = pr / sh.heads, h = pr % sh.heads;
+    __nv_bfloat16* out_bh = out + b * sh.osb + h * sh.osh;
+    // tile tq of the block's n-th pair belongs to warpgroup (n + tq) % NWG
+    for (int tq = ((wg - n) % NWG + NWG) % NWG; tq < sh.qtiles; tq += NWG)
+      attend_tile<KT>(st + 2 * KV_BYTES + tq * QT * ROW_BYTES, st, st + KV_BYTES, out_bh, sh,
+                      tq * QT, warp);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if ((threadIdx.x & 127) == 0 && atomicAdd(&done[s], 1) == NWG - 1) {
+      done[s] = 0;
+      const int next = pr + sh.stages * gridDim.x;
+      if (next < sh.pairs)
+        load_head(&mq, &mk, &mv, st, smem_u32(&full[s]), KV_BYTES, stage_bytes, next,
+                  sh.heads);
+    }
   }
 }
 
@@ -305,20 +601,91 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded, so the library needs no -lcuda at link time.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a strided bf16 [B, L, H, 64] view: dims (d, H, L, B),
+// innermost first, byte strides of H, L and B (a size-1 dimension gets the
+// stride it would have in a contiguous layout), box 64 x 1 x rows x 1 with
+// the 128-byte swizzle; rows past L read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, Strides st, int batch, int L, int heads,
+              int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const long long sh = heads > 1 ? st.h : HD;
+  const long long sl = L > 1 ? st.l : sh * heads;
+  const long long sb = batch > 1 ? st.b : sl * L;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)L,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)HD, 1u, (cuuint32_t)rows, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int KT>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, Strides sq,
                 Strides sk, Strides sv, Strides so, int batch, int heads, int L,
                 int l_valid, int causal, float scale, cudaStream_t stream) {
-  const int qtiles = (L + QT - 1) / QT;
-  const int smem = (2 * 16 * KT + QT) * LDS * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(attn_bf16_kernel<KT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  Shape sh{};
+  sh.heads = heads;
+  sh.L = L;
+  sh.l_valid = l_valid;
+  sh.causal = causal;
+  sh.pairs = batch * heads;
+  sh.qtiles = (L + QT - 1) / QT;
+  sh.scale = scale;
+  sh.osb = so.b;
+  sh.osl = so.l;
+  sh.osh = so.h;
+  const int stage_bytes = (2 * 16 * KT + sh.qtiles * QT) * ROW_BYTES;
+  constexpr int per_sm = Config<KT>::per_sm;
+  const int room = (SMEM_MAX - per_sm * (1024 + 1024)) / per_sm;  // alignment, statics, reserve
+  sh.stages = room / stage_bytes < MAX_STAGES ? room / stage_bytes : MAX_STAGES;
+  if (sh.stages < 1) return (int)cudaErrorInvalidValue;
+  const int smem = sh.stages * stage_bytes + 1024;  // + the 1024-byte alignment
+
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, sq, batch, L, heads, sh.qtiles * QT) ||
+      !make_map(&mk, k, sk, batch, L, heads, 16 * KT) ||
+      !make_map(&mv, v, sv, batch, L, heads, 16 * KT))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bf16_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)batch * heads * qtiles;
-  attn_bf16_kernel<KT><<<(unsigned)blocks, 128, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sq, sk, sv, so,
-      heads, L, l_valid, causal, scale, qtiles);
+  const int grid = sh.pairs < per_sm * sms ? sh.pairs : per_sm * sms;
+  attn_bf16_kernel<KT><<<grid, Config<KT>::threads, smem, stream>>>(mq, mk, mv,
+                                                             static_cast<__nv_bfloat16*>(out), sh);
   return (int)cudaGetLastError();
 }
 

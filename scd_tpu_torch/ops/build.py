@@ -9,7 +9,9 @@ interface.  At first use it is compiled with
 into the build directory (``SCD_TORCH_KERNEL_DIR``, default
 ``scd_tpu_torch/_build``, listed in ``.gitignore``) and loaded with
 ``ctypes``.  No PyTorch headers are involved, so a build takes seconds and
-needs no ``ninja``.  The library name carries a hash of the source and the
+needs no ``ninja``.  Kernels that load through TMA take
+``cuTensorMapEncodeTiled`` from libcuda through
+``cudaGetDriverEntryPoint``, so no library links ``-lcuda``.  The library name carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library never loads.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.

@@ -198,10 +198,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _panel_tiles(n: int, d: int, f: int, device) -> int:
-    """Column tiles (of 128) per block of ``w8a8_fusedq``: all of them
-    when there are enough row blocks to fill the card four times over,
-    else fewer, so that the blocks still cover it; each block quantizes
-    its rows once per group of tiles."""
+    """Column tiles (of 128) per block of ``w8a8_fusedq``, which runs one
+    block per SM: all of them when there are enough 128-row panels to
+    fill the card four times over, else fewer, so that the blocks still
+    make about four waves (F split between blocks that each quantize the
+    same panel; at the ViT qkv shape 3 x 208 blocks)."""
     rows, nt = -(-n // 128), -(-f // 128)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     groups = min(max(-(-4 * sms // rows), 1), max(nt // 4, 1))

@@ -44,19 +44,21 @@ class NameClassifier:
     ``encode_image(images) -> [B, D]`` is any image encoder (the CLIP
     encoder of :func:`build_clip_encoder`, or the synthetic stand-in);
     ``weights`` [D, K] are the L2-normalized zero-shot columns of
-    ``names``.  The head runs on the encoder's ``device`` (attribute), or
-    on the CPU for an encoder that has none.
+    ``names``.  The head runs on ``device`` (``cuda`` unless the caller
+    asks for the CPU; a CUDA request without a card raises), whatever the
+    encoder is: a bound method exposes no attribute of its instance, so
+    nothing is read from it.
     """
 
     def __init__(self, encode_image: Callable, weights, names: Sequence[str],
-                 logit_scale: float = 100.0):
+                 logit_scale: float = 100.0, device="cuda"):
         if weights.shape[1] != len(names):
             raise ValueError(
                 f"weights [D, K={weights.shape[1]}] vs {len(names)} names")
         self.encode_image = encode_image
         self.names = list(names)
         self.logit_scale = float(logit_scale)
-        self.device = torch.device(getattr(encode_image, "device", "cpu"))
+        self.device = resolve_device(device)
         self._w = torch.as_tensor(
             weights if isinstance(weights, torch.Tensor)
             else np.asarray(weights, np.float32)).to(self.device).float()
@@ -79,7 +81,8 @@ class NameClassifier:
 
 def classifier_from_run(encode_image: Callable, zeroshot_weights,
                         nouns: Sequence[str], cand_names: Sequence[str],
-                        logit_scale: float = 100.0) -> NameClassifier:
+                        logit_scale: float = 100.0,
+                        device="cuda") -> NameClassifier:
     """A serving classifier from a finished voting-loop run: the candidate
     names' columns of the full-vocabulary weights (the re-classification
     matrix the loop converged with, ``naming/loop.py::_reclassify``)."""
@@ -92,14 +95,14 @@ def classifier_from_run(encode_image: Callable, zeroshot_weights,
     w = gather_weight_columns(torch.as_tensor(zeroshot_weights),
                               [col[n] for n in cand_names])
     return NameClassifier(encode_image, w, cand_names,
-                          logit_scale=logit_scale)
+                          logit_scale=logit_scale, device=device)
 
 
 def build_clip_encoder(variables, cfg, device="cuda") -> Callable:
     """The serving image encoder: the CLIP image tower with ``variables``
     (a Flax-layout tree) on ``device``, normalizing uint8 NHWC batches
     there.  ``encode(images)`` returns the [B, D] f32 features on the
-    device, ``encode.device``."""
+    device."""
     from scd_tpu_torch.data.transforms import device_normalize_clip
     from scd_tpu_torch.models import CLIPModel, params_from_flax
 
@@ -112,7 +115,6 @@ def build_clip_encoder(variables, cfg, device="cuda") -> Callable:
         with torch.inference_mode():
             return model.encode_image(device_normalize_clip(x))
 
-    encode.device = dev
     return encode
 
 
@@ -249,7 +251,7 @@ def main(argv=None):
         clip = SyntheticCLIP(extras["class_colors"], device=dev)
         names = sorted(extras["class_colors"])
         w = build_zeroshot_weights(clip.encode_text, names, ["{}"])
-        clf = NameClassifier(clip.encode_image, w, names)
+        clf = NameClassifier(clip.encode_image, w, names, device=dev)
         imgs = np.stack([np.asarray(test_ds[i][0]) for i in range(16)])
         truth = [names[int(test_ds[i][1])] for i in range(16)]
         named, probs = clf.classify(imgs, topk=args.topk)
@@ -282,7 +284,7 @@ def main(argv=None):
     enc = build_clip_encoder(
         _load_clip_variables(args.clip_weights, cfg), cfg,
         device=dev)
-    clf = NameClassifier(enc, zw, names)
+    clf = NameClassifier(enc, zw, names, device=dev)
 
     count, batch_seconds = 0, []
     for batch, n in iter_image_batches(args.images, args.batch_size,

@@ -167,7 +167,13 @@ def _within_one_bf16_ulp(got, want):
     (1_000, 768, 2_304, None, torch.bfloat16),
     (777, 512, 200, "quick_gelu", torch.float32),
     (129, 64, 130, "gelu_tanh", torch.bfloat16),
-    (300, 128, 256, "gelu", torch.float32)])
+    (300, 128, 256, "gelu", torch.float32),
+    # the wgmma design's edges: one 128-byte slice of D, a ragged last
+    # slice, the widest panel (2-stage ring), N and F off the tiles
+    (77, 16, 9, None, torch.bfloat16),
+    (301, 80, 129, "quick_gelu", torch.bfloat16),
+    (3_001, 768, 2_310, None, torch.bfloat16),
+    (500, 1_536, 300, "gelu_tanh", torch.bfloat16)])
 def test_w8a8_fusedq_kernel_matches_plain(cuda, n, d, f, act, out):
     """Before the activation the kernel's output equals the plain
     version's bit for bit (same quantization, exact int32 products, the
@@ -284,6 +290,15 @@ def _attention_within(got, want, v):
     (6, 77, 8, True, None, torch.bfloat16),
     (5, 80, 8, True, None, torch.bfloat16),
     (3, 5, 5, False, None, torch.bfloat16),
+    # the persistent design's edges: L 1 and the text buckets 16 / 32,
+    # 256 keys (the N = 128 + 128 score pieces), and B x H pairs that are
+    # not a multiple of the grid (133, 143, 135, 134 pairs)
+    (7, 1, 19, True, None, torch.bfloat16),
+    (11, 16, 13, False, None, torch.bfloat16),
+    (9, 32, 15, True, None, torch.bfloat16),
+    (67, 80, 2, True, None, torch.bfloat16),
+    (5, 256, 7, True, None, torch.bfloat16),
+    (4, 256, 7, False, 200, torch.bfloat16),
     (2, 77, 8, True, 60, torch.float32)])
 def test_attention_kernel_matches_plain(cuda, b, length, h, causal, l_valid,
                                         dtype):

@@ -7,6 +7,8 @@
 - ``iter_image_batches`` on ``.npy`` / ``.npz`` with a ragged tail: equal
   batches and valid counts.
 - The synthetic CLI prints the JAX package's lines.
+- The head's device is the one the caller names (``cuda`` by default,
+  which raises without a card), not an attribute of the encoder.
 """
 
 import contextlib
@@ -54,18 +56,53 @@ def test_name_classifier_matches_jax(tiny):
 
     jenc = J.build_clip_encoder(tiny["tree"], tiny["jcfg"])
     tenc = T.build_clip_encoder(tiny["tree"], tiny["tcfg"], device="cpu")
+    # the port's head takes its device explicitly; the JAX one has none
     for make in (
-            lambda m, enc: m.NameClassifier(enc, tiny["zw"], tiny["nouns"]),
-            lambda m, enc: m.classifier_from_run(
+            lambda m, enc, **kw: m.NameClassifier(enc, tiny["zw"],
+                                                  tiny["nouns"], **kw),
+            lambda m, enc, **kw: m.classifier_from_run(
                 enc, tiny["zw"], tiny["nouns"],
-                ["noun_7", "noun_2", "noun_9", "noun_0"])):
+                ["noun_7", "noun_2", "noun_9", "noun_0"], **kw)):
         jnames, jprobs = make(J, jenc).classify(tiny["images"], topk=3)
-        tnames, tprobs = make(T, tenc).classify(tiny["images"], topk=3)
+        tnames, tprobs = make(T, tenc, device="cpu").classify(
+            tiny["images"], topk=3)
         assert tnames == jnames
         np.testing.assert_allclose(tprobs, np.asarray(jprobs), atol=PROB_TOL,
                                    rtol=0)
     with pytest.raises(KeyError):
-        T.classifier_from_run(tenc, tiny["zw"], tiny["nouns"], ["nope"])
+        T.classifier_from_run(tenc, tiny["zw"], tiny["nouns"], ["nope"],
+                              device="cpu")
+
+
+def test_name_classifier_head_device_is_explicit(monkeypatch):
+    """The head runs on the device it is given, whatever the encoder: a
+    bound method exposes no ``device`` of its instance.  The default is
+    ``cuda``, which raises without a card instead of falling back."""
+    import torch
+
+    from scd_tpu_torch.pipelines import infer as T
+
+    class Encoder:
+        device = torch.device("cpu")
+
+        def encode(self, images):
+            return torch.ones(len(images), 4)
+
+    enc = Encoder().encode
+    assert not hasattr(enc, "device")
+    zw = np.eye(4, 3, dtype=np.float32)
+    names = ["a", "b", "c"]
+    clf = T.NameClassifier(enc, zw, names, device="cpu")
+    assert clf.device == torch.device("cpu") and clf._w.device == clf.device
+    named, probs = clf.classify(np.zeros((2, 8, 8, 3), np.uint8), topk=2)
+    assert len(named) == 2 and probs.shape == (2, 2)
+    run = T.classifier_from_run(enc, zw, names, ["c", "a"], device="cpu")
+    assert run._w.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        T.NameClassifier(enc, zw, names)
+    with pytest.raises(RuntimeError, match="is_available"):
+        T.classifier_from_run(enc, zw, names, ["a"])
 
 
 @pytest.mark.parametrize("suffix", [".npy", ".npz"])

@@ -80,6 +80,8 @@ N_IMAGES, D_FEAT, D_CLIP, VOCAB, K = 130_048, 768, 512, 68_000, 100
 TOPK = 5
 # the cold path: images, vocabulary, extraction batch, padded ViT sequence
 COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
+# a ViT-B/16 tower at image 256: 16 x 16 patches + class token
+IMAGE_LONG, L_257 = 256, 257
 # the text tower's largest batch (64 names x 80 templates) and the k-means
 # runner's feature store (ImageNet-100's 130,048 training images)
 TEXT_BATCH, RUNNER_N = 5_120, 130_048
@@ -305,6 +307,32 @@ def topk_parity(n, d, v, k, gen, dup_cols=False, tag=""):
           f"{int(diff.sum())}, max abs err {err_raw:.3e} (rel {rel:.3e}), "
           f"softmax max abs err {err_prob:.3e}")
     return err_raw, err_prob
+
+
+def topk_route_parity(n, d, v, k, gen):
+    """k > 16 through ``classify_topk``: the JAX package's route past its
+    kernel (the matmul route, counted apart; the kernel must not launch);
+    indices equal to the plain version's."""
+    import torch
+
+    from scd_tpu_torch.ops import topk
+
+    dev = torch.device("cuda")
+    f = _unit(torch.randn(n, d, generator=gen, device=dev), 1)
+    w = _unit(torch.randn(d, v, generator=gen, device=dev), 0)
+    kern, route = topk.topk_softmax_cuda.launches, \
+        topk.classify_topk.matmul_calls
+    vals, idx = topk.classify_topk(f, w, k)
+    torch.cuda.synchronize()
+    check(topk.topk_softmax_cuda.launches == kern
+          and topk.classify_topk.matmul_calls == route + 1,
+          f"topk k={k}: did not take the matmul route alone")
+    pv, pi = topk.classify_topk_plain(f, w, k)
+    check(torch.equal(idx, pi), f"topk k={k}: indices differ from plain")
+    err = (vals - pv).abs().max().item()
+    check(err <= TOPK_PROB_TOL, f"topk k={k}: softmax error {err}")
+    print(f"  classify_topk (matmul route) N={n} D={d} V={v} k={k}: indices "
+          f"equal, softmax max abs err {err:.3e}")
 
 
 def em_inputs(n, d, k, gen):
@@ -575,6 +603,21 @@ def parity_attention_estep(seed: int):
                 l_valid=L_VIT if length == L_PAD else None,
                 packed=(i + causal) % 2 == 0,
                 tag=f"edge-grid-L{length}{'-causal' if causal else ''}")
+    # the long path (L > 256): towers at image 256, 288 and 384
+    long0 = _counts()["attention_long"]
+    for length, h, causal, l_valid, dtype, packed in (
+            (L_257, 12, False, None, bf16, True),
+            (L_257, 12, True, None, bf16, False),
+            (325, 12, False, 300, bf16, True),
+            (325, 7, True, None, f32, False),
+            (577, 12, False, None, bf16, False),
+            (577, 5, True, 500, bf16, True),
+            (577, 3, False, None, f32, True)):
+        attention_parity(3, length, h, 64, dtype, gen, causal=causal,
+                         l_valid=l_valid, packed=packed,
+                         tag=f"long-L{length}{'-causal' if causal else ''}")
+    check(_counts()["attention_long"] - long0 == 14,
+          "attention: the long edges did not all take the long path")
     attention_parity(4, L_VIT, 12, 64, f32, gen, tag="f32-image")
     attention_parity(3, 77, 8, 64, f32, gen, causal=True, packed=False,
                      tag="f32-text")
@@ -624,6 +667,8 @@ def phase_parity(seed: int):
     topk_parity(1_005, 64, 1_003, 1, gen, tag="edge-k1")
     topk_parity(1_005, 64, 1_003, 16, gen, tag="edge-k16")
     topk_parity(777, 100, 2_000, 5, gen, dup_cols=True, tag="edge-ties")
+    for k in (17, 32):
+        topk_route_parity(1_005, 64, 1_003, k, gen)
     errs["fused_em_step"] = em_parity(N_IMAGES - 32_512, D_FEAT, K, gen,
                                       tag="slice")
     em_parity(N_IMAGES - 32_512, D_FEAT, K, gen, x_bf16=True,
@@ -717,25 +762,30 @@ def phase_main_path(seed: int, workdir: str):
 
 # ------------------------------------------------------------- phase 4
 
-def _wrappers():
-    """{kernel: its wrapper}; each wrapper counts its own launches."""
+def _counters():
+    """{name: (function, attribute)} of every count: each kernel wrapper's
+    ``launches``, the attention long path's launches (also in
+    ``attention``) and the top-k route past the kernel (k > 16)."""
     from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
-    return {"topk_softmax": topk.topk_softmax_cuda,
-            "fused_em_step": em.fused_em_step_cuda,
-            "w8a8_fusedq": w8a8.w8a8_fusedq_cuda,
-            "w8a8_prequant": w8a8.w8a8_prequant_cuda,
-            "attention": attention.attention_cuda,
-            "estep_assign": distance.estep_assign_cuda}
+    return {"topk_softmax": (topk.topk_softmax_cuda, "launches"),
+            "fused_em_step": (em.fused_em_step_cuda, "launches"),
+            "w8a8_fusedq": (w8a8.w8a8_fusedq_cuda, "launches"),
+            "w8a8_prequant": (w8a8.w8a8_prequant_cuda, "launches"),
+            "attention": (attention.attention_cuda, "launches"),
+            "attention_long": (attention.attention_cuda, "long_launches"),
+            "estep_assign": (distance.estep_assign_cuda, "launches"),
+            "topk_matmul_route": (topk.classify_topk, "matmul_calls")}
 
 
 def _reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def _row_cos(a, b):
@@ -1001,6 +1051,18 @@ def time_w8a8(gen):
     return out
 
 
+def _f32_product_bound(flops, nbytes):
+    """(least ms, what bounds it, the f32 SIMT bound in ms) of a product
+    of f32 operands: on the card's tensor cores as three bf16 products
+    (hi . hi, hi . lo, lo . hi: the split that keeps ~2^-16 relative
+    error, like the JAX package's Precision.HIGH), or at the HBM rate;
+    beside it the old bound, the same flops at the f32 SIMT peak."""
+    t_ops, t_bytes = 3.0 * flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3)
+
+
 def _bound(ops, peak, nbytes):
     """(least ms, what bounds it) for ``ops`` at ``peak`` and ``nbytes``
     at the HBM rate."""
@@ -1039,7 +1101,9 @@ def time_attention_estep(gen):
             ("text-L16", "qkv_attention-text16", TEXT_BATCH, 16, 8, True,
              True),
             ("text-L32", "qkv_attention-text32", TEXT_BATCH, 32, 8, True,
-             True)):
+             True),
+            ("image-256 (long path)", "qkv_attention-long", BATCH, L_257, 12,
+             False, True)):
         qkv, (q, k, v) = _attn_inputs(b, length, h, 64, bf16, packed, gen)
         if packed:
             def kern():
@@ -1081,11 +1145,11 @@ def time_attention_estep(gen):
     ms = cuda_ms(lambda: estep_assign(x, c), reps=20, warmup=2)
     plain = cuda_ms(lambda: estep_assign_plain(x, c), reps=5)
     lib = cuda_ms(library, reps=20, warmup=2)
-    bound, by = _bound(2.0 * n * k * d + n * d + k * d, PEAK_F32_FLOPS,
-                       4.0 * (n * d + k * d) + 8.0 * n)
+    bound, by, simt = _f32_product_bound(2.0 * n * k * d + n * d + k * d,
+                                         4.0 * (n * d + k * d) + 8.0 * n)
     print(f"  estep_assign N={n} D={d} K={k} f32: kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library (matmul + min) {lib:.4f} ms, bound "
-          f"{bound:.4f} ms ({by})")
+          f"{bound:.4f} ms ({by}; f32 SIMT bound {simt:.4f} ms)")
     out["estep_assign"] = (ms, plain, lib, bound, by)
     return out
 
@@ -1108,18 +1172,19 @@ def phase_timing(seed: int, estep):
             torch.logsumexp(logits, dim=1)
 
     t_topk = cuda_ms(lambda: topk_softmax_cuda(f, w, TOPK), reps=3)
+    t_again = cuda_ms(lambda: topk_softmax_cuda(f, w, TOPK), reps=3)
     t_topk_plain = cuda_ms(
         lambda: classify_topk_plain(f, w, TOPK, 100.0), reps=1)
     t_topk_lib = cuda_ms(topk_library, reps=3)
     flops = 2.0 * n_u * D_CLIP * VOCAB
     nbytes = 4.0 * (n_u * D_CLIP + D_CLIP * VOCAB) + n_u * (8 + 8 * TOPK)
-    topk_bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    topk_by = ("operations" if flops / PEAK_F32_FLOPS
-               >= nbytes / PEAK_HBM_BYTES else "bytes")
+    topk_bound, topk_by, topk_simt = _f32_product_bound(flops, nbytes)
     print(f"  topk_softmax N={n_u} D={D_CLIP} V={VOCAB} k={TOPK}: kernel "
-          f"{t_topk:.3f} ms, plain {t_topk_plain:.3f} ms, library "
-          f"{t_topk_lib:.3f} ms, bound {topk_bound:.3f} ms ({topk_by}); "
-          f"{flops / (t_topk * 1e-3) / 1e12:.1f} TFLOP/s")
+          f"{t_topk:.3f} ms (again {t_again:.3f}), plain {t_topk_plain:.3f} "
+          f"ms, library {t_topk_lib:.3f} ms, bound {topk_bound:.3f} ms "
+          f"({topk_by}, split bf16 on the tensor cores; f32 SIMT bound "
+          f"{topk_simt:.3f} ms); {3 * flops / (t_topk * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s of bf16 products")
     del f, w
 
     x, c = em_inputs(n_u, D_FEAT, K, gen)
@@ -1139,13 +1204,11 @@ def phase_timing(seed: int, estep):
     em_flops = 2.0 * n_u * K * D_FEAT + n_u * D_FEAT
     em_bytes = (x_bytes * n_u * D_FEAT + 4.0 * K * D_FEAT + 4.0 * n_u
                 + 4.0 * (K * D_FEAT + K + 1))
-    em_bound = max(em_flops / PEAK_F32_FLOPS, em_bytes / PEAK_HBM_BYTES) * 1e3
-    em_by = ("operations" if em_flops / PEAK_F32_FLOPS
-             >= em_bytes / PEAK_HBM_BYTES else "bytes")
+    em_bound, em_by, em_simt = _f32_product_bound(em_flops, em_bytes)
     print(f"  fused_em_step N={n_u} D={D_FEAT} K={K} "
           f"x_bf16={bool(estep[1])}: kernel {t_em:.4f} ms, plain "
           f"{t_em_plain:.4f} ms, library {t_em_lib:.4f} ms, bound "
-          f"{em_bound:.4f} ms ({em_by})")
+          f"{em_bound:.4f} ms ({em_by}; f32 SIMT bound {em_simt:.4f} ms)")
     return {
         "topk_softmax": (t_topk, t_topk_plain, t_topk_lib, topk_bound,
                          topk_by),
@@ -1203,39 +1266,70 @@ def phase_serving(seed: int, workdir: str):
     with open(names_path, "w") as f:
         f.write("\n".join(names) + "\n")
     card8 = enc(images[:BATCH])[:8].float().cpu()
+    # one batch at image 256 (L 257: the attention long path), on the card
+    near = np.arange(IMAGE_LONG) * 224 // IMAGE_LONG  # nearest-pixel resize
+    big = np.ascontiguousarray(images[:BATCH][:, near][:, :, near])
+    _reset_counts()
+    card8_256 = enc(big)[:8].float().cpu()
+    torch.cuda.synchronize()
+    long_counts = _counts()
+    check(long_counts["attention_long"] == cfg.vision.depth
+          and long_counts["attention"] == cfg.vision.depth,
+          f"image {IMAGE_LONG}: attention launches {long_counts}")
+    t_224 = cuda_ms(lambda: enc(images[:BATCH]), reps=3)
+    t_256 = cuda_ms(lambda: enc(big), reps=3)
+    print(f"CLIP ViT-B/16 bf16, one batch of {BATCH}: {t_224:.2f} ms at 224 "
+          f"px (L {L_VIT}), {t_256:.2f} ms at {IMAGE_LONG} px (L {L_257}, "
+          f"attention's long path: {long_counts['attention_long']} "
+          f"launches)")
     del enc
     print(f"fabricated {SERVE_IMAGES} images 224x224x3 uint8, {SERVE_NAMES} "
           f"names' columns in {time.perf_counter() - t0:.1f} s")
 
+    # main returns the count, as the JAX package's does; the per-batch
+    # seconds are what its serve_images returns
+    served, serve = [], infer.serve_images
+
+    def record(*a, **kw):
+        served.append(serve(*a, **kw))
+        return served[-1]
+
     _reset_counts()
+    infer.serve_images = record
     t0 = time.perf_counter()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        res = infer.main([
-            "--dataset_name", "real", "--clip_weights", "random",
-            "--zeroshot_weights", zw_path, "--names", names_path,
-            "--images", img_path, "--batch_size", str(BATCH),
-            "--topk", str(SERVE_TOPK)])
+    try:
+        with contextlib.redirect_stdout(buf):
+            count = infer.main([
+                "--dataset_name", "real", "--clip_weights", "random",
+                "--zeroshot_weights", zw_path, "--names", names_path,
+                "--images", img_path, "--batch_size", str(BATCH),
+                "--topk", str(SERVE_TOPK)])
+    finally:
+        infer.serve_images = serve
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
+    check(isinstance(count, int) and len(served) == 1
+          and served[0][0] == count, f"infer.main returned {count!r}")
+    batch_seconds = served[0][1]
     lines = buf.getvalue().splitlines()
     n_batches = -(-SERVE_IMAGES // BATCH)
     print(f"launches in infer: {launches}")
     check(launches["attention"] == n_batches * cfg.vision.depth,
           f"attention launches {launches['attention']} != {n_batches} "
           f"batches x {cfg.vision.depth} blocks")
-    check(res["count"] == SERVE_IMAGES and len(lines) == SERVE_IMAGES,
-          f"served {res['count']} images, {len(lines)} lines")
+    check(count == SERVE_IMAGES and len(lines) == SERVE_IMAGES,
+          f"served {count} images, {len(lines)} lines")
     top1 = [ast.literal_eval(ln.split("\t")[0])[0] for ln in lines]
     probs = np.array([ast.literal_eval(ln.split("\t")[1]) for ln in lines])
     check(probs.shape == (SERVE_IMAGES, SERVE_TOPK)
           and bool(np.isfinite(probs).all()) and bool((probs >= 0).all()),
           "served probabilities: wrong shape or not finite")
     acc = np.mean([t == names[i % SERVE_NAMES] for i, t in enumerate(top1)])
-    ms = np.array(res["batch_seconds"]) * 1e3
-    print(f"served {res['count']} images in {wall:.3f} s (set-up "
-          f"included): {res['count'] / (ms.sum() / 1e3):.1f} images/s over "
+    ms = np.array(batch_seconds) * 1e3
+    print(f"served {count} images in {wall:.3f} s (set-up "
+          f"included): {count / (ms.sum() / 1e3):.1f} images/s over "
           f"the batches, per batch of {BATCH} p50 {np.percentile(ms, 50):.2f}"
           f" ms, p99 {np.percentile(ms, 99):.2f} ms (first "
           f"{ms[0]:.2f} ms); top-1 = the image's colour class "
@@ -1249,6 +1343,11 @@ def phase_serving(seed: int, workdir: str):
         device="cpu")
     cpu8 = cpu_enc(images[:8]).float()
     cos = _row_cos(card8, cpu8)
+    cos_256 = _row_cos(card8_256, cpu_enc(big[:8]).float()).min().item()
+    print(f"card (bf16) vs CPU (f32) CLIP image tower at {IMAGE_LONG} px on 8"
+          f" images: min cosine {cos_256:.6f} (tolerance {TOWER_COS_TOL})")
+    check(cos_256 >= TOWER_COS_TOL,
+          f"image {IMAGE_LONG}: the card's tower disagrees with the CPU")
     fc = cpu8 / cpu8.norm(dim=-1, keepdim=True)
     fk = card8 / card8.norm(dim=-1, keepdim=True)
     cpu_top = [names[j] for j in (fc @ torch.from_numpy(zw)).argmax(1)]

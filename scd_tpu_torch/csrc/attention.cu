@@ -59,6 +59,16 @@
 // f32 inputs (no tensor-core path keeps f32 products exact) take a plain
 // SIMT kernel with the same contract: 32 queries per block, scores staged
 // in shared memory, fmaf dot products.
+//
+// Long sequences (L > 256, both types: a tower at image 256, 288 or 384
+// gives L 257, 325 or 577) take a key-tiled SIMT kernel, chosen by shape
+// in attention_fwd before any launch, that holds no score row: a block
+// owns 32 queries of one (batch, head) (4 per warp) and sweeps the keys in
+// tiles of 32 (one per lane) three times, recomputing the same scores in
+// each: first the row max, then the row sum of exp(s - max), then
+// p = e / sum (IEEE division), rounded to v's type, accumulated as p . v
+// in f32 in key order.  That is the short paths' order of operations, so
+// one tolerance serves all three.  Making it fast is later work.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -68,6 +78,7 @@
 
 namespace {
 
+constexpr int SHORT_MAX_L = 256;   // longest sequence of the whole-row paths
 constexpr int HD = 64;             // head dimension of the bf16 path
 constexpr int ROW_BYTES = HD * 2;  // one head row: 128 bytes, the swizzle span
 constexpr int QT = 64;             // query rows per tile (the wgmma M)
@@ -601,6 +612,165 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- the long path: L > 256, bf16 or f32, head_dim <= 32 * LMAXC
+
+constexpr int LQ = 4;                // query rows per warp
+constexpr int LWARPS = 8;
+constexpr int LTHREADS = 32 * LWARPS;
+constexpr int LROWS = LQ * LWARPS;   // query rows per block
+constexpr int LKT = 32;              // keys per tile, one per lane
+constexpr int LMAXC = 8;             // output columns per lane: head_dim <= 256
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// x rounded to T's precision and back: p as the p . v product sees it
+__device__ __forceinline__ float round_to(float x, float*) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The scaled, masked scores of this warp's LQ rows against key k0 + lane
+// of the staged tile.  Every sweep computes them by the same instructions,
+// so the three sweeps see the same bits.
+__device__ __forceinline__ void long_scores(float (&s)[LQ], const float* Qw, const float* Ks,
+                                            int hd, int ldk, int lane, int key, int row0, int lv,
+                                            bool causal, float scale) {
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) s[r] = 0.f;
+  for (int d = 0; d < hd; ++d) {
+    const float kd = Ks[lane * ldk + d];
+#pragma unroll
+    for (int r = 0; r < LQ; ++r) s[r] = fmaf(Qw[r * hd + d], kd, s[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) {
+    const bool keep = key < lv && (!causal || key <= row0 + r);
+    s[r] = keep ? __fmul_rn(s[r], scale) : -INFINITY;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(LTHREADS)
+attn_long_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                 int L, int hd, int l_valid, int causal, float scale, int qtiles) {
+  extern __shared__ float lsm[];
+  const int ldk = hd + 1;           // odd stride: lanes read distinct banks
+  float* Qs = lsm;                  // [LROWS][hd]
+  float* Ks = Qs + LROWS * hd;      // [LKT][hd + 1]
+  float* Vs = Ks + LKT * ldk;       // [LKT][hd]
+
+  const int tile = blockIdx.x % qtiles;
+  const int bh = blockIdx.x / qtiles;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = tile * LROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const int lv = min(l_valid, L);
+  const bool causal_b = causal != 0;
+  const int row0 = q0 + warp * LQ;
+  const float* Qw = Qs + warp * LQ * hd;
+  // keys any row of the block sees: the tile count is uniform in the block
+  const int kend = causal_b ? min(lv, q0 + LROWS) : lv;
+  const int ntiles = (kend + LKT - 1) / LKT;
+
+  for (int i = tid; i < LROWS * hd; i += LTHREADS) {
+    const int r = i / hd, c = i % hd;
+    Qs[i] = (q0 + r < L) ? to_f32(qb[(long long)(q0 + r) * sq.l + c]) : 0.f;
+  }
+  auto stage = [&](int k0, bool with_v) {
+    __syncthreads();  // the last tile's readers are done
+    for (int i = tid; i < LKT * hd; i += LTHREADS) {
+      const int r = i / hd, c = i % hd, key = k0 + r;
+      Ks[r * ldk + c] = key < L ? to_f32(kb[(long long)key * sk.l + c]) : 0.f;
+      if (with_v) Vs[r * hd + c] = key < L ? to_f32(vb[(long long)key * sv.l + c]) : 0.f;
+    }
+    __syncthreads();
+  };
+
+  float m[LQ], sum[LQ], s[LQ];
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) {
+    m[r] = -INFINITY;
+    sum[r] = 0.f;
+  }
+  // sweep 1: the row max (every row sees key 0, so it is finite)
+  for (int t = 0; t < ntiles; ++t) {
+    stage(t * LKT, false);
+    long_scores(s, Qw, Ks, hd, ldk, lane, t * LKT + lane, row0, lv, causal_b, scale);
+#pragma unroll
+    for (int r = 0; r < LQ; ++r) m[r] = fmaxf(m[r], s[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < LQ; ++r)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
+  // sweep 2: the row sum
+  for (int t = 0; t < ntiles; ++t) {
+    stage(t * LKT, false);
+    long_scores(s, Qw, Ks, hd, ldk, lane, t * LKT + lane, row0, lv, causal_b, scale);
+#pragma unroll
+    for (int r = 0; r < LQ; ++r) sum[r] += expf(s[r] - m[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < LQ; ++r)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+  // sweep 3: p = e / sum, rounded to T, then p . v in f32, keys in order
+  float acc[LQ][LMAXC];
+#pragma unroll
+  for (int r = 0; r < LQ; ++r)
+#pragma unroll
+    for (int c = 0; c < LMAXC; ++c) acc[r][c] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    stage(t * LKT, true);
+    long_scores(s, Qw, Ks, hd, ldk, lane, t * LKT + lane, row0, lv, causal_b, scale);
+    float p[LQ];
+#pragma unroll
+    for (int r = 0; r < LQ; ++r)
+      p[r] = round_to(__fdiv_rn(expf(s[r] - m[r]), sum[r]), static_cast<T*>(nullptr));
+    for (int j = 0; j < LKT; ++j) {
+      const float* vr = Vs + j * hd;
+#pragma unroll
+      for (int r = 0; r < LQ; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, p[r], j);
+#pragma unroll
+        for (int c = 0; c < LMAXC; ++c)
+          if (lane + 32 * c < hd) acc[r][c] = fmaf(pj, vr[lane + 32 * c], acc[r][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) {
+    if (row0 + r >= L) continue;
+    T* orow = out + b * so.b + (long long)(row0 + r) * so.l + h * so.h;
+#pragma unroll
+    for (int c = 0; c < LMAXC; ++c)
+      if (lane + 32 * c < hd) from_f32(orow + lane + 32 * c, acc[r][c]);
+  }
+}
+
+template <typename T>
+int launch_long(const void* q, const void* k, const void* v, void* out, Strides sq, Strides sk,
+                Strides sv, Strides so, int batch, int heads, int L, int hd, int l_valid,
+                int causal, float scale, cudaStream_t stream) {
+  if (hd < 1 || hd > 32 * LMAXC) return (int)cudaErrorInvalidValue;
+  const int smem = 4 * (LROWS * hd + LKT * (hd + 1) + LKT * hd);
+  cudaError_t err = cudaFuncSetAttribute(attn_long_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int qtiles = (L + LROWS - 1) / LROWS;
+  const long long blocks = (long long)batch * heads * qtiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  attn_long_kernel<T><<<(unsigned)blocks, LTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), sq, sk, sv, so, heads, L, hd, l_valid, causal, scale, qtiles);
+  return (int)cudaGetLastError();
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -692,19 +862,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, Strides 
 }  // namespace
 
 // q, k, v, out: [batch, L, heads, hd] with element strides (b, l, h) each and
-// the last dimension contiguous; bf16 (is_bf16, hd == 64, L <= 256, every
-// stride and base 16-byte aligned) or f32.  1 <= l_valid.  Launches on
-// `stream` and returns the CUDA error code (cudaErrorInvalidValue for a
-// shape the kernel does not take).
+// the last dimension contiguous; bf16 or f32 (is_bf16), 1 <= l_valid.
+// L <= 256: bf16 takes hd == 64 with every stride and base 16-byte aligned
+// (the wgmma path), f32 any hd whose rows fit in shared memory.  L > 256
+// (the long path, both types): hd <= 256.  Launches on `stream` and returns
+// the CUDA error code (cudaErrorInvalidValue for a shape no path takes).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out,
                              int is_bf16, long long qsb, long long qsl, long long qsh,
                              long long ksb, long long ksl, long long ksh, long long vsb,
                              long long vsl, long long vsh, long long osb, long long osl,
                              long long osh, int batch, int heads, int L, int hd, int l_valid,
                              int causal, float scale, cudaStream_t stream) {
-  if (batch < 1 || heads < 1 || L < 1 || L > 256 || l_valid < 1)
-    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || heads < 1 || L < 1 || l_valid < 1) return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsl, qsh}, sk{ksb, ksl, ksh}, sv{vsb, vsl, vsh}, so{osb, osl, osh};
+  if (L > SHORT_MAX_L) {
+    if (is_bf16)
+      return launch_long<__nv_bfloat16>(q, k, v, out, sq, sk, sv, so, batch, heads, L, hd,
+                                        l_valid, causal, scale, stream);
+    return launch_long<float>(q, k, v, out, sq, sk, sv, so, batch, heads, L, hd, l_valid, causal,
+                              scale, stream);
+  }
   if (is_bf16) {
     if (hd != HD) return (int)cudaErrorInvalidValue;
     const int kt = (L + 15) / 16;

@@ -1,4 +1,4 @@
-"""Masked softmax attention for the towers' short sequences.
+"""Masked softmax attention for the towers' sequences.
 
 Port of ``scd_tpu/ops/pallas_kernels.py::vit_attention_pallas`` and
 ``::qkv_attention_pallas``, with the JAX layouts at the public functions:
@@ -13,11 +13,13 @@ Both compute scores in f32 from products of the input type, times
 after the query; take the softmax in f32 (row max, exp, divide by the row
 sum); round p to v's type; and accumulate p . v in f32, stored in v's type.
 
-Dispatch by device: a CUDA tensor runs the hand-written kernel
-(``csrc/attention.cu``; one kernel for both entry points, since a packed
-qkv is three strided [B, L, H, d] views of one buffer); a CPU tensor runs
-:func:`attention_plain`.  There is no fallback: a CUDA tensor the kernel
-does not take raises.
+Dispatch by device: a CUDA tensor runs the hand-written kernels
+(``csrc/attention.cu``; one library for both entry points, since a packed
+qkv is three strided [B, L, H, d] views of one buffer): L <= 256 the
+whole-row paths (``wgmma`` for bf16, SIMT for f32), longer sequences (a
+tower at image 256 and up) the key-tiled long path, chosen by shape in the
+C entry point.  A CPU tensor runs :func:`attention_plain`.  There is no
+fallback: a CUDA tensor no kernel takes raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 
 from scd_tpu_torch.ops import build
 
-KERNEL_MAX_L = 256
+SHORT_MAX_L = 256  # the whole-row paths; longer sequences take the long path
+LONG_MAX_HD = 256  # head_dim the long path takes
 
 
 def qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
@@ -105,11 +108,12 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    l_valid: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel on [B, L, H, d] views (any batch, sequence and
     head strides, the last dimension contiguous), all bf16 or all f32 on
-    one CUDA device.  bf16 takes d = 64, L <= 256 and 16-byte-aligned
-    bases and strides; f32 takes L <= 256 and any d whose K, V, Q and
-    score rows fit in shared memory (else the launch fails).  Returns a
-    contiguous [B, L, H, d].  Counts its launches in
-    ``attention_cuda.launches``."""
+    one CUDA device.  L <= 256: bf16 takes d = 64 and 16-byte-aligned
+    bases and strides, f32 any d whose K, V, Q and score rows fit in
+    shared memory (else the launch fails).  L > 256 (the long path): any
+    L, d <= 256.  Returns a contiguous [B, L, H, d].  Counts every launch
+    in ``attention_cuda.launches`` and those of the long path also in
+    ``attention_cuda.long_launches``."""
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError("attention_cuda takes CUDA tensors on one device")
@@ -122,12 +126,17 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, length, heads, hd = q.shape
     l_valid = length if l_valid is None else min(int(l_valid), length)
-    if l_valid < 1 or not 1 <= length <= KERNEL_MAX_L:
-        raise ValueError(f"attention_cuda takes 1 <= L <= {KERNEL_MAX_L} and "
-                         f"l_valid >= 1 (L={length}, l_valid={l_valid})")
+    if l_valid < 1 or length < 1:
+        raise ValueError(f"attention_cuda takes L >= 1 and l_valid >= 1 "
+                         f"(L={length}, l_valid={l_valid})")
     is_bf16 = q.dtype == torch.bfloat16
     strides = [_strides(t) for t in (q, k, v)]
-    if is_bf16:
+    long_path = length > SHORT_MAX_L
+    if long_path:
+        if hd > LONG_MAX_HD:
+            raise ValueError(f"the long attention path (L > {SHORT_MAX_L}) "
+                             f"takes head_dim <= {LONG_MAX_HD}, got {hd}")
+    elif is_bf16:
         if hd != 64:
             raise ValueError(f"the bf16 attention kernel takes head_dim 64, "
                              f"got {hd}")
@@ -150,7 +159,9 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int(bool(causal)), float(scale), stream)
     build.check(rc, "attention")
     attention_cuda.launches += 1
+    attention_cuda.long_launches += long_path
     return out
 
 
 attention_cuda.launches = 0
+attention_cuda.long_launches = 0

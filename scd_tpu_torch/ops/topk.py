@@ -1,15 +1,20 @@
 """Fused vocabulary classification: logits -> softmax -> top-k.
 
-Port of ``scd_tpu/ops/topk.py::classify_topk``.  Dispatch by device:
+Port of ``scd_tpu/ops/topk.py::classify_topk``.  Dispatch by device and
+k, decided before any launch:
 
 - a CUDA tensor with k <= 16 and V >= k runs the hand-written kernel
   (``csrc/topk_softmax.cu``, replacing the TPU kernel
   ``scd_tpu/ops/pallas_kernels.py::topk_softmax_pallas``); the [N, V]
   logits never exist in device memory;
-- a CPU tensor runs :func:`classify_topk_plain`, which mirrors the JAX
-  package's ``_classify_topk_xla`` and chunks rows to bound memory;
-- anything else raises.  There is no fallback from the kernel to the plain
-  version.
+- a CUDA tensor with k > 16 takes the route the JAX package takes for k
+  beyond its kernel (``_classify_topk_xla``): :func:`classify_topk_plain`,
+  chunked f32 ``torch.matmul`` (TF32 off), a stable descending top-k and
+  the log-sum-exp, counted in ``classify_topk.matmul_calls``.  This is the
+  reference's own dispatch, not a fallback: a failing kernel still raises;
+- a CPU tensor runs :func:`classify_topk_plain`, which mirrors
+  ``_classify_topk_xla`` and chunks rows to bound memory;
+- anything else raises.
 
 The vocabulary-sharded variant comes with the multi-device slice.
 """
@@ -21,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from scd_tpu_torch.core.device import f32_matmuls
 from scd_tpu_torch.ops import build
 
 KERNEL_MAX_K = 16
@@ -41,9 +47,11 @@ def classify_topk(feats: torch.Tensor, weights: torch.Tensor, k: int,
     if v < k:
         raise ValueError(f"classify_topk requires V >= k (V={v}, k={k})")
     if feats.is_cuda:
-        if k > KERNEL_MAX_K:
-            raise ValueError(f"the topk_softmax kernel takes k <= "
-                             f"{KERNEL_MAX_K}, got k={k}")
+        if k > KERNEL_MAX_K:  # the JAX package's route past its kernel
+            f32_matmuls()  # the port's policy for the process: no TF32
+            classify_topk.matmul_calls += 1
+            return classify_topk_plain(feats, weights, k, scale,
+                                       apply_softmax)
         m, s, vals, idx = topk_softmax_cuda(feats, weights, k, scale=scale)
         if apply_softmax:
             vals = torch.exp(vals - m[:, None]) / s[:, None]
@@ -51,6 +59,9 @@ def classify_topk(feats: torch.Tensor, weights: torch.Tensor, k: int,
     if feats.device.type != "cpu":
         raise ValueError(f"classify_topk: unsupported device {feats.device}")
     return classify_topk_plain(feats, weights, k, scale, apply_softmax)
+
+
+classify_topk.matmul_calls = 0
 
 
 def classify_topk_plain(feats: torch.Tensor, weights: torch.Tensor, k: int,

@@ -286,17 +286,29 @@ def main(argv=None):
         device=dev)
     clf = NameClassifier(enc, zw, names, device=dev)
 
+    count, _ = serve_images(clf, args.images, args.batch_size, args.topk,
+                            image_size=image_size,
+                            num_workers=args.num_workers)
+    return count
+
+
+def serve_images(clf: NameClassifier, images: str, batch_size: int,
+                 topk: int, image_size: int = 224, num_workers: int = 8):
+    """Name every image of ``images`` (see :func:`iter_image_batches`),
+    printing one line per image: its top-k names and probabilities.
+    Returns (count, seconds of each batch): host clock around
+    ``clf.classify``, which ends on the host."""
     count, batch_seconds = 0, []
-    for batch, n in iter_image_batches(args.images, args.batch_size,
+    for batch, n in iter_image_batches(images, batch_size,
                                        image_size=image_size,
-                                       num_workers=args.num_workers):
+                                       num_workers=num_workers):
         t0 = time.perf_counter()
-        named, probs = clf.classify(batch, topk=args.topk)  # ends on the host
+        named, probs = clf.classify(batch, topk=topk)
         batch_seconds.append(time.perf_counter() - t0)
         for row, pr in zip(named[:n], probs[:n]):
             print(f"{row}\t{np.round(pr, 4).tolist()}")
         count += n
-    return {"count": count, "batch_seconds": batch_seconds}
+    return count, batch_seconds
 
 
 if __name__ == "__main__":

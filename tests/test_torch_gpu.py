@@ -8,7 +8,8 @@ with ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
 (``tests/conftest.py`` imports JAX, which a CUDA machine need not have).
 
 Tolerances: raw top-k logits agree to 2e-3 and softmax values to 5e-4
-(f32 dot products summed in another order than cuBLAS's, at scale 100);
+(the kernel's split-bf16 products, error ~2^-16 relative per product, and
+f32 sums in another order than cuBLAS's, at scale 100);
 EM sums to 1e-4 relative + 1e-4 absolute and inertia to 1e-4 relative
 (f32 sums in another order).  The inputs keep every margin far above
 those errors, so indices, labels and counts must be equal.  The W8A8
@@ -76,6 +77,26 @@ def test_topk_kernel_ties_go_to_lowest_index(cuda):
     odd = idx % 2 == 1
     prev = torch.cat([torch.full_like(idx[:, :1], -2), idx[:, :-1]], 1)
     assert bool((~odd | (prev == idx - 1)).all())
+
+
+@pytest.mark.parametrize("k", [17, 32])
+def test_topk_past_the_kernel_takes_the_matmul_route(cuda, k):
+    """k > 16 on the card: the JAX package's own route past its kernel
+    (chunked f32 matmul, stable top-k), counted apart; the kernel does not
+    launch, and the result is the plain version's."""
+    from scd_tpu_torch.ops import topk
+
+    g = torch.Generator(device=cuda).manual_seed(k)
+    f = _unit(torch.randn(1_005, 64, generator=g, device=cuda), 1)
+    w = _unit(torch.randn(64, 1_003, generator=g, device=cuda), 0)
+    kern, route = topk.topk_softmax_cuda.launches, \
+        topk.classify_topk.matmul_calls
+    kv, ki = topk.classify_topk(f, w, k)
+    assert topk.topk_softmax_cuda.launches == kern
+    assert topk.classify_topk.matmul_calls == route + 1
+    pv, pi = topk.classify_topk_plain(f, w, k)
+    assert ki.shape == (1_005, k) and torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n,d,k,masked,x_bf16", [
@@ -324,23 +345,69 @@ def test_attention_kernel_matches_plain(cuda, b, length, h, causal, l_valid,
     assert _attention_within(got_vit, want, v)
 
 
+@pytest.mark.parametrize("b,length,h,causal,l_valid,dtype", [
+    (2, 257, 12, False, None, torch.bfloat16),
+    (2, 257, 5, True, None, torch.bfloat16),
+    (3, 325, 4, False, 300, torch.bfloat16),
+    (1, 325, 3, True, 290, torch.float32),
+    (1, 577, 12, False, None, torch.bfloat16),
+    (1, 577, 2, True, None, torch.bfloat16),
+    (2, 577, 3, False, 500, torch.float32),
+    (1, 300, 2, False, None, torch.float32)])
+def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
+                                           l_valid, dtype):
+    """L > 256 (towers at image 256, 288, 384): the key-tiled long path,
+    counted apart, through both entry points; agrees with the plain
+    version within ``_attention_within`` and repeats its bits."""
+    from scd_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(length + h)
+    qkv = torch.randn(b, length, 3 * h * 64, generator=g,
+                      device=cuda).to(dtype)
+    t = qkv.unflatten(-1, (3, h, 64))
+    q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    before, long_before = A.attention_cuda.launches, \
+        A.attention_cuda.long_launches
+    got = A.qkv_attention(qkv, h, 0.125, causal, l_valid)
+    got_vit = A.vit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              0.125, causal, l_valid)
+    assert A.attention_cuda.launches == before + 2
+    assert A.attention_cuda.long_launches == long_before + 2
+    assert got.shape == (b, length, h * 64) and got.dtype == dtype
+    assert torch.equal(got.reshape(b, length, h, 64), got_vit)
+    assert torch.equal(got, A.qkv_attention(qkv, h, 0.125, causal, l_valid))
+    want = A.attention_plain(q, k, v, 0.125, causal, l_valid)
+    assert _attention_within(got_vit, want, v)
+
+
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    """The short bf16 path takes head_dim 64 only; L 300 is no longer
+    refused: it takes the long path (its own counter moves); the long
+    path takes head_dim <= 256; f16 is refused."""
     from scd_tpu_torch.ops import attention as A
 
     x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim 64"):
         A.vit_attention(x, x, x, 0.125)
     y = torch.zeros(1, 300, 2, 64, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="L <= 256"):
-        A.vit_attention(y, y, y, 0.125)
+    long_before = A.attention_cuda.long_launches
+    out = A.vit_attention(y, y, y, 0.125)
+    assert A.attention_cuda.long_launches == long_before + 1
+    assert out.shape == y.shape and not bool(out.any())
+    w = torch.zeros(1, 300, 1, 288, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        A.vit_attention(w, w, w, 0.125)
     z = torch.zeros(1, 8, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         A.vit_attention(z, z, z, 0.125)
 
 
-def test_tower_attention_runs_the_kernel(cuda):
+@pytest.mark.parametrize("pixels", [64, 256])
+def test_tower_attention_runs_the_kernel(cuda, pixels):
     """A bf16 CLIP image tower on the card launches the attention kernel
-    once per block and agrees with the same tower on the CPU in f32."""
+    once per block and agrees with the same tower on the CPU in f32; at
+    256 px (a 16 x 16 grid on a 4 x 4 position grid, L 257) through the
+    long path."""
     from scd_tpu_torch.models import CLIPModel, params_from_flax
     from scd_tpu_torch.models.clip import CLIPConfig
     from scd_tpu_torch.models.vit import ViTConfig
@@ -358,16 +425,19 @@ def test_tower_attention_runs_the_kernel(cuda):
 
     sd = params_from_flax(load_openai_clip_weights(
         clip_state_dict(cfg(torch.float32), seed=1), cfg(torch.float32)))
-    x = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(4, pixels, pixels, 3,
+                    generator=torch.Generator().manual_seed(0))
     models = {}
     for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
         models[dev] = CLIPModel(cfg(dt), device=dev).eval()
         models[dev].load_state_dict(sd)
-    before = A.attention_cuda.launches
+    before, long_before = A.attention_cuda.launches, \
+        A.attention_cuda.long_launches
     with torch.inference_mode():
         card = models["cuda"].encode_image(x.to(cuda)).cpu()
         cpu = models["cpu"].encode_image(x)
     assert A.attention_cuda.launches == before + 3
+    assert A.attention_cuda.long_launches == long_before + 3 * (pixels > 64)
     cos = torch.nn.functional.cosine_similarity(card.double(), cpu.double())
     assert cos.min().item() > 0.999  # bf16 activations through 3 blocks
 

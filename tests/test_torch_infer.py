@@ -6,7 +6,9 @@
   order), and through ``classifier_from_run``.
 - ``iter_image_batches`` on ``.npy`` / ``.npz`` with a ragged tail: equal
   batches and valid counts.
-- The synthetic CLI prints the JAX package's lines.
+- The synthetic CLI prints the JAX package's lines and returns the same
+  value; the real-asset CLI (``main``) returns the same image count and
+  prints one line per image, on the same fabricated images and weights.
 - The head's device is the one the caller names (``cuda`` by default,
   which raises without a card), not an attribute of the encoder.
 """
@@ -137,7 +139,50 @@ def test_synthetic_cli_prints_jax_lines():
             acc = fn(["--topk", "3"] + argv)
         out.append((acc, buf.getvalue().splitlines()))
     assert out[1] == out[0] and len(out[0][1]) == 5
+    assert type(out[1][0]) is type(out[0][0])
     assert out[0][1][-1] == "top-3 accuracy on 16 synthetic test images: 1.0"
+
+
+def test_main_returns_the_image_count_as_jax(tiny, tmp_path, monkeypatch):
+    """Both packages' ``main`` on the same tiny CLIP checkpoint, names and
+    five images in batches of two: each returns the count, 5, as an int,
+    and prints one line per image."""
+    import dataclasses
+
+    import torch
+
+    import scd_tpu.models as jmodels
+    import scd_tpu_torch.models as tmodels
+    from scd_tpu.pipelines.infer import main as jax_main
+    from scd_tpu_torch.pipelines.infer import main as torch_main
+    from scd_tpu_torch.testing.fabricate import clip_state_dict
+
+    for mod, cfg in ((jmodels, tiny["jcfg"]), (tmodels, tiny["tcfg"])):
+        def small(compute_dtype=None, dense_int8=False, cfg=cfg):
+            return dataclasses.replace(
+                cfg, compute_dtype=compute_dtype,
+                vision=dataclasses.replace(cfg.vision,
+                                           compute_dtype=compute_dtype))
+        monkeypatch.setattr(mod, "clip_vit_b16_config", small)
+    ckpt, zw, names, imgs = (str(tmp_path / f) for f in
+                             ("clip.pt", "zw.npy", "names.txt", "imgs.npy"))
+    torch.save(clip_state_dict(tiny["tcfg"], seed=4), ckpt)
+    np.save(zw, tiny["zw"])
+    with open(names, "w") as f:
+        f.write("\n".join(tiny["nouns"]) + "\n")
+    np.save(imgs, np.random.default_rng(3).integers(
+        0, 256, (5, 32, 32, 3)).astype(np.uint8))
+    argv = ["--dataset_name", "real", "--clip_weights", ckpt,
+            "--zeroshot_weights", zw, "--names", names, "--images", imgs,
+            "--batch_size", "2", "--topk", "2", "--num_workers", "1"]
+    out = []
+    for fn, extra in ((jax_main, []), (torch_main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            count = fn(argv + extra)
+        out.append((count, len(buf.getvalue().splitlines())))
+    assert out[1] == out[0] == (5, 5)
+    assert isinstance(out[1][0], int)
 
 
 def test_mesh_request_raises():

@@ -60,6 +60,25 @@ def test_topk_matches_pallas_and_xla(n, d, v, k, softmax, dup):
         assert np.all(~odd | (prev == ti.numpy() - 1))
 
 
+@pytest.mark.parametrize("k", [17, 32])
+def test_topk_past_the_kernel_matches_jax(k):
+    """k above the kernel's 16: both packages take the matmul route
+    (``_classify_topk_xla`` in the JAX package); equal indices, values
+    within the tolerances above, raw and softmax."""
+    from scd_tpu.ops.topk import classify_topk as jax_classify_topk
+
+    f, w = _inputs(60, 24, 700, seed=k)
+    for softmax in (True, False):
+        tv, ti = classify_topk(torch.from_numpy(f), torch.from_numpy(w), k,
+                               scale=100.0, apply_softmax=softmax)
+        jv, ji = jax_classify_topk(jnp.asarray(f), jnp.asarray(w), k,
+                                   scale=100.0, apply_softmax=softmax)
+        assert tuple(ti.shape) == (60, k)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0,
+                                   atol=PROB_ATOL if softmax else LOGIT_ATOL)
+
+
 def test_topk_chunking_is_invisible():
     f, w = _inputs(50, 16, 300, seed=3)
     a = classify_topk_plain(torch.from_numpy(f), torch.from_numpy(w), 5)

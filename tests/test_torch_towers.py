@@ -184,6 +184,34 @@ def test_interpolate_pos_embed_off_grid(new_grid):
     assert np.abs(tv.numpy() - want[:, 1:]).max() > 1e-3
 
 
+def test_clip_image_tower_at_l257_matches_flax():
+    """A tiny CLIP image tower with a 224 px (14 x 14) position grid fed
+    256 px images: a 16 x 16 grid, L 257, past the short attention paths'
+    256 (the position embedding is resized, as for ``image_size`` 256).
+    Atol 1e-4: f32 sums in another order."""
+    import jax
+    import jax.numpy as jnp
+
+    from scd_tpu.models.clip import CLIPModel, load_openai_clip_weights
+    from scd_tpu_torch.models import clip as tclip
+    from scd_tpu_torch.testing.fabricate import clip_state_dict
+
+    jcfg, tcfg = _clip_cfgs(width=32, depth=1, heads=2, image=224, patch=16)
+    sd = clip_state_dict(tcfg, seed=9)
+    x = np.random.default_rng(9).standard_normal(
+        (2, 256, 256, 3)).astype(np.float32)
+    jm = CLIPModel(jcfg)
+    want = np.asarray(jax.jit(lambda v, a: jm.apply(
+        v, a, method=CLIPModel.encode_image))(
+        load_openai_clip_weights({k: v.numpy() for k, v in sd.items()},
+                                 jcfg), jnp.asarray(x)))
+    port = _port_clip(tcfg, tclip.load_openai_clip_weights(sd, tcfg))
+    with torch.no_grad():
+        got = port.encode_image(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, EMBED)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def int8_weights():
     """Width-128, depth-2 CLIP (image + text) and DINO state dicts."""

@@ -9,8 +9,10 @@ Phases, each printing its own lines and seconds:
    then every CUDA kernel built from ``scd_tpu_torch/csrc`` (one ``nvcc``
    per source, started together) with the compiler's register report;
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, at the main paths' shapes and at edge shapes, with the stated
-   tolerances; every kernel must also repeat its bits exactly;
+   card, at the main paths' shapes and at edge shapes (attention at L 257,
+   325 and 577 through its long path; ``classify_topk`` at k 17 and 32
+   through the matmul route), with the stated tolerances; every kernel
+   must also repeat its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
    ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
    nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
@@ -29,14 +31,19 @@ Phases, each printing its own lines and seconds:
    and is held against the CPU too, and the int8 features' cosine to the
    bf16 towers' is printed;
 5. timing at the main paths' shapes: each kernel, its plain version and a
-   yardstick PyTorch call, beside the least time the card could take;
+   yardstick PyTorch call, beside the least time the card could take (for
+   the f32 products of ``topk_softmax``, ``fused_em_step`` and
+   ``estep_assign``: three bf16 tensor-core products, with the f32 SIMT
+   bound printed beside it); the attention long path at image 256;
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
    columns, top-5; images/s and p50 / p99 ms per batch; the attention
    kernel must launch 40 batches x 12 blocks times; 8 images' features
    are held against the CPU's plain f32 tower and their top-1 names must
-   be equal; the synthetic CLI must compute its naming head on the card;
+   be equal; one batch at image 256 (L 257, the attention long path) is
+   held against the CPU the same way; ``main`` must return the image
+   count; the synthetic CLI must compute its naming head on the card;
 7. the k-means runners: ``scd_tpu_torch.cluster.runners.main --optimal``
    over fabricated, L2-normalised ImageNet-100-scale features (130,048 x
    768, 100 classes) on the card (the ``estep_assign`` kernel) and on the
@@ -89,8 +96,9 @@ TEXT_BATCH, RUNNER_N = 5_120, 130_048
 SERVE_IMAGES, SERVE_NAMES, SERVE_TOPK = 5_000, 100, 5
 
 # tolerances, with their reasons:
-# - top-k logits are scale * f32 dot products summed in another order than
-#   cuBLAS's: |error| ~ 1e-4 at scale 100, D = 512 unit vectors
+# - top-k logits are scale * dot products of split-bf16 operands (lo.lo,
+#   ~2^-16 relative, dropped) summed in another order than cuBLAS's f32:
+#   |error| ~ 1e-4 at scale 100, D = 512 unit vectors
 TOPK_LOGIT_TOL = 2e-3
 # - softmax values inherit the logit error (relative ~ logit error)
 TOPK_PROB_TOL = 5e-4
@@ -182,7 +190,7 @@ def phase_build():
         for line in ptxas_summary(log):
             print(f"  {name}: {line}")
     sass = {name: sass_counts(build.library_path(name))
-            for name in ("attention", "w8a8")}
+            for name in ("attention", "w8a8", "topk_softmax")}
     for name, per_fn in sass.items():
         for fn, (hg, ig) in per_fn.items():
             print(f"  {name} SASS {fn}: HGMMA {hg}, IGMMA {ig}")
@@ -190,6 +198,10 @@ def phase_build():
               if "attn_bf16" in fn), "attention: no HGMMA in the bf16 kernel")
     check(any(ig > 0 for fn, (_, ig) in sass["w8a8"].items()
               if "fusedq" in fn), "w8a8: no IGMMA in the w8a8_fusedq kernel")
+    check(all(hg > 0 for fn, (hg, _) in sass["topk_softmax"].items()
+              if "topk_wgmma" in fn) and any(
+        "topk_wgmma" in fn for fn in sass["topk_softmax"]),
+        "topk_softmax: no HGMMA in the topk_wgmma kernel")
 
 
 def _short(mangled: str) -> str:

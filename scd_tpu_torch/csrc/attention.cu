@@ -652,7 +652,7 @@ __device__ __forceinline__ void long_scores(float (&s)[LQ], const float* Qw, con
 }
 
 template <typename T>
-__global__ void __launch_bounds__(LTHREADS)
+__global__ void __launch_bounds__(LTHREADS, 2)
 attn_long_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so, int heads,
                  int L, int hd, int l_valid, int causal, float scale, int qtiles) {

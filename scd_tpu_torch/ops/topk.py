@@ -98,7 +98,10 @@ def topk_softmax_cuda(feats: torch.Tensor, weights: torch.Tensor, k: int,
 
     Returns (m [N], s [N], vals [N, k], idx [N, k] int32): the row's
     online logit max and sum of exp(logit - m), and the top-k raw scaled
-    logits with their indices.  Counts its launches in
+    logits with their indices.  The kernel takes the product as three bf16
+    products of the split operands on the tensor cores; it splits them
+    into a scratch buffer allocated here (4 (N + V) D' bytes, D' = D
+    rounded up to 32).  Counts its launches in
     ``topk_softmax_cuda.launches``."""
     if not (feats.is_cuda and weights.is_cuda
             and feats.device == weights.device):
@@ -123,8 +126,12 @@ def topk_softmax_cuda(feats: torch.Tensor, weights: torch.Tensor, k: int,
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    work_bytes = lib.topk_softmax_work_bytes
+    work_bytes.restype = ctypes.c_longlong
+    work_bytes.argtypes = [ctypes.c_int] * 3
     dev = feats.device
+    work = torch.empty(work_bytes(n, d, v), dtype=torch.uint8, device=dev)
     m = torch.empty(n, dtype=torch.float32, device=dev)
     s = torch.empty(n, dtype=torch.float32, device=dev)
     vals = torch.empty(n, k, dtype=torch.float32, device=dev)
@@ -133,7 +140,7 @@ def topk_softmax_cuda(feats: torch.Tensor, weights: torch.Tensor, k: int,
     with torch.cuda.device(dev):
         rc = fn(feats.data_ptr(), weights.data_ptr(), n, d, v, k,
                 float(scale), m.data_ptr(), s.data_ptr(), vals.data_ptr(),
-                idx.data_ptr(), stream)
+                idx.data_ptr(), work.data_ptr(), stream)
     build.check(rc, "topk_softmax")
     topk_softmax_cuda.launches += 1
     return m, s, vals, idx

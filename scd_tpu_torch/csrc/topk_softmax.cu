@@ -279,7 +279,7 @@ struct TopK {
 };
 
 // Load j of this block (its row blocks b, b + gridDim.x, ..., each with
-// every 256-column tile of V, each tile in ksteps stages of 64 along Dp)
+// every 256-column tile of V, each tile in ksteps stages of BK along Dp)
 // into the stage at `st`, completing on `fb` (one thread).
 __device__ __forceinline__ void load_stage(const CUtensorMap* fhi, const CUtensorMap* flo,
                                            const CUtensorMap* whi, const CUtensorMap* wlo,
@@ -303,9 +303,9 @@ __device__ __forceinline__ void load_stage(const CUtensorMap* fhi, const CUtenso
 // thread branches alone while its wgmma are in flight (ptxas serializes
 // wgmma around such a branch).
 // Persistent: block b takes row blocks b, b + gridDim.x, ...; for each, every
-// 256-column tile of V, for each tile ksteps stages of 64 along Dp.  Stage
+// 256-column tile of V, for each tile ksteps stages of BK along Dp.  Stage
 // layout (from a 1024-byte boundary): F hi [128 rows], F lo, W hi [256
-// rows], W lo, each row 128 bytes, swizzled.  Warpgroup w multiplies F rows
+// rows], W lo, each row 64 bytes, swizzled.  Warpgroup w multiplies F rows
 // [64 w, 64 w + 64).  Thread (warp q of its warpgroup, lane 4g + t) holds
 // rows 64 w + 16 q + g (h = 0) and + 8 (h = 1); accumulator chunk c (8
 // columns) is acc[4c .. 4c + 3]: (h 0, col 8c + 2t), (h 0, + 1), (h 1, 8c +

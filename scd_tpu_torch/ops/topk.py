@@ -9,8 +9,9 @@ k, decided before any launch:
   logits never exist in device memory;
 - a CUDA tensor with k > 16 takes the route the JAX package takes for k
   beyond its kernel (``_classify_topk_xla``): :func:`classify_topk_plain`,
-  chunked f32 ``torch.matmul`` (TF32 off), a stable descending top-k and
-  the log-sum-exp, counted in ``classify_topk.matmul_calls``.  This is the
+  chunked f32 ``torch.matmul`` (TF32 off, the policy every entry point
+  sets: ``core/device.py``), a stable descending top-k and the
+  log-sum-exp, counted in ``classify_topk.matmul_calls``.  This is the
   reference's own dispatch, not a fallback: a failing kernel still raises;
 - a CPU tensor runs :func:`classify_topk_plain`, which mirrors
   ``_classify_topk_xla`` and chunks rows to bound memory;
@@ -26,7 +27,6 @@ from typing import Tuple
 
 import torch
 
-from scd_tpu_torch.core.device import f32_matmuls
 from scd_tpu_torch.ops import build
 
 KERNEL_MAX_K = 16
@@ -48,7 +48,6 @@ def classify_topk(feats: torch.Tensor, weights: torch.Tensor, k: int,
         raise ValueError(f"classify_topk requires V >= k (V={v}, k={k})")
     if feats.is_cuda:
         if k > KERNEL_MAX_K:  # the JAX package's route past its kernel
-            f32_matmuls()  # the port's policy for the process: no TF32
             classify_topk.matmul_calls += 1
             return classify_topk_plain(feats, weights, k, scale,
                                        apply_softmax)

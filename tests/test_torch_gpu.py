@@ -83,7 +83,9 @@ def test_topk_kernel_ties_go_to_lowest_index(cuda):
 def test_topk_past_the_kernel_takes_the_matmul_route(cuda, k):
     """k > 16 on the card: the JAX package's own route past its kernel
     (chunked f32 matmul, stable top-k), counted apart; the kernel does not
-    launch, and the result is the plain version's."""
+    launch, and the result is the plain version's.  That route runs the
+    plain version itself, so the result is also held against the f64
+    logits: indices within the tie band, softmax values within 5e-4."""
     from scd_tpu_torch.ops import topk
 
     g = torch.Generator(device=cuda).manual_seed(k)
@@ -97,6 +99,15 @@ def test_topk_past_the_kernel_takes_the_matmul_route(cuda, k):
     pv, pi = topk.classify_topk_plain(f, w, k)
     assert ki.shape == (1_005, k) and torch.equal(ki, pi)
     torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    si = ki.sort(dim=1).values
+    assert bool((si[:, 1:] != si[:, :-1]).all())
+    exact = 100.0 * (f.double() @ w.double())
+    ev = torch.sort(exact, dim=1, descending=True).values[:, :k]
+    got = exact.gather(1, ki.long())
+    assert (got - ev).abs().max().item() <= 2e-3
+    m = exact.max(dim=1, keepdim=True).values
+    want = torch.exp(got - m) / torch.exp(exact - m).sum(1, keepdim=True)
+    torch.testing.assert_close(kv.double(), want, rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize("n,d,k,masked,x_bf16", [

@@ -33,8 +33,10 @@ Phases, each printing its own lines and seconds:
 5. timing at the main paths' shapes: each kernel, its plain version and a
    yardstick PyTorch call, beside the least time the card could take (for
    the f32 products of ``topk_softmax``, ``fused_em_step`` and
-   ``estep_assign``: three bf16 tensor-core products, with the f32 SIMT
-   bound printed beside it); the attention long path at image 256;
+   ``estep_assign``: three bf16 tensor-core products, two where x is
+   stored in bf16, with the f32 SIMT bound printed beside it);
+   ``fused_em_step`` with both bf16 and f32 x (the ``kernels`` line takes
+   the main path's); the attention long path at image 256;
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -190,7 +192,7 @@ def phase_build():
         for line in ptxas_summary(log):
             print(f"  {name}: {line}")
     sass = {name: sass_counts(build.library_path(name))
-            for name in ("attention", "w8a8", "topk_softmax")}
+            for name in ("attention", "w8a8", "topk_softmax", "fused_em")}
     for name, per_fn in sass.items():
         for fn, (hg, ig) in per_fn.items():
             print(f"  {name} SASS {fn}: HGMMA {hg}, IGMMA {ig}")
@@ -202,6 +204,11 @@ def phase_build():
               if "topk_wgmma" in fn) and any(
         "topk_wgmma" in fn for fn in sass["topk_softmax"]),
         "topk_softmax: no HGMMA in the topk_wgmma kernel")
+    for kern in ("estep_kernel", "mstep_kernel"):
+        check(all(hg > 0 for fn, (hg, _) in sass["fused_em"].items()
+                  if kern in fn) and any(
+            kern in fn for fn in sass["fused_em"]),
+            f"fused_em: no HGMMA in the {kern}")
 
 
 def _short(mangled: str) -> str:
@@ -709,6 +716,11 @@ def phase_parity(seed: int):
     em_parity(20_000, 768, 683, gen, masked=True, tag="edge-K683")
     em_parity(3_001, 100, 130, gen, x_bf16=True, masked=True,
               tag="edge-bf16")
+    em_parity(3_000, 64, 1, gen, x_bf16=True, tag="edge-K1-bf16")
+    # N under one 64-row stage; K < N, since em_inputs picks the centers
+    # from the rows (with K >= N every row would be a center, inertia 0)
+    em_parity(37, 768, 7, gen, x_bf16=True, masked=True, tag="edge-N37-bf16")
+    em_parity(20_000, 768, 683, gen, x_bf16=True, tag="edge-K683-bf16")
     errs.update(parity_attention_estep(seed))
     return errs
 
@@ -1227,7 +1239,6 @@ def phase_timing(seed: int, estep):
     del f, w
 
     x, c = em_inputs(n_u, D_FEAT, K, gen)
-    xk = x.to(torch.bfloat16) if estep[1] else x
 
     def em_library():
         cross = torch.matmul(x, c.t())
@@ -1236,26 +1247,36 @@ def phase_timing(seed: int, estep):
         sums = torch.zeros(K, D_FEAT, device="cuda").index_add_(0, lab, x)
         return lab, sums
 
-    t_em = cuda_ms(lambda: fused_em_step_cuda(xk, c), reps=50, warmup=3)
-    t_em_plain = cuda_ms(lambda: em_iteration_plain(xk, c, K), reps=20)
     t_em_lib = cuda_ms(em_library, reps=20)
-    x_bytes = 2 if estep[1] else 4
-    em_flops = 2.0 * n_u * K * D_FEAT + n_u * D_FEAT
-    em_bytes = (x_bytes * n_u * D_FEAT + 4.0 * K * D_FEAT + 4.0 * n_u
-                + 4.0 * (K * D_FEAT + K + 1))
-    # x in bf16: its lo part is zero, so two passes (x . c_hi, x . c_lo)
-    # instead of three, as the TPU kernel counts them; the M-step's N . D
-    # sums (1 / 2K of the flops) are counted at the same number of passes
-    em_bound, em_by, em_simt = _f32_product_bound(
-        em_flops, em_bytes, passes=2 if estep[1] else 3)
-    print(f"  fused_em_step N={n_u} D={D_FEAT} K={K} "
-          f"x_bf16={bool(estep[1])}: kernel {t_em:.4f} ms, plain "
-          f"{t_em_plain:.4f} ms, library {t_em_lib:.4f} ms, bound "
-          f"{em_bound:.4f} ms ({em_by}; f32 SIMT bound {em_simt:.4f} ms)")
+    em_times = {}
+    for x_bf16 in (True, False):  # both modes; the row takes the main path's
+        xk = x.to(torch.bfloat16) if x_bf16 else x
+        t_em = cuda_ms(lambda: fused_em_step_cuda(xk, c), reps=50, warmup=3)
+        t_again = cuda_ms(lambda: fused_em_step_cuda(xk, c), reps=50,
+                          warmup=3)
+        t_em_plain = cuda_ms(lambda: em_iteration_plain(xk, c, K), reps=20)
+        x_bytes = 2 if x_bf16 else 4
+        em_flops = 2.0 * n_u * K * D_FEAT + n_u * D_FEAT
+        em_bytes = (x_bytes * n_u * D_FEAT + 4.0 * K * D_FEAT + 4.0 * n_u
+                    + 4.0 * (K * D_FEAT + K + 1))
+        # x in bf16: its lo part is zero, so two passes (x . c_hi, x .
+        # c_lo) instead of three, as the TPU kernel counts them; the
+        # M-step's N . D sums (1 / 2K of the flops) are counted at the same
+        # number of passes
+        em_bound, em_by, em_simt = _f32_product_bound(
+            em_flops, em_bytes, passes=2 if x_bf16 else 3)
+        print(f"  fused_em_step N={n_u} D={D_FEAT} K={K} x_bf16={x_bf16}"
+              f"{' (the main path)' if x_bf16 == bool(estep[1]) else ''}: "
+              f"kernel {t_em:.4f} ms (again {t_again:.4f}), plain "
+              f"{t_em_plain:.4f} ms, library (f32 matmul + argmin + "
+              f"index_add_) {t_em_lib:.4f} ms, bound {em_bound:.4f} ms "
+              f"({em_by}; f32 SIMT bound {em_simt:.4f} ms)")
+        em_times[x_bf16] = (t_em, t_em_plain, t_em_lib, em_bound, em_by)
+        del xk
     return {
         "topk_softmax": (t_topk, t_topk_plain, t_topk_lib, topk_bound,
                          topk_by),
-        "fused_em_step": (t_em, t_em_plain, t_em_lib, em_bound, em_by),
+        "fused_em_step": em_times[bool(estep[1])],
         **time_w8a8(gen),
         **time_attention_estep(gen),
     }

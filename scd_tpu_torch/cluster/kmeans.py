@@ -16,6 +16,12 @@ a CUDA device (``ops.em``) and the plain version on the CPU.  Features stay
 on the device for the whole fit; one scalar per iteration (the center
 shift) comes back to the host for the stopping test.  The multi-device
 path comes with the multi-device slice.
+
+Device of the fitters (``fit_kmeans``, ``fit_sskm``,
+``fit_kmeans_from_labels``): ``device="cuda"`` or ``"cpu"`` when given;
+otherwise a tensor input stays on its own device and a numpy input goes
+to the card, raising when there is none (``core.device.resolve_device``).
+``device="cpu"`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from scd_tpu_torch.core.config import ClusterConfig
+from scd_tpu_torch.core.device import resolve_device
 from scd_tpu_torch.ops.distance import pairwise_sqdist
 from scd_tpu_torch.ops.em import em_iteration
 from scd_tpu_torch.ops.kpp import kmeans_plus_plus
@@ -44,13 +51,15 @@ class KMeansResult:
 
 
 def _device_f32(x, device=None) -> torch.Tensor:
-    """``x`` (numpy or tensor) as an f32 tensor on ``device`` (default: a
-    tensor stays where it is, numpy goes to the CPU)."""
+    """``x`` (numpy or tensor) as a contiguous f32 tensor on ``device``.
+    With no ``device`` a tensor stays where it is and numpy goes to the
+    card (``resolve_device("cuda")``, which raises without one), as the JAX
+    package's fitters run on the default backend."""
     if isinstance(x, torch.Tensor):
-        t = x if device is None else x.to(device)
+        t = x if device is None else x.to(resolve_device(device))
         return t.float().contiguous()
     t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-    return t if device is None else t.to(device)
+    return t.to(resolve_device("cuda" if device is None else device))
 
 
 def _lloyd_loop(x: torch.Tensor, centers0: torch.Tensor, k: int,
@@ -211,7 +220,8 @@ def _generator(cfg: ClusterConfig, device: torch.device) -> torch.Generator:
 def fit_kmeans(x, cfg: ClusterConfig, device=None) -> KMeansResult:
     """Plain unsupervised k-means (reference baseline at
     ``main_unsup.py:362``).  ``x`` is numpy or a tensor; ``device``
-    defaults to where a tensor already lives (numpy: the CPU)."""
+    defaults to where a tensor already lives, and to the card for numpy
+    (see the module docstring); ``device="cpu"`` runs the plain versions."""
     x_t = _device_f32(x, device)
     k = cfg.n_clusters
     fused = _use_fused(cfg.fused_mesh, x_t.device)
@@ -236,6 +246,7 @@ def fit_sskm(u_feats, l_feats, l_targets, cfg: ClusterConfig,
 
     Returned ``labels`` follow the reference contract: labelled instances
     first (their remapped class ids), then unlabelled assignments.
+    ``device`` as in :func:`fit_kmeans`, decided by ``u_feats``.
     """
     u = _device_f32(u_feats, device)
     dev = u.device
@@ -279,7 +290,8 @@ def fit_kmeans_from_labels(x, init_labels, cfg: ClusterConfig,
                            device=None) -> KMeansResult:
     """K-means warm-started from an existing labelling (e.g. a supervised
     classifier's predictions).  Deterministic: a single Lloyd run from the
-    label centroids, no k-means++ restarts."""
+    label centroids, no k-means++ restarts.  ``device`` as in
+    :func:`fit_kmeans`."""
     x_t = _device_f32(x, device)
     k = cfg.n_clusters
     fused = _use_fused(cfg.fused_mesh, x_t.device)

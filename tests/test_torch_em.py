@@ -102,3 +102,46 @@ def test_em_kernel_wrapper_refuses_cpu_tensors():
     x, c, _ = _inputs(20, 4, 3, 3, seed=0, masked=False)
     with pytest.raises(ValueError, match="CUDA"):
         fused_em_step_cuda(torch.from_numpy(x), torch.from_numpy(c))
+
+
+@pytest.mark.parametrize("n,d,k,x_bf16,aligned", [
+    (97_536, 768, 100, True, True),    # the main path: x read where it lies
+    (97_536, 768, 100, False, True),   # f32 x: hi and lo written once
+    (20_000, 768, 683, True, True),    # six center tiles of 128
+    (3_001, 100, 130, True, True),     # D % 8 != 0: rows rewritten to 104
+    (37, 768, 7, True, False),         # under one 64-row stage, unaligned x
+    (1, 8, 1, True, True),
+    (0, 16, 3, False, True),           # no rows: only the finalize runs
+])
+def test_em_plan_covers_every_row_once(n, d, k, x_bf16, aligned):
+    """The kernels' plan (``ops.em.em_plan``): whole center tiles, rows
+    rewritten exactly when TMA cannot read x where it lies, M-step runs
+    that cover the padded rows with none empty, about one M-step unit per
+    SM, and scratch buffers 1024-aligned, disjoint and large enough."""
+    from scd_tpu_torch.ops.em import em_plan
+
+    sms = 132
+    p = em_plan(n, d, k, x_bf16, sms, aligned)
+    assert p.kp % 128 == 0 and p.kp - 128 < k <= p.kp
+    assert p.rewrite == (not x_bf16 or d % 8 != 0 or not aligned)
+    assert p.dx == (-(-d // 8) * 8 if p.rewrite else d)
+    assert p.dchunks * 128 >= p.dx > (p.dchunks - 1) * 128
+    stages = -(-n // 64)
+    assert p.eblocks == min(-(-n // 128), sms)
+    if n:
+        assert p.runs * p.run_stages >= stages > (p.runs - 1) * p.run_stages
+        per_run = (p.kp // 128) * p.dchunks  # M-step units of one run
+        assert p.run_stages == 1 or p.runs == 1 or (
+            sms <= p.runs * per_run < sms + per_run)
+    else:
+        assert p.runs == 0
+    sizes = {"chi": p.kp * p.dx * 2, "clo": p.kp * p.dx * 2, "csq": p.kp * 4,
+             "xhi": n * p.dx * 2 if p.rewrite else 0,
+             "xlo": 0 if x_bf16 else n * p.dx * 2, "lw": stages * 64 * 8,
+             "part_sums": p.runs * p.kp * p.dchunks * 128 * 4,
+             "part_counts": p.runs * p.kp * 4, "ine_part": p.eblocks * 4}
+    spans = sorted((p.offsets[name], p.offsets[name] + size)
+                   for name, size in sizes.items())
+    assert all(off % 1024 == 0 for off in p.offsets.values())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= p.work_bytes

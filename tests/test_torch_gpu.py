@@ -112,7 +112,11 @@ def test_topk_past_the_kernel_takes_the_matmul_route(cuda, k):
 
 @pytest.mark.parametrize("n,d,k,masked,x_bf16", [
     (5_000, 768, 100, False, False), (1_005, 100, 7, True, False),
-    (3_000, 64, 300, True, True)])
+    (3_000, 64, 300, True, True),
+    (3_000, 64, 1, False, False), (3_000, 64, 1, True, True),  # K 1
+    (20_000, 768, 683, True, False),  # six center tiles of 128
+    (20_000, 768, 683, False, True),
+    (37, 768, 100, False, True), (37, 96, 5, True, False)])  # N < 64
 def test_em_kernel_matches_plain(cuda, n, d, k, masked, x_bf16):
     from scd_tpu_torch.ops import em
     from scd_tpu_torch.ops.segment import segment_sums
@@ -140,6 +144,26 @@ def test_em_kernel_matches_plain(cuda, n, d, k, masked, x_bf16):
     torch.testing.assert_close(ine, pine, rtol=1e-4, atol=0)
     rs, _ = segment_sums(xr.float(), lab_k.long(), k, weights=w)
     torch.testing.assert_close(sums, rs, rtol=1e-4, atol=1e-4)
+
+
+def test_fit_kmeans_numpy_runs_on_the_card(cuda):
+    """With no ``device``, ``fit_kmeans`` sends numpy to the card: the
+    fused EM kernel launches, and the labels recover the blobs."""
+    from scd_tpu_torch.cluster.kmeans import fit_kmeans
+    from scd_tpu_torch.core.config import ClusterConfig
+    from scd_tpu_torch.ops import em
+
+    rng = np.random.default_rng(0)
+    centers = 4.0 * rng.standard_normal((5, 16))
+    y = rng.integers(0, 5, 600)
+    x = (centers[y] + 0.3 * rng.standard_normal((600, 16))).astype(
+        np.float32)
+    before = em.fused_em_step_cuda.launches
+    res = fit_kmeans(x, ClusterConfig(n_clusters=5, n_init=2))
+    assert em.fused_em_step_cuda.launches > before
+    assert res.labels.shape == (600,)
+    pairs = set(zip(res.labels.tolist(), y.tolist()))
+    assert len(pairs) == 5  # one cluster per blob, one blob per cluster
 
 
 def test_cuda_tensor_never_reaches_plain_em(cuda):

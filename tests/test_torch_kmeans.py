@@ -103,15 +103,34 @@ def test_fit_sskm_contract():
     lab[:200] = True
     lab &= y < 3
     res = tk.fit_sskm(x[~lab], x[lab], y[lab] + 10,
-                      ClusterConfig(algorithm="SSKM", n_clusters=k, n_init=3))
+                      ClusterConfig(algorithm="SSKM", n_clusters=k, n_init=3),
+                      device="cpu")
     n_l = int(lab.sum())
     np.testing.assert_array_equal(res.labels[:n_l],
                                   np.unique(y[lab], return_inverse=True)[1])
     assert adjusted_rand_score(y[~lab], res.labels[n_l:]) > 0.95
-    km = tk.fit_kmeans(x, ClusterConfig(n_clusters=k, n_init=3))
+    km = tk.fit_kmeans(x, ClusterConfig(n_clusters=k, n_init=3),
+                       device="cpu")
     assert adjusted_rand_score(y, km.labels) > 0.95
-    fl = tk.fit_kmeans_from_labels(x, y, ClusterConfig(n_clusters=k))
+    fl = tk.fit_kmeans_from_labels(x, y, ClusterConfig(n_clusters=k),
+                                   device="cpu")
     np.testing.assert_array_equal(fl.labels, y)
+
+
+def test_fitters_send_numpy_to_the_card(monkeypatch):
+    """With no ``device``, a numpy input goes to the card: without one
+    the three fitters raise ``resolve_device``'s error (the JAX package's
+    fitters run on the default backend); a tensor stays where it is."""
+    x, y = _blobs(60, 4, 3, seed=2)
+    cfg = ClusterConfig(n_clusters=3, n_init=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tk.fit_kmeans(x, cfg),
+                 lambda: tk.fit_sskm(x[20:], x[:20], y[:20], cfg),
+                 lambda: tk.fit_kmeans_from_labels(x, y, cfg)):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()
+    res = tk.fit_kmeans(torch.from_numpy(x), cfg)
+    assert res.labels.shape == (60,)
 
 
 def test_estep_resolution_and_dispatch():

@@ -10,9 +10,10 @@ Phases, each printing its own lines and seconds:
    per source, started together) with the compiler's register report;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge shapes (attention at L 257,
-   325 and 577 through its long path; ``classify_topk`` at k 17 and 32
-   through the matmul route), with the stated tolerances; every kernel
-   must also repeat its bits exactly;
+   325, 577, 785 and 1,025 through its long paths: bf16 on ``wgmma``,
+   resident to L 832 and streamed past it, f32 on SIMT; ``classify_topk``
+   at k 17 and 32 through the matmul route), with the stated tolerances;
+   every kernel must also repeat its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
    ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
    nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
@@ -36,7 +37,8 @@ Phases, each printing its own lines and seconds:
    ``estep_assign``: three bf16 tensor-core products, two where x is
    stored in bf16, with the f32 SIMT bound printed beside it);
    ``fused_em_step`` with both bf16 and f32 x (the ``kernels`` line takes
-   the main path's); the attention long path at image 256;
+   the main path's); the attention long path at image 256, 288 and 384
+   (L 257, 325, 577);
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -198,6 +200,17 @@ def phase_build():
             print(f"  {name} SASS {fn}: HGMMA {hg}, IGMMA {ig}")
     check(any(hg > 0 for fn, (hg, _) in sass["attention"].items()
               if "attn_bf16" in fn), "attention: no HGMMA in the bf16 kernel")
+    check(any(hg > 0 for fn, (hg, _) in sass["attention"].items()
+              if "attn_long_bf16" in fn),
+          "attention: no HGMMA in the bf16 long-path kernel")
+    if "attention" in reports:  # built now: its ptxas report is here
+        lines = ptxas_summary(reports["attention"])
+        check(any(ln.startswith("attn_long_bf16_kernel:")
+                  and "spill 0 / 0 bytes" in ln for ln in lines),
+              "attention: the bf16 long-path kernel spills")
+        check(not any("wgmma" in ln and "attn_long_bf16" in ln
+                      for ln in lines),
+              "attention: ptxas serializes the long-path kernel's wgmma")
     check(any(ig > 0 for fn, (_, ig) in sass["w8a8"].items()
               if "fusedq" in fn), "w8a8: no IGMMA in the w8a8_fusedq kernel")
     check(all(hg > 0 for fn, (hg, _) in sass["topk_softmax"].items()
@@ -249,10 +262,10 @@ def ptxas_summary(log: str):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and fn:
             info["spill"] = f"spill {m.group(1)} / {m.group(2)} bytes"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
         if m and fn:
-            out.append(f"{fn}: {m.group(1)} registers, {m.group(2)} bytes "
-                       f"static smem, {info.get('spill', 'spill ?')}")
+            out.append(f"{fn}: {m.group(1)} registers, {m.group(2) or 0} "
+                       f"bytes static smem, {info.get('spill', 'spill ?')}")
         if "wgmma" in ln:
             out.append(ln.strip())
     return out
@@ -642,21 +655,34 @@ def parity_attention_estep(seed: int):
                 l_valid=L_VIT if length == L_PAD else None,
                 packed=(i + causal) % 2 == 0,
                 tag=f"edge-grid-L{length}{'-causal' if causal else ''}")
-    # the long path (L > 256): towers at image 256, 288 and 384
-    long0 = _counts()["attention_long"]
-    for length, h, causal, l_valid, dtype, packed in (
-            (L_257, 12, False, None, bf16, True),
-            (L_257, 12, True, None, bf16, False),
-            (325, 12, False, 300, bf16, True),
-            (325, 7, True, None, f32, False),
-            (577, 12, False, None, bf16, False),
-            (577, 5, True, 500, bf16, True),
-            (577, 3, False, None, f32, True)):
+    # the long paths (L > 256): towers at image 256, 288, 384, 448 and
+    # 512; bf16 on wgmma (L 1,025 past the 832 keys that stay resident:
+    # streamed), f32 on SIMT
+    before = _counts()
+    long_edges = (
+        (L_257, 12, False, None, bf16, True),
+        (L_257, 12, True, None, bf16, False),
+        (325, 12, False, 300, bf16, True),
+        (325, 7, True, None, f32, False),
+        (577, 12, False, None, bf16, False),
+        (577, 5, True, 500, bf16, True),
+        (577, 3, False, None, f32, True),
+        (785, 12, False, None, bf16, True),
+        (785, 5, True, 700, bf16, False),
+        (1_025, 3, False, None, bf16, True),
+        (1_025, 2, True, 900, bf16, False))
+    for length, h, causal, l_valid, dtype, packed in long_edges:
         attention_parity(3, length, h, 64, dtype, gen, causal=causal,
                          l_valid=l_valid, packed=packed,
                          tag=f"long-L{length}{'-causal' if causal else ''}")
-    check(_counts()["attention_long"] - long0 == 14,
-          "attention: the long edges did not all take the long path")
+    after = _counts()
+    n_bf16 = sum(e[4] == bf16 for e in long_edges)
+    check(after["attention_long"] - before["attention_long"]
+          == 2 * len(long_edges),
+          "attention: the long edges did not all take a long path")
+    check(after["attention_long_wgmma"] - before["attention_long_wgmma"]
+          == 2 * n_bf16, "attention: the bf16 long edges did not all take "
+          "the wgmma long path, or an f32 one did")
     attention_parity(4, L_VIT, 12, 64, f32, gen, tag="f32-image")
     attention_parity(3, 77, 8, 64, f32, gen, causal=True, packed=False,
                      tag="f32-text")
@@ -808,8 +834,9 @@ def phase_main_path(seed: int, workdir: str):
 
 def _counters():
     """{name: (function, attribute)} of every count: each kernel wrapper's
-    ``launches``, the attention long path's launches (also in
-    ``attention``) and the top-k route past the kernel (k > 16)."""
+    ``launches``, the attention long paths' launches (also in
+    ``attention``) and of those the bf16 ``wgmma`` long path's, and the
+    top-k route past the kernel (k > 16)."""
     from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
     return {"topk_softmax": (topk.topk_softmax_cuda, "launches"),
@@ -818,6 +845,8 @@ def _counters():
             "w8a8_prequant": (w8a8.w8a8_prequant_cuda, "launches"),
             "attention": (attention.attention_cuda, "launches"),
             "attention_long": (attention.attention_cuda, "long_launches"),
+            "attention_long_wgmma": (attention.attention_cuda,
+                                     "long_wgmma_launches"),
             "estep_assign": (distance.estep_assign_cuda, "launches"),
             "topk_matmul_route": (topk.classify_topk, "matmul_calls")}
 
@@ -1150,7 +1179,11 @@ def time_attention_estep(gen):
             ("text-L32", "qkv_attention-text32", TEXT_BATCH, 32, 8, True,
              True),
             ("image-256 (long path)", "qkv_attention-long", BATCH, L_257, 12,
-             False, True)):
+             False, True),
+            ("image-288 (long path)", "qkv_attention-long325", BATCH, 325,
+             12, False, True),
+            ("image-384 (long path)", "qkv_attention-long577", BATCH, 577,
+             12, False, True)):
         qkv, (q, k, v) = _attn_inputs(b, length, h, 64, bf16, packed, gen)
         if packed:
             def kern():
@@ -1159,7 +1192,7 @@ def time_attention_estep(gen):
             def kern():
                 return A.vit_attention(q, k, v, 0.125, causal)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, d]
-        if key == "qkv_attention-long":  # phase 2 checks it at B 3 only
+        if key.startswith("qkv_attention-long"):  # phase 2 has B 3 only
             attention_parity(b, length, h, 64, bf16, gen, causal=causal,
                              packed=packed, tag=f"{tag} timed inputs",
                              inputs=(qkv, (q, k, v)))
@@ -1338,14 +1371,15 @@ def phase_serving(seed: int, workdir: str):
     torch.cuda.synchronize()
     long_counts = _counts()
     check(long_counts["attention_long"] == cfg.vision.depth
+          and long_counts["attention_long_wgmma"] == cfg.vision.depth
           and long_counts["attention"] == cfg.vision.depth,
           f"image {IMAGE_LONG}: attention launches {long_counts}")
     t_224 = cuda_ms(lambda: enc(images[:BATCH]), reps=3)
     t_256 = cuda_ms(lambda: enc(big), reps=3)
     print(f"CLIP ViT-B/16 bf16, one batch of {BATCH}: {t_224:.2f} ms at 224 "
           f"px (L {L_VIT}), {t_256:.2f} ms at {IMAGE_LONG} px (L {L_257}, "
-          f"attention's long path: {long_counts['attention_long']} "
-          f"launches)")
+          f"attention's wgmma long path: "
+          f"{long_counts['attention_long_wgmma']} launches)")
     del enc
     print(f"fabricated {SERVE_IMAGES} images 224x224x3 uint8, {SERVE_NAMES} "
           f"names' columns in {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,5 @@
-// Masked softmax attention for short sequences, on [B, L, H, d] views with
-// any batch, sequence and head strides (the last dimension contiguous).
+// Masked softmax attention, on [B, L, H, d] views with any batch, sequence
+// and head strides (the last dimension contiguous).
 //
 // Replaces the TPU kernels scd_tpu/ops/pallas_kernels.py::vit_attention_pallas
 // (kernel body _vit_attn_kernel) and ::qkv_attention_pallas (kernel body
@@ -60,15 +60,34 @@
 // SIMT kernel with the same contract: 32 queries per block, scores staged
 // in shared memory, fmaf dot products.
 //
-// Long sequences (L > 256, both types: a tower at image 256, 288 or 384
-// gives L 257, 325 or 577) take a key-tiled SIMT kernel, chosen by shape
-// in attention_fwd before any launch, that holds no score row: a block
-// owns 32 queries of one (batch, head) (4 per warp) and sweeps the keys in
-// tiles of 32 (one per lane) three times, recomputing the same scores in
-// each: first the row max, then the row sum of exp(s - max), then
+// Long sequences (L > 256: a tower at image 256, 288, 384 or 448 gives
+// L 257, 325, 577 or 785) take one of two long paths, chosen by shape in
+// attention_fwd before any launch; neither holds a whole score row.
+//
+// bf16 at head_dim 64 (every shipped tower: ViT-B/S/T/16, CLIP text) takes
+// the wgmma long path, on the short path's tensor maps, wgmma wrappers and
+// register layouts.  What bounds it: at B 128, L 257, H 12 the bytes are
+// 0.060 ms at 3.35 TB/s and the products (q . k twice, p . v) 0.04 ms at
+// 989 TFLOP/s, so, as on the short path, the softmax's instructions, here
+// in both sweeps.  A block owns one (batch, head) pair and stages the key
+// tiles its rows see once by TMA (64-row boxes, 16 KB of K and V per tile:
+// 80 KB at L 257, 96 KB at L 325, two blocks an SM; up to 13 tiles, L 832,
+// resident); each warpgroup takes 64-row query tiles and sweeps the 64-key
+// tiles twice, recomputing S = Q . K^T (four wgmma m64n64k16): first the
+// row max and sum (online, the sum rescaled when the max moves: row sums
+// in another order, inside the short path's tolerance), then
+// p = quot(exp(s - max), sum) rounded to bf16 and O += P . V.  Longer
+// heads stream their key tiles through the same buffers in chunks of 13,
+// reloaded per sweep.
+//
+// f32 at L > 256 (no tensor-core path keeps f32 products exact), and bf16
+// at another head_dim (no shipped config), take a key-tiled SIMT kernel: a
+// block owns 32 queries of one (batch, head) (4 per warp) and sweeps the
+// keys in tiles of 32 (one per lane) three times, recomputing the same
+// scores in each: first the row max, then the row sum of exp(s - max), then
 // p = e / sum (IEEE division), rounded to v's type, accumulated as p . v
 // in f32 in key order.  That is the short paths' order of operations, so
-// one tolerance serves all three.  Making it fast is later work.
+// one tolerance serves all of them.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -191,6 +210,22 @@ __device__ __forceinline__ void wgmma_bf16_ss_n32(float* d, uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_bf16_ss_n80(float* d, uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -295,7 +330,8 @@ __device__ __forceinline__ void wgmma_bf16_ss_n256(float* d, uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
-__device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float* d, const uint32_t* a, uint64_t db,
+                                                     int acc) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -308,7 +344,7 @@ __device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float* d, const uint32_t* a
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 
@@ -443,7 +479,7 @@ __device__ __forceinline__ void attend_tile(uint32_t q_addr, uint32_t k_addr, ui
   wg_fence();
 #pragma unroll
   for (int j = 0; j < KT; ++j)
-    wgmma_bf16_rs_n64_tb(o, p[j], desc_sw128(v_addr + j * 16 * ROW_BYTES));
+    wgmma_bf16_rs_n64_tb(o, p[j], desc_sw128(v_addr + j * 16 * ROW_BYTES), 1);
   wg_commit();
   wg_wait_all();
   reg_fence<32>(o);
@@ -543,6 +579,268 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
   }
 }
 
+// ---- the bf16 long path: L > 256, head_dim 64, on wgmma fed by TMA
+
+constexpr int LT = 64;                        // keys per key tile, rows per query tile
+constexpr int LNWG = 2;                       // warpgroups per block
+constexpr int TILE_BYTES = LT * ROW_BYTES;    // one 64-row tile of Q, K or V: 8 KB
+
+struct LongShape {
+  // chunk: key tiles the buffers hold; resident: chunk covers every key
+  // tile a row sees.  Passed, not derived in the kernel: a derived flag
+  // holds a register, and at the 128-register cap that read 5% slower.
+  int heads, L, l_valid, causal, qtiles, chunk, resident;
+  float scale;
+  long long osb, osl, osh;  // output element strides
+};
+
+// The scaled scores of one 64-key tile starting at key k0, keys a row may
+// not see set to -inf.  Thread (lane 4g + t) holds rows ra = q0 + 16 warp
+// + g (s[4c], s[4c + 1]) and rb = ra + 8 (s[4c + 2], s[4c + 3]) at keys
+// k0 + 8c + 2t + {0, 1}, c = 0..7.  Masks only where the tile reaches past
+// kfull, the keys every row of the warp sees.
+__device__ __forceinline__ void scale_mask64(float* s, int k0, int kfull, int lv, bool causal,
+                                             int ra, int rb, int t, float scale) {
+  if (k0 + LT <= kfull) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = __fmul_rn(s[e], scale);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = k0 + c * 8 + 2 * t + e;
+      const bool ka = col < lv && (!causal || col <= ra);
+      const bool kb = col < lv && (!causal || col <= rb);
+      s[4 * c + e] = ka ? __fmul_rn(s[4 * c + e], scale) : -INFINITY;
+      s[4 * c + 2 + e] = kb ? __fmul_rn(s[4 * c + 2 + e], scale) : -INFINITY;
+    }
+}
+
+// S = Q . K_j^T for one 64-key tile: one wgmma m64n64k16 per 16-deep step
+__device__ __forceinline__ void scores64(float* s, uint64_t dq, uint64_t dk) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_bf16_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wg_commit();
+  wg_wait_all();
+  reg_fence<32>(s);
+}
+
+// (m, sum) of two partial softmax states, m the larger max; a state with
+// m = -inf (no key seen yet) has sum 0 and adds nothing
+__device__ __forceinline__ void merge_state(float& m, float& sum, float m2, float sum2) {
+  const float mn = fmaxf(m, m2);
+  const float ms = mn == -INFINITY ? 0.f : mn;
+  sum = sum * expf(m - ms) + sum2 * expf(m2 - ms);
+  m = mn;
+}
+
+// Start the loads of key tiles [c0, c0 + n) of pair (b, h) into the
+// block's K (and V) slots, completing on `bar` (one thread).
+__device__ __forceinline__ void load_kv(const CUtensorMap* mk, const CUtensorMap* mv,
+                                        uint32_t kbuf, uint32_t vbuf, uint32_t bar, int c0,
+                                        int n, bool with_v, int b, int h) {
+  mbar_expect_tx(bar, (uint32_t)n * TILE_BYTES * (with_v ? 2u : 1u));
+  for (int i = 0; i < n; ++i) {
+    tma_load_4d(kbuf + i * TILE_BYTES, mk, bar, 0, h, (c0 + i) * LT, b);
+    if (with_v) tma_load_4d(vbuf + i * TILE_BYTES, mv, bar, 0, h, (c0 + i) * LT, b);
+  }
+}
+
+// One block per (batch, head) pair, LNWG warpgroups.  Shared memory, all
+// dynamic (no static part, so no alignment pad: at L 325 two blocks fit an
+// SM): a Q tile per warpgroup, then `chunk` K tiles and `chunk` V tiles,
+// each 8 KB on a 1024-byte boundary, 128-byte swizzled as TMA writes them
+// (64-row tiles laid end to end are one swizzled [rows, 64] operand), then
+// the mbarriers.  Resident: the head's key tiles all fit (chunk = the key
+// tiles any row sees), so K and V arrive once and every query tile reads
+// them.  Else the keys come
+// in chunks of `chunk` tiles, reloaded for each sweep of each round of
+// LNWG query tiles, the block synchronised around each load.  Warpgroup
+// w takes query tiles w, w + LNWG, ...; for its tile it sweeps the key
+// tiles twice, recomputing S = Q . K_j^T each time (same instructions,
+// same bits):
+//   A: row max and row sum, online per thread over its 16 keys of a tile
+//      (the sum rescaled when the max moves), merged over the row's four
+//      threads at the end;
+//   B: p = quot(exp(s - max), sum) rounded to bf16 in the registers that
+//      held the scores (a 16-key piece of the accumulator is a 16-deep A
+//      operand), then O += P . V_j (wgmma, V an MN-major B).
+// Key tiles past what the query tile sees (l_valid, the diagonal) are not
+// visited: the loop bounds are uniform in the warpgroup, and no wgmma sits
+// under a branch.  Key tiles run in order, so runs repeat their bits.
+__global__ void __launch_bounds__(LNWG * 128, 2)
+attn_long_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ out,
+                      LongShape sh) {
+  // no static shared memory precedes it, so the dynamic part starts the
+  // block's window, on a 1024-byte boundary (checked; declaring the
+  // alignment would pad the static part of every kernel of this file)
+  extern __shared__ unsigned char lsm_raw[];
+  const uint32_t base = smem_u32(lsm_raw);
+  if (base & 1023u) __trap();
+  const uint32_t kbuf = base + LNWG * TILE_BYTES;
+  const uint32_t vbuf = kbuf + sh.chunk * TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lsm_raw + (LNWG + 2 * sh.chunk) * TILE_BYTES);
+  uint64_t& kv_bar = bars[0];
+  uint64_t* q_bar = bars + 1;
+
+  const int b = blockIdx.x / sh.heads, h = blockIdx.x % sh.heads;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, ((int)threadIdx.x / 32) & 3, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool elected = (threadIdx.x & 127) == 0;
+  const uint32_t qbuf = base + wg * TILE_BYTES;
+  const uint32_t qb = smem_u32(&q_bar[wg]), kvb = smem_u32(&kv_bar);
+  const int L = sh.L, lv = min(sh.l_valid, L);
+  const bool causal = sh.causal != 0;
+  const int kt_all = (lv + LT - 1) / LT;  // key tiles any row sees
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvb, 1);
+    for (int i = 0; i < LNWG; ++i) mbar_init(smem_u32(&q_bar[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (sh.resident) load_kv(&mk, &mv, kbuf, vbuf, kvb, 0, kt_all, true, b, h);
+  }
+  __syncthreads();
+  uint32_t kv_phase = 0;
+  if (sh.resident) {
+    mbar_wait(kvb, 0);
+    kv_phase = 1;
+  }
+  __nv_bfloat16* out_bh = out + b * sh.osb + h * sh.osh;
+  const int rounds = (sh.qtiles + LNWG - 1) / LNWG;
+
+  for (int r = 0; r < rounds; ++r) {
+    const int tq = r * LNWG + wg;
+    const bool has = tq < sh.qtiles;
+    const int q0 = tq * LT;
+    if (r > 0) asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // Q read by all
+    if (has && elected) {
+      mbar_expect_tx(qb, TILE_BYTES);
+      tma_load_4d(qbuf, &mq, qb, 0, h, q0, b);
+    }
+    // key tiles this query tile sees, and the most any tile of the round sees
+    const int my_nt = !has ? 0 : causal ? (min(lv, q0 + LT) + LT - 1) / LT : kt_all;
+    const int last_q0 = (min((r + 1) * LNWG, sh.qtiles) - 1) * LT;
+    const int round_nt = causal ? (min(lv, last_q0 + LT) + LT - 1) / LT : kt_all;
+    // this warp's rows: a warp whose 16 rows all lie past L sees no key
+    const int r_lo = q0 + warp * 16;
+    const int ra = r_lo + g, rb = ra + 8;
+    const bool live = has && r_lo < L;
+    const int kmax = !live ? 0 : causal ? min(lv, r_lo + 16) : lv;  // keys any row sees
+    const int kfull = !live ? 0 : causal ? min(lv, r_lo + 1) : lv;  // keys every row sees
+    if (has) mbar_wait(qb, r & 1);
+    const uint64_t dq = desc_sw128(qbuf);
+
+    // ---- sweep A: row max and row sum
+    float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f;
+    for (int c0 = 0; c0 < round_nt; c0 += sh.chunk) {
+      if (!sh.resident) {
+        __syncthreads();  // every warpgroup is done with the last chunk
+        if (threadIdx.x == 0)
+          load_kv(&mk, &mv, kbuf, vbuf, kvb, c0, min(sh.chunk, round_nt - c0), false, b, h);
+        mbar_wait(kvb, kv_phase & 1);
+        ++kv_phase;
+      }
+      const int jend = min(c0 + sh.chunk, my_nt);
+      for (int j = c0; j < jend; ++j) {
+        float s[32];
+        scores64(s, dq, desc_sw128(kbuf + (j - c0) * TILE_BYTES));
+        if (j * LT >= kmax) continue;
+        scale_mask64(s, j * LT, kfull, lv, causal, ra, rb, t, sh.scale);
+        float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          ta = fmaxf(ta, fmaxf(s[4 * c], s[4 * c + 1]));
+          tb = fmaxf(tb, fmaxf(s[4 * c + 2], s[4 * c + 3]));
+        }
+        const float na = fmaxf(ma, ta), nb = fmaxf(mb, tb);
+        const float za = na == -INFINITY ? 0.f : na, zb = nb == -INFINITY ? 0.f : nb;
+        float ea = 0.f, eb = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          ea += expf(s[4 * c] - za) + expf(s[4 * c + 1] - za);
+          eb += expf(s[4 * c + 2] - zb) + expf(s[4 * c + 3] - zb);
+        }
+        sa = sa * expf(ma - za) + ea;
+        sb = sb * expf(mb - zb) + eb;
+        ma = na;
+        mb = nb;
+      }
+    }
+    if (live) {  // the row's four threads; every row sees key 0, so its max is finite
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        merge_state(ma, sa, __shfl_xor_sync(0xffffffffu, ma, off),
+                    __shfl_xor_sync(0xffffffffu, sa, off));
+        merge_state(mb, sb, __shfl_xor_sync(0xffffffffu, mb, off),
+                    __shfl_xor_sync(0xffffffffu, sb, off));
+      }
+    }
+    const float ia = __frcp_rn(sa), ib = __frcp_rn(sb);
+
+    // ---- sweep B: p = e / sum in bf16, O += P . V_j.  O is never written
+    // by other instructions (the first product overwrites it), or ptxas
+    // serializes the wgmma (C7514).
+    float o[32];
+    for (int c0 = 0; c0 < round_nt; c0 += sh.chunk) {
+      if (!sh.resident) {
+        __syncthreads();
+        if (threadIdx.x == 0)
+          load_kv(&mk, &mv, kbuf, vbuf, kvb, c0, min(sh.chunk, round_nt - c0), true, b, h);
+        mbar_wait(kvb, kv_phase & 1);
+        ++kv_phase;
+      }
+      const int jend = min(c0 + sh.chunk, my_nt);
+      for (int j = c0; j < jend; ++j) {
+        float s[32];
+        scores64(s, dq, desc_sw128(kbuf + (j - c0) * TILE_BYTES));
+        uint32_t p[4][4];
+        if (j * LT < kmax) {
+          scale_mask64(s, j * LT, kfull, lv, causal, ra, rb, t, sh.scale);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float* sj = s + 8 * jj;
+            p[jj][0] = pack_bf16(quot(expf(sj[0] - ma), sa, ia), quot(expf(sj[1] - ma), sa, ia));
+            p[jj][1] = pack_bf16(quot(expf(sj[2] - mb), sb, ib), quot(expf(sj[3] - mb), sb, ib));
+            p[jj][2] = pack_bf16(quot(expf(sj[4] - ma), sa, ia), quot(expf(sj[5] - ma), sa, ia));
+            p[jj][3] = pack_bf16(quot(expf(sj[6] - mb), sb, ib), quot(expf(sj[7] - mb), sb, ib));
+          }
+        } else {  // every key masked for this warp: p is exactly 0
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) p[jj][0] = p[jj][1] = p[jj][2] = p[jj][3] = 0u;
+        }
+        const uint32_t v_addr = vbuf + (j - c0) * TILE_BYTES;
+        reg_fence<16>(&p[0][0]);
+        wg_fence();
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          wgmma_bf16_rs_n64_tb(o, p[jj], desc_sw128(v_addr + jj * 16 * ROW_BYTES),
+                               (j | jj) != 0);
+        wg_commit();
+        wg_wait_all();
+        reg_fence<32>(o);
+      }
+    }
+
+    // ---- store the rows that exist: chunk c holds columns 8c + 2t, + 1
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        if (ra < L)
+          *reinterpret_cast<uint32_t*>(out_bh + ra * sh.osl + c * 8 + 2 * t) =
+              pack_bf16(o[4 * c], o[4 * c + 1]);
+        if (rb < L)
+          *reinterpret_cast<uint32_t*>(out_bh + rb * sh.osl + c * 8 + 2 * t) =
+              pack_bf16(o[4 * c + 2], o[4 * c + 3]);
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(FTHREADS)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, Strides sq,
@@ -612,7 +910,7 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- the long path: L > 256, bf16 or f32, head_dim <= 32 * LMAXC
+// ---- the SIMT long path: L > 256, f32 (or bf16 at head_dim != 64), head_dim <= 32 * LMAXC
 
 constexpr int LQ = 4;                // query rows per warp
 constexpr int LWARPS = 8;
@@ -859,14 +1157,54 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, Strides 
   return (int)cudaGetLastError();
 }
 
+// The bf16 long path: one block per (batch, head); the key tiles any row
+// sees stay resident when they fit beside the warpgroups' Q tiles (up to
+// 13 tiles, L 832), else they stream in chunks of that size.
+int launch_long_bf16(const void* q, const void* k, const void* v, void* out, Strides sq,
+                     Strides sk, Strides sv, Strides so, int batch, int heads, int L,
+                     int l_valid, int causal, float scale, cudaStream_t stream) {
+  LongShape sh{};
+  sh.heads = heads;
+  sh.L = L;
+  sh.l_valid = l_valid;
+  sh.causal = causal;
+  sh.qtiles = (L + LT - 1) / LT;
+  sh.scale = scale;
+  sh.osb = so.b;
+  sh.osl = so.l;
+  sh.osh = so.h;
+  const int lv = l_valid < L ? l_valid : L;
+  const int ktiles = (lv + LT - 1) / LT;
+  // the mbarriers and the Q tiles, then K and V
+  const int cap = (SMEM_MAX - 64 - LNWG * TILE_BYTES) / (2 * TILE_BYTES);
+  sh.resident = ktiles <= cap;
+  sh.chunk = sh.resident ? ktiles : cap;
+  const int smem = (LNWG + 2 * sh.chunk) * TILE_BYTES + 64;
+  const long long pairs = (long long)batch * heads;
+  if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, sq, batch, L, heads, LT) || !make_map(&mk, k, sk, batch, L, heads, LT) ||
+      !make_map(&mv, v, sv, batch, L, heads, LT))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_long_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_long_bf16_kernel<<<(unsigned)pairs, LNWG * 128, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), sh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, out: [batch, L, heads, hd] with element strides (b, l, h) each and
 // the last dimension contiguous; bf16 or f32 (is_bf16), 1 <= l_valid.
 // L <= 256: bf16 takes hd == 64 with every stride and base 16-byte aligned
 // (the wgmma path), f32 any hd whose rows fit in shared memory.  L > 256
-// (the long path, both types): hd <= 256.  Launches on `stream` and returns
-// the CUDA error code (cudaErrorInvalidValue for a shape no path takes).
+// (the long paths): bf16 at hd == 64, aligned as above, takes the wgmma
+// long path; f32, and bf16 at another hd, the SIMT long path, hd <= 256.
+// Launches on `stream` and returns the CUDA error code
+// (cudaErrorInvalidValue for a shape no path takes).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out,
                              int is_bf16, long long qsb, long long qsl, long long qsh,
                              long long ksb, long long ksl, long long ksh, long long vsb,
@@ -876,6 +1214,9 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   if (batch < 1 || heads < 1 || L < 1 || l_valid < 1) return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsl, qsh}, sk{ksb, ksl, ksh}, sv{vsb, vsl, vsh}, so{osb, osl, osh};
   if (L > SHORT_MAX_L) {
+    if (is_bf16 && hd == HD)
+      return launch_long_bf16(q, k, v, out, sq, sk, sv, so, batch, heads, L, l_valid, causal,
+                              scale, stream);
     if (is_bf16)
       return launch_long<__nv_bfloat16>(q, k, v, out, sq, sk, sv, so, batch, heads, L, hd,
                                         l_valid, causal, scale, stream);

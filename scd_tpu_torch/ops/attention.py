@@ -16,8 +16,9 @@ sum); round p to v's type; and accumulate p . v in f32, stored in v's type.
 Dispatch by device: a CUDA tensor runs the hand-written kernels
 (``csrc/attention.cu``; one library for both entry points, since a packed
 qkv is three strided [B, L, H, d] views of one buffer): L <= 256 the
-whole-row paths (``wgmma`` for bf16, SIMT for f32), longer sequences (a
-tower at image 256 and up) the key-tiled long path, chosen by shape in the
+whole-row paths (``wgmma`` for bf16, SIMT for f32); longer sequences (a
+tower at image 256 and up) a key-tiled long path, ``wgmma`` for bf16 at
+head_dim 64 and SIMT for f32 or another head_dim, chosen by shape in the
 C entry point.  A CPU tensor runs :func:`attention_plain`.  There is no
 fallback: a CUDA tensor no kernel takes raises.
 """
@@ -31,8 +32,9 @@ import torch
 
 from scd_tpu_torch.ops import build
 
-SHORT_MAX_L = 256  # the whole-row paths; longer sequences take the long path
-LONG_MAX_HD = 256  # head_dim the long path takes
+SHORT_MAX_L = 256  # the whole-row paths; longer sequences take a long path
+LONG_MAX_HD = 256  # head_dim the SIMT long path takes
+WGMMA_HD = 64  # head_dim of the bf16 wgmma paths, short and long
 
 
 def qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
@@ -110,10 +112,13 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head strides, the last dimension contiguous), all bf16 or all f32 on
     one CUDA device.  L <= 256: bf16 takes d = 64 and 16-byte-aligned
     bases and strides, f32 any d whose K, V, Q and score rows fit in
-    shared memory (else the launch fails).  L > 256 (the long path): any
-    L, d <= 256.  Returns a contiguous [B, L, H, d].  Counts every launch
-    in ``attention_cuda.launches`` and those of the long path also in
-    ``attention_cuda.long_launches``."""
+    shared memory (else the launch fails).  L > 256 (the long paths): bf16
+    at d = 64 takes the ``wgmma`` long path, with the same alignment;
+    f32, and bf16 at another d, the SIMT long path, d <= 256.  Returns a
+    contiguous [B, L, H, d].  Counts every launch in
+    ``attention_cuda.launches``, those at L > 256 also in
+    ``attention_cuda.long_launches``, and of those the ``wgmma`` long
+    path's also in ``attention_cuda.long_wgmma_launches``."""
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError("attention_cuda takes CUDA tensors on one device")
@@ -132,36 +137,47 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is_bf16 = q.dtype == torch.bfloat16
     strides = [_strides(t) for t in (q, k, v)]
     long_path = length > SHORT_MAX_L
-    if long_path:
-        if hd > LONG_MAX_HD:
-            raise ValueError(f"the long attention path (L > {SHORT_MAX_L}) "
-                             f"takes head_dim <= {LONG_MAX_HD}, got {hd}")
-    elif is_bf16:
-        if hd != 64:
-            raise ValueError(f"the bf16 attention kernel takes head_dim 64, "
-                             f"got {hd}")
-        if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
-                s % 8 for st in strides for s in st):
-            raise ValueError("the bf16 attention kernel takes 16-byte-"
-                             "aligned bases and strides")
-    lib = build.load("attention")
-    out = torch.empty(b, length, heads, hd, dtype=q.dtype, device=dev)
+    if is_bf16 and not long_path and hd != WGMMA_HD:
+        raise ValueError(f"the bf16 attention kernel takes head_dim "
+                         f"{WGMMA_HD}, got {hd}")
+    wgmma = is_bf16 and hd == WGMMA_HD
+    if long_path and not wgmma and hd > LONG_MAX_HD:
+        raise ValueError(f"the SIMT long attention path (L > {SHORT_MAX_L})"
+                         f" takes head_dim <= {LONG_MAX_HD}, got {hd}")
+    if wgmma and (any(t.data_ptr() % 16 for t in (q, k, v)) or any(
+            s % 8 for st in strides for s in st)):
+        raise ValueError("the bf16 attention kernel takes 16-byte-aligned "
+                         "bases and strides")
+    out = attention_fwd(build.load("attention"), q, k, v, scale, causal,
+                        l_valid)
+    attention_cuda.launches += 1
+    attention_cuda.long_launches += long_path
+    attention_cuda.long_wgmma_launches += long_path and wgmma
+    return out
+
+
+def attention_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, scale: float, causal: bool,
+                  l_valid: int) -> torch.Tensor:
+    """One launch of ``lib``'s C entry point ``attention_fwd`` on checked
+    CUDA views; raises on a CUDA error.  Counts nothing."""
+    b, length, heads, hd = q.shape
+    out = torch.empty(b, length, heads, hd, dtype=q.dtype, device=q.device)
     fn = lib.attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
                    + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                int(is_bf16), *strides[0], *strides[1], *strides[2],
-                *out.stride()[:3], b, heads, length, hd, l_valid,
-                int(bool(causal)), float(scale), stream)
+                int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k),
+                *_strides(v), *out.stride()[:3], b, heads, length, hd,
+                l_valid, int(bool(causal)), float(scale), stream)
     build.check(rc, "attention")
-    attention_cuda.launches += 1
-    attention_cuda.long_launches += long_path
     return out
 
 
 attention_cuda.launches = 0
 attention_cuda.long_launches = 0
+attention_cuda.long_wgmma_launches = 0

@@ -5,10 +5,12 @@
   <= 1e-5, as ``tests/test_pallas_kernels.py`` holds the Pallas kernels to
   the XLA path (f32 sums in another order).  Shapes: the image towers'
   (2, 197, 12, 64) through ``qkv_attention``, the causal text tower's
-  (3, 77, 8, 64) through ``vit_attention``, L 5 through both, and the
-  int8 image sequence padded to 208 with 197 valid keys (against the JAX
-  towers' masked ``dot_product_attention``, which the Pallas kernels do
-  not take).
+  (3, 77, 8, 64) through ``vit_attention``, L 5 through both, the long
+  sequences of towers at image 256 (L 257, through ``qkv_attention``) and
+  288 (L 325, causal, through ``vit_attention``), which the card's long
+  paths take, and the int8 image sequence padded to 208 with 197 valid
+  keys (against the JAX towers' masked ``dot_product_attention``, which
+  the Pallas kernels do not take).
 - ``models.vit.Attention`` on the CPU against the JAX ``Attention`` from
   one Flax tree, causal and padded, at atol 1e-5.
 """
@@ -32,7 +34,7 @@ def _rand(shape, seed):
 
 
 @pytest.mark.parametrize("b,length,h,d,causal", [
-    (2, 197, 12, 64, False), (2, 5, 3, 64, False)])
+    (2, 197, 12, 64, False), (2, 5, 3, 64, False), (1, 257, 2, 64, False)])
 def test_plain_matches_pallas_qkv(b, length, h, d, causal):
     qkv = _rand((b, length, 3 * h * d), length)
     want = np.asarray(qkv_attention_pallas(jnp.asarray(qkv), h, d ** -0.5,
@@ -43,7 +45,7 @@ def test_plain_matches_pallas_qkv(b, length, h, d, causal):
 
 
 @pytest.mark.parametrize("b,length,h,d,causal", [
-    (3, 77, 8, 64, True), (2, 5, 3, 64, True)])
+    (3, 77, 8, 64, True), (2, 5, 3, 64, True), (1, 325, 2, 64, True)])
 def test_plain_matches_pallas_vit(b, length, h, d, causal):
     q, k, v = (_rand((b, length, h, d), length + i) for i in range(3))
     want = np.asarray(vit_attention_pallas(

@@ -388,11 +388,19 @@ def test_attention_kernel_matches_plain(cuda, b, length, h, causal, l_valid,
     (1, 577, 12, False, None, torch.bfloat16),
     (1, 577, 2, True, None, torch.bfloat16),
     (2, 577, 3, False, 500, torch.float32),
-    (1, 300, 2, False, None, torch.float32)])
+    (1, 300, 2, False, None, torch.float32),
+    (1, 785, 12, False, None, torch.bfloat16),
+    (2, 785, 3, True, None, torch.bfloat16),
+    (2, 785, 4, False, 700, torch.bfloat16),
+    (1, 785, 2, True, 600, torch.bfloat16),
+    (1, 1025, 3, False, None, torch.bfloat16),
+    (1, 1025, 2, True, 900, torch.bfloat16)])
 def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
                                            l_valid, dtype):
-    """L > 256 (towers at image 256, 288, 384): the key-tiled long path,
-    counted apart, through both entry points; agrees with the plain
+    """L > 256 (towers at image 256, 288, 384, 448, 512): the key-tiled
+    long paths, counted apart, through both entry points: bf16 (head_dim
+    64) on the ``wgmma`` long path, its key tiles resident up to L 832 and
+    streamed past it (L 1,025), f32 on the SIMT one; agrees with the plain
     version within ``_attention_within`` and repeats its bits."""
     from scd_tpu_torch.ops import attention as A
 
@@ -401,13 +409,15 @@ def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
                       device=cuda).to(dtype)
     t = qkv.unflatten(-1, (3, h, 64))
     q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
-    before, long_before = A.attention_cuda.launches, \
-        A.attention_cuda.long_launches
+    before, long_before, wgmma_before = A.attention_cuda.launches, \
+        A.attention_cuda.long_launches, A.attention_cuda.long_wgmma_launches
     got = A.qkv_attention(qkv, h, 0.125, causal, l_valid)
     got_vit = A.vit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               0.125, causal, l_valid)
     assert A.attention_cuda.launches == before + 2
     assert A.attention_cuda.long_launches == long_before + 2
+    assert A.attention_cuda.long_wgmma_launches == wgmma_before + 2 * (
+        dtype == torch.bfloat16)
     assert got.shape == (b, length, h * 64) and got.dtype == dtype
     assert torch.equal(got.reshape(b, length, h, 64), got_vit)
     assert torch.equal(got, A.qkv_attention(qkv, h, 0.125, causal, l_valid))
@@ -417,8 +427,10 @@ def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
 
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     """The short bf16 path takes head_dim 64 only; L 300 is no longer
-    refused: it takes the long path (its own counter moves); the long
-    path takes head_dim <= 256; f16 is refused."""
+    refused: it takes the long path (its own counter moves); the SIMT
+    long path takes head_dim <= 256; the bf16 long path, like the short
+    one, refuses a view whose strides are not 16-byte multiples; f16 is
+    refused."""
     from scd_tpu_torch.ops import attention as A
 
     x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
@@ -432,6 +444,12 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     w = torch.zeros(1, 300, 1, 288, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim <= 256"):
         A.vit_attention(w, w, w, 0.125)
+    u = torch.zeros(1, 300, 2, 68, dtype=torch.bfloat16,
+                    device=cuda)[..., :64]  # head stride 68 elements
+    wgmma_before = A.attention_cuda.long_wgmma_launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        A.vit_attention(u, u, u, 0.125)
+    assert A.attention_cuda.long_wgmma_launches == wgmma_before
     z = torch.zeros(1, 8, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         A.vit_attention(z, z, z, 0.125)

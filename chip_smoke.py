@@ -213,6 +213,18 @@ def phase_build():
               "attention: ptxas serializes the long-path kernel's wgmma")
     check(any(ig > 0 for fn, (_, ig) in sass["w8a8"].items()
               if "fusedq" in fn), "w8a8: no IGMMA in the w8a8_fusedq kernel")
+    check(all(ig > 0 for fn, (_, ig) in sass["w8a8"].items()
+              if "prequant" in fn) and any(
+        "prequant" in fn for fn in sass["w8a8"]),
+        "w8a8: no IGMMA in the w8a8_prequant kernel")
+    if "w8a8" in reports:  # built now: its ptxas report is here
+        lines = ptxas_summary(reports["w8a8"])
+        pq = [ln for ln in lines if ln.startswith("w8a8_prequant_kernel")]
+        check(pq and all("spill 0 / 0 bytes" in ln for ln in pq),
+              "w8a8: the w8a8_prequant kernel spills")
+        check(not any("wgmma" in ln and "w8a8_prequant" in ln
+                      for ln in lines),
+              "w8a8: ptxas serializes the w8a8_prequant kernel's wgmma")
     check(all(hg > 0 for fn, (hg, _) in sass["topk_softmax"].items()
               if "topk_wgmma" in fn) and any(
         "topk_wgmma" in fn for fn in sass["topk_softmax"]),
@@ -493,7 +505,12 @@ def fusedq_parity(n, d, f, act, out, gen, tag):
     return err
 
 
-def prequant_parity(shape, f, out, gen, tag):
+def prequant_parity(shape, f, gen, tag):
+    """Kernel (through ``dense_w8a8`` or ``dense_w8a8_3d``) vs plain on one
+    shape: equal bits for bf16 and f32 out, repeated bits, and where
+    127^2 * D < 2^24 (every partial sum exact in f32) the int32
+    accumulators themselves (unit scales, zero bias, f32 out) equal to the
+    exact product; returns the max abs error."""
     import torch
 
     from scd_tpu_torch.ops import w8a8
@@ -505,23 +522,27 @@ def prequant_parity(shape, f, out, gen, tag):
     x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
     xq, s_x = w8a8.quantize_rows(x.reshape(*shape))
     fn = w8a8.dense_w8a8_3d if len(shape) == 3 else w8a8.dense_w8a8
-    got = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
-    again = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
-    torch.cuda.synchronize()
-    check(torch.equal(got, again), f"w8a8_prequant {tag}: two runs differ")
-    want = w8a8.dense_w8a8_plain(xq.reshape(n, d), wq_t, s_x, s_w, bias,
-                                 out).reshape(got.shape)
-    err = _w8a8_check(got, want, None, f"w8a8_prequant {tag}")
-    # the int32 accumulators themselves: unit scales, zero bias, f32 out
-    acc = w8a8.w8a8_prequant_cuda(
-        xq.reshape(n, d), torch.ones(n, device="cuda"), wq_t,
-        torch.ones(f, device="cuda"), torch.zeros(f, device="cuda"),
-        torch.float32)
-    check(d * 127 * 127 < 2 ** 24 and torch.equal(
-        acc.double(), xq.reshape(n, d).double() @ wq_t.double().t()),
-        f"w8a8_prequant {tag}: int32 accumulators differ")
-    print(f"  w8a8_prequant {tag} shape={tuple(shape)} F={f} "
-          f"out={str(out)[6:]}: max abs err {err:.3e}, accumulators equal")
+    err = 0.0
+    for out in (torch.bfloat16, torch.float32):
+        got = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
+        again = fn(xq, wq_t, s_x, s_w, bias, out_dtype=out)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"w8a8_prequant {tag}: two runs differ")
+        want = w8a8.dense_w8a8_plain(xq.reshape(n, d), wq_t, s_x, s_w, bias,
+                                     out).reshape(got.shape)
+        err = max(err, _w8a8_check(got, want, None, f"w8a8_prequant {tag}"))
+    exact = d * 127 * 127 < 2 ** 24
+    if exact:  # the int32 accumulators themselves
+        acc = w8a8.w8a8_prequant_cuda(
+            xq.reshape(n, d), torch.ones(n, device="cuda"), wq_t,
+            torch.ones(f, device="cuda"), torch.zeros(f, device="cuda"),
+            torch.float32)
+        check(torch.equal(
+            acc.double(), xq.reshape(n, d).double() @ wq_t.double().t()),
+            f"w8a8_prequant {tag}: int32 accumulators differ")
+    print(f"  w8a8_prequant {tag} shape={tuple(shape)} F={f} out=bf16, f32: "
+          f"max abs err {err:.3e}, accumulators "
+          f"{'equal' if exact else 'not exact in f32 at this D'}")
     return err
 
 
@@ -723,10 +744,16 @@ def phase_parity(seed: int):
     fusedq_parity(3_001, 768, 2_310, "quick_gelu", bf16, gen, "edge-d768")
     fusedq_parity(129, 1_536, 2_305, None, f32, gen, "edge-d1536-f32")
     errs["w8a8_prequant"] = max(
-        prequant_parity((BATCH, L_VIT, 768), 2_304, bf16, gen, "vit-qkv-L197"),
-        prequant_parity((BATCH, L_VIT, 768), 3_072, bf16, gen, "vit-fc1-L197"))
-    prequant_parity((1_001, 512), 200, f32, gen, "edge-ragged")
-    prequant_parity((3, 13, 64), 130, f32, gen, "edge-3d")
+        prequant_parity((BATCH, L_VIT, 768), 2_304, gen, "vit-qkv-L197"),
+        prequant_parity((BATCH, L_VIT, 768), 3_072, gen, "vit-fc1-L197"))
+    prequant_parity((1_001, 512), 200, gen, "edge-ragged")
+    prequant_parity((3, 13, 64), 130, gen, "edge-3d")
+    # the D > 1536 route (layers wider than w8a8_fusedq takes), N 1, and
+    # the unpadded qkv layer as a 2-D matrix
+    prequant_parity((1_003, 2_048), 500, gen, "edge-d2048")
+    prequant_parity((BATCH, L_VIT, 3_072), 768, gen, "d3072")
+    prequant_parity((1, 768), 2_304, gen, "edge-N1")
+    prequant_parity((BATCH * L_VIT, 768), 2_304, gen, "vit-qkv-2d")
     errs["topk_softmax"] = topk_parity(N_IMAGES - 32_512, D_CLIP, VOCAB,
                                        TOPK, gen, tag="slice")[0]
     topk_parity(1_005, 64, 1_003, 1, gen, tag="edge-k1")
@@ -1068,7 +1095,8 @@ def _w8a8_bound(n, d, f, x_bytes, out_bytes):
 def time_w8a8(gen):
     """Both W8A8 entry points at the towers' shapes: kernel, plain, the
     yardstick (``torch._int_mm`` with the same quantization chain and
-    dequant), and the bf16 ``F.linear`` of the same layer."""
+    dequant; for ``w8a8_prequant`` also ``_int_mm`` alone), and the bf16
+    ``F.linear`` of the same layer."""
     import torch
     import torch.nn.functional as F
 
@@ -1105,22 +1133,33 @@ def time_w8a8(gen):
               f"{plain:.4f} ms, library (_int_mm chain) {lib:.4f} ms, bf16 "
               f"F.linear {lin:.4f} ms, bound {bound:.4f} ms ({by})")
         out.setdefault("w8a8_fusedq", (ms, plain, lib, bound, by))
-    n, d, f = BATCH * L_VIT, 768, 2_304
-    x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
-    xq, s_x = w8a8.quantize_rows(x)
-    wq = wq_t.t().contiguous()
-    ms = cuda_ms(lambda: w8a8.w8a8_prequant_cuda(xq, s_x, wq_t, s_w, bias,
-                                                 bf16), reps=20, warmup=2)
-    plain = cuda_ms(lambda: w8a8.dense_w8a8_plain(xq, wq_t, s_x, s_w, bias,
-                                                  bf16), reps=3)
-    lib = cuda_ms(lambda: (torch._int_mm(xq, wq).float() * s_x * s_w
-                           + bias).to(bf16), reps=20, warmup=2)
-    bound, by, ops = _w8a8_bound(n, d, f, 1, 2)
-    print(f"  w8a8_prequant vit-qkv-L197 N={n} D={d} F={f}: kernel "
-          f"{ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s), plain {plain:.4f} ms, "
-          f"library (_int_mm + dequant) {lib:.4f} ms, bound {bound:.4f} ms "
-          f"({by})")
-    out["w8a8_prequant"] = (ms, plain, lib, bound, by)
+    # w8a8_prequant: the unpadded tower's qkv layer (the kernels line), and
+    # a layer wider than w8a8_fusedq takes (printed only)
+    for tag, n, d, f in (("vit-qkv-L197", BATCH * L_VIT, 768, 2_304),
+                         ("d3072", BATCH * L_VIT, 3_072, 768)):
+        x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
+        xq, s_x = w8a8.quantize_rows(x)
+        wq, w_bf = wq_t.t().contiguous(), (wq_t.float().t() * s_w).to(bf16)
+        ms = cuda_ms(lambda: w8a8.w8a8_prequant_cuda(xq, s_x, wq_t, s_w,
+                                                     bias, bf16),
+                     reps=20, warmup=2)
+        ms_again = cuda_ms(lambda: w8a8.w8a8_prequant_cuda(
+            xq, s_x, wq_t, s_w, bias, bf16), reps=20, warmup=2)
+        plain = cuda_ms(lambda: w8a8.dense_w8a8_plain(xq, wq_t, s_x, s_w,
+                                                      bias, bf16), reps=3)
+        lib = cuda_ms(lambda: (torch._int_mm(xq, wq).float() * s_x * s_w
+                               + bias).to(bf16), reps=20, warmup=2)
+        int_mm = cuda_ms(lambda: torch._int_mm(xq, wq), reps=20, warmup=2)
+        lin = cuda_ms(lambda: F.linear(x, w_bf.t(), bias.to(bf16)), reps=20,
+                      warmup=2)
+        bound, by, ops = _w8a8_bound(n, d, f, 1, 2)
+        print(f"  w8a8_prequant {tag} N={n} D={d} F={f}: kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.0f} TOP/s; again {ms_again:.4f} ms), plain "
+              f"{plain:.4f} ms, library (_int_mm + dequant) {lib:.4f} ms, "
+              f"_int_mm alone {int_mm:.4f} ms, bf16 F.linear {lin:.4f} ms, "
+              f"bound {bound:.4f} ms ({by})")
+        out.setdefault("w8a8_prequant", (ms, plain, lib, bound, by))
+        del x, xq, s_x, wq_t, s_w, bias, wq, w_bf
     return out
 
 

@@ -28,13 +28,41 @@
 // close, and the fused quantization is what keeps the bytes at the bf16
 // layer's.
 //
-// Design.  w8a8_prequant (mma.sync, the first design's GEMM core): a
-// block of 256 threads owns 128 x 128 output tiles and walks D in 64-deep
-// slices streamed by cp.async into a second buffer; each of its 8 warps
-// computes 64 x 32 of a tile with mma.sync m16n8k32 s8 x s8 -> s32 from
-// padded shared rows.
+// At the unpadded tower's qkv layer through w8a8_prequant (N = 25,216
+// rows, L = 197) the product is 89.3 G operations (45.1 us) and the bytes
+// 137 MB (int8 x, int8 w, bf16 out: 41.0 us), so operations bound it too.
 //
-// w8a8_fusedq (Hopper: TMA, mbarriers, int8 wgmma).  A block owns a panel
+// Design.  Both kernels run on Hopper's TMA, mbarriers and int8 wgmma.
+//
+// w8a8_prequant (x arrives quantized).  Persistent blocks, one per SM,
+// walk the output tiles of 128 rows x 256 columns in row-major tile order,
+// so the blocks in flight share a few row panels of xq and all of wq in
+// L2.  A block has two consumer warpgroups and a producer warpgroup
+// (setmaxnreg 232 / 40):
+// - one producer thread streams (A, B) stage pairs with TMA into a ring of
+//   four 48 KB stages: xq [128 rows x 128 bytes of D] and wq [256 columns x
+//   128 bytes], 2-D maps, K-major, 128-byte swizzle, zeros past N, F and D
+//   (a zero tail of D adds 0 to the int32 sums, so any D % 16 == 0 works,
+//   D > PANEL_MAX_D included);
+// - warpgroup w multiplies rows 64 w .. 64 w + 63 of the tile: four wgmma
+//   m64n256k32 s8 x s8 -> s32 per stage, A and B from shared memory,
+//   keeping one stage's products in flight while it frees the stage
+//   before; the two warpgroups wait on nothing but the ring, so one's
+//   epilogue can overlap the other's products;
+// - each consumer thread loads its share of the tile's s_x, s_w and bias
+//   when the tile starts, while the products run; once they are done the
+//   values go to shared memory (one buffer per warpgroup and tile parity,
+//   a named barrier per warpgroup), and the epilogue is w8a8_fusedq's
+//   without the activation: ((float(acc) * s_x) * s_w) + b, each step
+//   rounded, no FMA, then the cast.  The int32 sums are exact in any
+//   order, so the output is bit-equal to the plain version's;
+// - the output goes out through each warp's staging rows in shared memory,
+//   128 bytes of its 16 rows at a time, as 16-byte stores of whole rows:
+//   stored straight from the accumulator layout (four threads a row, 4 or
+//   8 bytes each, eight rows an instruction) the 116 MB of the qkv layer's
+//   bf16 output held the kernel at 0.164 ms, 0.057 of it the products.
+//
+// w8a8_fusedq (x quantized in the kernel).  A block owns a panel
 // of 128 rows and a run of 64-column tiles (`tiles` x 2, chosen by the
 // wrapper so that the blocks cover the card several times).  It has two
 // consumer warpgroups and two producer warps:
@@ -57,7 +85,7 @@
 //   keeping one slice's products in flight while it frees the stage of
 //   the slice before.  The two warpgroups run apart, so one's epilogue
 //   overlaps the other's products;
-// - the epilogue is the first design's: ((float(acc) * s_x) * s_w) + b,
+// - the epilogue: ((float(acc) * s_x) * s_w) + b,
 //   the activation, the cast, each step rounded, no FMA (the tile's s_w
 //   and bias are loaded first, all in flight).  The int32 sums are exact
 //   in any order, so the output is bit-equal to the plain version's
@@ -83,37 +111,9 @@ namespace {
 
 constexpr int BM = 128;
 constexpr int BN = 128;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int LDS = BK + 16;  // 80-byte rows: fragment loads hit 32 banks
 constexpr int PANEL_MAX_D = 1536;  // a 192 KB panel + 2-stage rings in 227 KB
 
 enum { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU_TANH = 2, ACT_GELU = 3 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // v / sx rounded to nearest (the IEEE quotient), from inv = RN(1 / sx):
 // q = RN(v inv) is within an ulp of v / sx, the residual v - sx q is exact
@@ -180,148 +180,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
   }
 }
 
-// Shared by both kernels: the dequant / activation / cast epilogue of one
-// 128 x 128 tile at (m0, n0).
-template <int ACT, typename OutT>
-__device__ __forceinline__ void epilogue(const int (&acc)[4][4][4],
-                                         const float* sx_rows, int m0, int n0,
-                                         int wm, int wn, int g, int t,
-                                         const float* __restrict__ sw,
-                                         const float* __restrict__ bias,
-                                         OutT* __restrict__ out, int n,
-                                         int f) {
-  const bool f_even = (f & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int lr = wm * 64 + mi * 16 + g + half * 8;
-      const int grow = m0 + lr;
-      if (grow >= n) continue;
-      const float sx = sx_rows[lr];
-      OutT* orow = out + (size_t)grow * f;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + t * 2;
-        if (col >= f) continue;
-        const bool second = col + 1 < f;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cc = (e == 0 || second) ? col + e : col;
-          float v = __int2float_rn(acc[mi][ni][half * 2 + e]);
-          v = __fmul_rn(__fmul_rn(v, sx), __ldg(sw + cc));
-          v = __fadd_rn(v, __ldg(bias + cc));
-          y[e] = activate<ACT>(v);
-        }
-        if (second && !f_even) {
-          store2(orow + col, y[0], 0.0f, false);
-          store2(orow + col + 1, y[1], 0.0f, false);
-        } else {
-          store2(orow + col, y[0], y[1], second);
-        }
-      }
-    }
-  }
-}
-
-// w8a8_prequant: xq int8 [n, d] with row scales sx_in [n]; wq int8
-// [f, d]; sw, bias f32 [f]; out [n, f].
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-w8a8_prequant_kernel(const int8_t* __restrict__ xq,
-                     const float* __restrict__ sx_in,
-                     const int8_t* __restrict__ wq,
-                     const float* __restrict__ sw,
-                     const float* __restrict__ bias, OutT* __restrict__ out,
-                     int n, int d, int f) {
-  __shared__ __align__(16) int8_t As[2][BM][LDS];
-  __shared__ __align__(16) int8_t Bs[2][BN][LDS];
-  __shared__ float sx_s[BM];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int wm = warp >> 2; // warp's 64-row half of the tile
-  const int wn = warp & 3;  // warp's 32-column quarter of the tile
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int kt_count = (d + BK - 1) / BK;
-
-  // int8 slices through cp.async: 128 rows x 64 bytes = 512 chunks per
-  // operand, 2 per thread; chunk c is row c / 4, depth (c % 4) * 16.
-  auto load_async = [&](int buf, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c >> 2, kc = (c & 3) * 16;
-      const int gk = k0 + kc;
-      const int gcol = n0 + row;
-      const bool okb = gcol < f && gk < d;
-      cp_async16(&Bs[buf][row][kc], okb ? wq + (size_t)gcol * d + gk : wq,
-                 okb);
-      const int grow = m0 + row;
-      const bool oka = grow < n && gk < d;
-      cp_async16(&As[buf][row][kc], oka ? xq + (size_t)grow * d + gk : xq,
-                 oka);
-    }
-    cp_async_commit();
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  load_async(0, 0);
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int kt = 0; kt < kt_count; ++kt) {
-    const int buf = kt & 1;
-    const bool more = kt + 1 < kt_count;
-    if (more) load_async(buf ^ 1, (kt + 1) * BK);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      unsigned a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = &As[buf][wm * 64 + mi * 16 + g][ks + t * 4];
-        a[mi][0] = *reinterpret_cast<const unsigned*>(p);
-        a[mi][1] = *reinterpret_cast<const unsigned*>(p + 8 * LDS);
-        a[mi][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        a[mi][3] = *reinterpret_cast<const unsigned*>(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = &Bs[buf][wn * 32 + ni * 8 + g][ks + t * 4];
-        b[ni][0] = *reinterpret_cast<const unsigned*>(p);
-        b[ni][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
-    if (more) cp_async_wait_all();
-    __syncthreads();
-  }
-
-  // epilogue: the row scales of this block's rows, then dequantize, bias,
-  // cast, masked store
-  for (int r = tid; r < BM; r += THREADS)
-    sx_s[r] = m0 + r < n ? sx_in[m0 + r] : 1.0f;
-  __syncthreads();
-  epilogue<ACT_NONE, OutT>(acc, sx_s, m0, n0, wm, wn, g, t, sw, bias, out,
-                           n, f);
-}
-
-// ---- w8a8_fusedq: TMA, mbarriers and int8 wgmma
+// ---- TMA, mbarriers and int8 wgmma (both kernels)
 
 constexpr int FQ_THREADS = 2 * 128 + 2 * 32;  // two consumer warpgroups, two producer warps
 constexpr int FN = 64;                        // columns of a warpgroup's tile
@@ -407,6 +266,43 @@ __device__ __forceinline__ void wgmma_s8_ss_n64(int* d, uint64_t da, uint64_t db
 }
 
 
+// m64n256k32: the 128 int32 accumulators of a thread
+#define ACC128 \
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),  \
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),  \
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),  \
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),  \
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),  \
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),  \
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),  \
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),  \
+      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),  \
+      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),  \
+      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),  \
+      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),  \
+      "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),  \
+      "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),  \
+      "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),  \
+      "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+
+#define REGS128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+__device__ __forceinline__ void wgmma_s8_ss_n256(int* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" REGS128 "}, %128, %129, p;\n}\n"
+      : ACC128
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 // The epilogue of one 64 x 64 accumulator (rows r0 + 16 w + g and + 8 of
 // warp w, columns n0 ..): chunk c (8 columns) is acc[4c .. 4c + 3]:
@@ -607,6 +503,186 @@ w8a8_fusedq_kernel(const __grid_constant__ CUtensorMap mw, const __nv_bfloat16* 
   }
 }
 
+// ---- w8a8_prequant
+
+constexpr int PQ_THREADS = 3 * 128;                   // two consumer warpgroups, one producer
+constexpr int PQ_BN = 256;                            // columns of a tile (the wgmma's N)
+constexpr int PQ_A_BYTES = BM * SLICE;                // 16 KB: 128 rows of xq
+constexpr int PQ_STAGE = PQ_A_BYTES + PQ_BN * SLICE;  // + 32 KB: 256 columns of wq
+constexpr int PQ_STAGES = 4;
+constexpr int PQ_SMEM = PQ_STAGES * PQ_STAGE + 1024;  // + the 1024-byte alignment pad
+constexpr int CONSUMER_REGS = 232;
+constexpr int PRODUCER_REGS = 40;
+
+// A warp's staged output: 16 rows of 128 bytes (64 bf16 or 32 f32
+// columns) a round, rows PITCH bytes apart, which keeps the fragment
+// writes free of bank conflicts (bf16 pairs: row g starts 4 g banks on;
+// f32 pairs: 8 g).
+template <typename OutT>
+struct PqOut {
+  static constexpr int COLS = 128 / (int)sizeof(OutT);       // columns of a round
+  static constexpr int PITCH = sizeof(OutT) == 2 ? 144 : 160;
+  static constexpr int VEC = 16 / (int)sizeof(OutT);         // columns of a 16-byte chunk
+};
+constexpr int PQ_STAGED = 16 * 160;  // a warp's staging bytes, for either type
+
+// The epilogue of one warp's 16 x 256 share of its warpgroup's
+// accumulator: the thread holds rows g (h = 0) and g + 8 (h = 1) of the
+// warp's 16 and, in chunk c (8 columns), acc[4c + 2h + e] at column
+// 8c + 2t + e.  Round by round (128 bytes of each row), the thread
+// dequantizes its values into the warp's staging rows, then each lane
+// stores 16-byte chunks of whole rows (lane -> row lane / 8 + 4 i, chunk
+// lane % 8), so a store instruction writes four full 128-byte lines.
+// `vec`: rows of out are 16-byte aligned (F * sizeof(OutT) % 16 == 0),
+// else the chunks go out element by element.  sxs: the warp's 16 row
+// scales; sws, bs: the tile's s_w and bias.
+template <typename OutT>
+__device__ __forceinline__ void epilogue_pq(const int (&acc)[PQ_BN / 2], const float* sxs,
+                                            const float* sws, const float* bs,
+                                            unsigned char* staged, int grow0, int n0, int lane,
+                                            OutT* __restrict__ out, int n, int f, bool vec) {
+  using P = PqOut<OutT>;
+  const int g = lane >> 2, t = lane & 3;
+  const float sx[2] = {sxs[g], sxs[g + 8]};
+  const int ch = lane & 7;
+#pragma unroll
+  for (int r = 0; r < PQ_BN / P::COLS; ++r) {
+#pragma unroll
+    for (int cc = 0; cc < P::COLS / 8; ++cc) {
+      const int c = r * (P::COLS / 8) + cc;
+      const int lc = 8 * c + 2 * t;
+      const float2 w2 = *reinterpret_cast<const float2*>(sws + lc);
+      const float2 b2 = *reinterpret_cast<const float2*>(bs + lc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * c + 2 * h]), sx[h]), w2.x);
+        float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * c + 2 * h + 1]), sx[h]), w2.y);
+        y0 = __fadd_rn(y0, b2.x);
+        y1 = __fadd_rn(y1, b2.y);
+        store2(reinterpret_cast<OutT*>(staged + (g + 8 * h) * P::PITCH) + 8 * cc + 2 * t, y0,
+               y1, true);
+      }
+    }
+    __syncwarp();
+    const int col = n0 + r * P::COLS + ch * P::VEC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = (lane >> 3) + 4 * i;
+      const uint4 v = *reinterpret_cast<const uint4*>(staged + row * P::PITCH + 16 * ch);
+      if (grow0 + row < n && col < f) {
+        OutT* dst = out + (size_t)(grow0 + row) * f + col;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          const OutT* e = reinterpret_cast<const OutT*>(&v);
+#pragma unroll
+          for (int j = 0; j < P::VEC; ++j)
+            if (col + j < f) dst[j] = e[j];
+        }
+      }
+    }
+    __syncwarp();  // the rows are read before the next round rewrites them
+  }
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ... of tn column
+// tiles a row panel, tile -> (rows 128 (tile / tn), columns 256 (tile %
+// tn)).  Dynamic shared memory, from a 1024-byte boundary: the ring.
+// Thread (warpgroup wg, warp q of it, lane 4g + t) holds rows
+// 64 wg + 16 q + g and + 8 of the tile.
+template <typename OutT>
+__global__ void __launch_bounds__(PQ_THREADS, 1)
+w8a8_prequant_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                     const float* __restrict__ sx, const float* __restrict__ sw,
+                     const float* __restrict__ bias, OutT* __restrict__ out, int n, int f,
+                     int slices, int tn, int tiles, bool vec) {
+  __shared__ __align__(8) uint64_t full[PQ_STAGES], empty[PQ_STAGES];
+  // the tile's scales and bias: [warpgroup][tile parity]
+  __shared__ __align__(16) float sx_s[2][2][64];
+  __shared__ __align__(16) float sw_s[2][2][PQ_BN];
+  __shared__ __align__(16) float b_s[2][2][PQ_BN];
+  __shared__ __align__(16) unsigned char out_s[8][PQ_STAGED];  // a warp's staged output
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // broadcast from lane 0: the compiler sees the index uniform
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PQ_STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: one thread streams every stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tn) * BM, n0 = (tile % tn) * PQ_BN;
+        for (int kb = 0; kb < slices; ++kb, ++it) {
+          const int s = it % PQ_STAGES, use = it / PQ_STAGES;
+          if (use > 0) mbar_wait(smem_u32(&empty[s]), (use - 1) & 1);
+          const uint32_t st = base + s * PQ_STAGE, fb = smem_u32(&full[s]);
+          mbar_expect_tx(fb, PQ_STAGE);
+          tma_load_2d(st, &ma, fb, kb * SLICE, m0);
+          tma_load_2d(st + PQ_A_BYTES, &mb, fb, kb * SLICE, n0);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int wg = warp >> 2, q = warp & 3;
+  const int lt = threadIdx.x & 127;  // thread of the warpgroup
+  int it = 0, par = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, par ^= 1) {
+    const int m0 = (tile / tn) * BM, n0 = (tile % tn) * PQ_BN;
+    // this warpgroup's share of the scales and bias, in flight while the
+    // products run: row 64 wg + lt (lt < 64), columns lt and lt + 128
+    const int srow = m0 + 64 * wg + lt;
+    const int c0 = n0 + lt, c1 = c0 + 128;
+    const float r_sx = (lt < 64 && srow < n) ? __ldg(sx + srow) : 0.f;
+    const float r_sw0 = c0 < f ? __ldg(sw + c0) : 0.f, r_b0 = c0 < f ? __ldg(bias + c0) : 0.f;
+    const float r_sw1 = c1 < f ? __ldg(sw + c1) : 0.f, r_b1 = c1 < f ? __ldg(bias + c1) : 0.f;
+
+    int acc[PQ_BN / 2];
+    int prev = 0;
+    wg_fence();
+    for (int kb = 0; kb < slices; ++kb, ++it) {
+      const int s = it % PQ_STAGES;
+      mbar_wait(smem_u32(&full[s]), (it / PQ_STAGES) & 1);
+      const uint32_t st = base + s * PQ_STAGE;
+      const uint64_t da = desc_sw128(st + wg * (64 * SLICE));  // this warpgroup's 64 rows
+      const uint64_t db = desc_sw128(st + PQ_A_BYTES);
+#pragma unroll
+      for (int ks = 0; ks < SLICE / 32; ++ks)
+        wgmma_s8_ss_n256(acc, da + 2 * ks, db + 2 * ks, (kb | ks) != 0);
+      wg_commit();
+      if (kb > 0) {  // the stage before has been read: free it
+        wg_wait<1>();
+        mbar_arrive(smem_u32(&empty[prev]));
+      }
+      prev = s;
+    }
+    wg_wait<0>();
+    mbar_arrive(smem_u32(&empty[prev]));
+
+    if (lt < 64) sx_s[wg][par][lt] = r_sx;
+    sw_s[wg][par][lt] = r_sw0;
+    sw_s[wg][par][lt + 128] = r_sw1;
+    b_s[wg][par][lt] = r_b0;
+    b_s[wg][par][lt + 128] = r_b1;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+    epilogue_pq<OutT>(acc, &sx_s[wg][par][16 * q], sw_s[wg][par], b_s[wg][par], out_s[warp],
+                      m0 + 64 * wg + 16 * q, n0, lane, out, n, f, vec);
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -665,14 +741,47 @@ cudaError_t launch_fusedq_t(const void* x, const int8_t* wq, const float* sw, co
   return cudaGetLastError();
 }
 
+// A 2-D map over an int8 [rows, d] matrix: boxes of 128 bytes of D x
+// box_rows rows, 128-byte swizzle, zeros past the edges.
+bool make_map_s8(CUtensorMap* map, const int8_t* ptr, int rows, int d, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d};
+  const cuuint32_t box[2] = {(cuuint32_t)SLICE, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 template <typename OutT>
 cudaError_t launch_prequant(const int8_t* xq, const float* sx,
                             const int8_t* wq, const float* sw,
                             const float* bias, void* out, int n, int d,
                             int f, cudaStream_t stream) {
-  const dim3 grid((f + BN - 1) / BN, (n + BM - 1) / BM);
-  w8a8_prequant_kernel<OutT><<<grid, THREADS, 0, stream>>>(
-      xq, sx, wq, sw, bias, reinterpret_cast<OutT*>(out), n, d, f);
+  CUtensorMap ma, mb;
+  if (!make_map_s8(&ma, xq, n, d, BM) || !make_map_s8(&mb, wq, f, d, PQ_BN))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  static int smem_set_on = -1;  // the shared-memory limit, set once per device
+  if (smem_set_on != dev) {
+    err = cudaFuncSetAttribute(w8a8_prequant_kernel<OutT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, PQ_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set_on = dev;
+  }
+  const int tn = (f + PQ_BN - 1) / PQ_BN;
+  const long long tiles = (long long)((n + BM - 1) / BM) * tn;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  w8a8_prequant_kernel<OutT><<<grid, PQ_THREADS, PQ_SMEM, stream>>>(
+      ma, mb, sx, sw, bias, reinterpret_cast<OutT*>(out), n, f, (d + SLICE - 1) / SLICE, tn,
+      (int)tiles, (f * sizeof(OutT)) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0);
   return cudaGetLastError();
 }
 
@@ -726,12 +835,12 @@ extern "C" int w8a8_fusedq(const void* x, const int8_t* wq, const float* sw,
 }
 
 // xq int8 [n, d] row-major with row scales sx f32 [n]; the rest as
-// w8a8_fusedq, without an activation.
+// w8a8_fusedq, without an activation and at any d % 16 == 0.
 extern "C" int w8a8_prequant(const int8_t* xq, const float* sx,
                              const int8_t* wq, const float* sw,
                              const float* bias, void* out, int out_bf16,
                              int n, int d, int f, cudaStream_t stream) {
-  if (bad_shape(n, d, f)) return (int)cudaErrorInvalidValue;
+  if (n < 0 || d < 16 || f < 1 || d % 16 != 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   if (out_bf16)
     return (int)launch_prequant<__nv_bfloat16>(xq, sx, wq, sw, bias, out, n,

@@ -249,8 +249,9 @@ def w8a8_prequant_cuda(xq: torch.Tensor, s_x: torch.Tensor,
                        bias: torch.Tensor,
                        out_dtype=torch.bfloat16) -> torch.Tensor:
     """Launch ``w8a8_prequant``: xq [N, D] int8 with s_x [N] or [N, 1] f32,
-    the rest as :func:`w8a8_fusedq_cuda`.  Counts its launches in
-    ``w8a8_prequant_cuda.launches``."""
+    the rest as :func:`w8a8_fusedq_cuda`, at any D % 16 == 0 (no panel
+    limit: both operands stream through the kernel).  Counts its launches
+    in ``w8a8_prequant_cuda.launches``."""
     _check_common("w8a8_prequant", xq, wq_t, s_w, bias, out_dtype)
     n, d = xq.shape
     if xq.dtype != torch.int8:

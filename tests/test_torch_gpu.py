@@ -257,11 +257,16 @@ def test_w8a8_fusedq_kernel_matches_plain(cuda, n, d, f, act, out):
         x, wq_t, s_w, bias, torch.float32, None))
 
 
-@pytest.mark.parametrize("shape", [(1_003, 768), (4, 197, 512)])
+@pytest.mark.parametrize("shape", [(1_003, 768), (4, 197, 512),
+                                   # layers wider than w8a8_fusedq takes,
+                                   # and the unpadded qkv layer's rows
+                                   (1_003, 2_048), (5, 197, 3_072),
+                                   (25_216, 768)])
 def test_w8a8_prequant_kernel_matches_plain(cuda, shape):
     """Pre-quantized x, 2-D and rank 3 (L = 197, the unpadded tower):
-    equal bits to the plain version, f32 and bf16 out; the int32
-    accumulators equal the exact product (unit scales, zero bias)."""
+    equal bits to the plain version, f32 and bf16 out; where every partial
+    sum is exact in f32 (D <= 1040) the int32 accumulators equal the exact
+    product (unit scales, zero bias)."""
     from scd_tpu_torch.ops import w8a8
 
     d, f = shape[-1], 2_000
@@ -276,6 +281,8 @@ def test_w8a8_prequant_kernel_matches_plain(cuda, shape):
         want = w8a8.dense_w8a8_plain(xq.reshape(-1, d), wq_t, s_x, s_w, bias,
                                      out).reshape(got.shape)
         assert torch.equal(got, want)
+    if d > 1040:
+        return
     n = xq.numel() // d
     acc = w8a8.w8a8_prequant_cuda(xq.reshape(n, d), torch.ones(n, device=cuda),
                                   wq_t, torch.ones(f, device=cuda),

@@ -56,6 +56,30 @@ def test_prequant_plain_matches_pallas_2d():
         acc, z["xq"].astype(np.int64) @ z["wq"].astype(np.int64))
 
 
+def test_prequant_plain_matches_pallas_2d_wide():
+    """D 2,048, wider than ``w8a8_fusedq`` takes: 127^2 * D passes 2^24, so
+    the plain version takes its float64 route and rounds once to f32, as
+    the kernel's int32 -> f32 conversion and the TPU kernel's do."""
+    import jax.numpy as jnp
+
+    from scd_tpu.ops.pallas_kernels import dense_w8a8_pallas
+
+    z = _inputs(n=200, d=2_048, f=256, seed=2)
+    want = np.asarray(dense_w8a8_pallas(
+        jnp.asarray(z["xq"]), jnp.asarray(z["wq"]), jnp.asarray(z["sx"]),
+        jnp.asarray(z["sw"]), jnp.asarray(z["b"]), block_n=128, block_f=128,
+        out_dtype=jnp.float32, interpret=True))
+    got = w8a8.dense_w8a8(_t(z["xq"]), _t(z["wq"].T), _t(z["sx"]),
+                          _t(z["sw"][0]), _t(z["b"]),
+                          out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-7, atol=2e-6)
+    acc = w8a8.dense_w8a8_plain(_t(z["xq"]), _t(z["wq"].T),
+                                torch.ones(200), torch.ones(256),
+                                torch.zeros(256), torch.float32).numpy()
+    exact = z["xq"].astype(np.int64) @ z["wq"].astype(np.int64)
+    np.testing.assert_array_equal(acc, exact.astype(np.float32))
+
+
 def test_prequant_plain_matches_pallas_3d():
     import jax.numpy as jnp
 

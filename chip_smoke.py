@@ -194,7 +194,8 @@ def phase_build():
         for line in ptxas_summary(log):
             print(f"  {name}: {line}")
     sass = {name: sass_counts(build.library_path(name))
-            for name in ("attention", "w8a8", "topk_softmax", "fused_em")}
+            for name in ("attention", "w8a8", "topk_softmax", "fused_em",
+                         "estep")}
     for name, per_fn in sass.items():
         for fn, (hg, ig) in per_fn.items():
             print(f"  {name} SASS {fn}: HGMMA {hg}, IGMMA {ig}")
@@ -234,6 +235,16 @@ def phase_build():
                   if kern in fn) and any(
             kern in fn for fn in sass["fused_em"]),
             f"fused_em: no HGMMA in the {kern}")
+    check(any(hg > 0 for fn, (hg, _) in sass["estep"].items()
+              if fn.startswith("estep_kernel")),
+          "estep: no HGMMA in the estep_kernel")
+    if "estep" in reports:  # built now: its ptxas report is here
+        lines = ptxas_summary(reports["estep"])
+        check(any(ln.startswith("estep_kernel:") and "spill 0 / 0 bytes" in ln
+                  for ln in lines), "estep: the estep_kernel spills")
+        check(not any("wgmma" in ln and "estep_kernel" in ln
+                      for ln in lines),
+              "estep: ptxas serializes the estep_kernel's wgmma")
 
 
 def _short(mangled: str) -> str:
@@ -602,16 +613,20 @@ def attention_parity(b, length, h, d, dtype, gen, causal=False, l_valid=None,
     return err.max().item()
 
 
-def estep_parity(n, d, k, gen, dup=False, tag=""):
+def estep_parity(n, d, k, gen, dup=False, view=False, tag=""):
     """Kernel (through ``estep_assign``) vs plain on one shape: labels
     equal wherever the exact (f64) distances of the two choices differ by
     more than ESTEP_DIST_TOL, min distances within it, and ties to the
-    lowest index; returns the max abs error of the min distances."""
+    lowest index; returns the max abs error of the min distances.
+    ``view``: x is the rows from 1 on of a contiguous [N + 1, D] tensor (a
+    base that is not 16-byte aligned where D % 4 != 0)."""
     import torch
 
     from scd_tpu_torch.ops.distance import estep_assign, estep_assign_plain
 
     x, c = em_inputs(n, d, max(k, 1), gen)
+    if view:
+        x = torch.cat([x[:1], x])[1:]
     if dup:  # exact ties: center 2j+1 repeats center 2j
         c[1::2] = c[0::2][:c[1::2].shape[0]]
     lab, md = estep_assign(x, c)
@@ -714,6 +729,10 @@ def parity_attention_estep(seed: int):
     estep_parity(3_000, 64, 1, gen, tag="edge-K1")
     estep_parity(20_000, 768, 300, gen, tag="edge-K300")
     estep_parity(5_000, 100, 130, gen, dup=True, tag="edge-ties")
+    # rows TMA cannot read where they lie (copied once, aligned), and the
+    # runners' shape with exact ties
+    estep_parity(1_001, 101, 7, gen, view=True, tag="edge-d101-view")
+    estep_parity(RUNNER_N, D_FEAT, K, gen, dup=True, tag="runner-ties")
     return errs
 
 

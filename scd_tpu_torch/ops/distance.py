@@ -58,8 +58,9 @@ def estep_assign_cuda(x: torch.Tensor, c: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel.  x [N, D] f32 and c [K, D] f32, contiguous on one
     CUDA device, K >= 1.  Returns (labels [N] int32, mindist [N] f32) with
-    the kernel's arithmetic: min over j of |c_j|^2 - 2 x·c_j, then
-    max(min + |x|^2, 0).  Counts its launches in
+    the kernel's arithmetic: min over j of |c_j|^2 - 2 x·c_j (products of
+    bf16 hi / lo splits, as the JAX package's ``Precision.HIGH`` route),
+    then max(min + |x|^2, 0).  Counts its launches in
     ``estep_assign_cuda.launches``."""
     dev = x.device
     if not (x.is_cuda and c.device == dev):
@@ -80,19 +81,38 @@ def estep_assign_cuda(x: torch.Tensor, c: torch.Tensor
     mindist = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return labels, mindist
-    lib = build.load("estep")
-    fn = lib.estep_assign_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 4)
-    csq = torch.empty(k, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), c.data_ptr(), n, d, k, labels.data_ptr(),
-                mindist.data_ptr(), csq.data_ptr(), stream)
-    build.check(rc, "estep_assign")
+    _launch(build.load("estep"), x, c, labels, mindist)
     estep_assign_cuda.launches += 1
     return labels, mindist
 
 
 estep_assign_cuda.launches = 0
+
+
+def _launch(lib, x, c, labels, mindist) -> None:
+    """The C entry point ``estep_assign`` of ``lib`` on checked tensors,
+    with its scratch: the centers' bf16 hi / lo [Kp, Dx] and |c|^2 [Kp]
+    (K rounded up to 128, D to 8), and an aligned copy of x [N, D rounded
+    up to 4] where TMA cannot read x where it lies (D % 4 != 0 or a base
+    not 16-byte aligned)."""
+    n, d = x.shape
+    k = c.shape[0]
+    kp, dx, dp = -(-k // 128) * 128, -(-d // 8) * 8, -(-d // 4) * 4
+    dev = x.device
+    chi = torch.empty(kp, dx, dtype=torch.bfloat16, device=dev)
+    clo = torch.empty(kp, dx, dtype=torch.bfloat16, device=dev)
+    csq = torch.empty(kp, dtype=torch.float32, device=dev)
+    xpad = None
+    if d % 4 or x.data_ptr() % 16:
+        xpad = torch.empty(n, dp, dtype=torch.float32, device=dev)
+    fn = lib.estep_assign
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 7)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), c.data_ptr(), n, d, k, kp, dx, dp,
+                None if xpad is None else xpad.data_ptr(), chi.data_ptr(),
+                clo.data_ptr(), csq.data_ptr(), labels.data_ptr(),
+                mindist.data_ptr(), stream)
+    build.check(rc, "estep_assign")

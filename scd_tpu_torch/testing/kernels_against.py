@@ -17,8 +17,9 @@ example the parent commit's, unpacked with ``git archive``) is timed in
 turns, other, this, this, other, on the same inputs, and the outputs are
 compared (W8A8: equal bits; estep: label mismatches and the max min-
 distance difference).  An ``estep.cu`` whose entry point is
-``estep_assign_f32`` is called with that function's arguments (x, c,
-n, d, k, labels, mindist, csq [k], stream).  Times with CUDA events;
+``estep_assign_f32`` (the SIMT kernel's) is called with that function's
+arguments (x, c, n, d, k, labels, mindist, csq [k], stream); one with
+``estep_assign`` through ``ops.distance._launch``.  Times with CUDA events;
 prints the card's name and power limit first.
 """
 
@@ -143,23 +144,26 @@ def estep(other_src, gen, reps: int = 20) -> None:
     then = None
     line = f"estep_assign N={n} D={d} K={k} f32:"
     if other is not None:
-        if not hasattr(other, "estep_assign_f32"):
-            raise SystemExit("--estep: no estep_assign_f32 entry point")
-        fn = other.estep_assign_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 4)
         labels = torch.empty(n, dtype=torch.int32, device="cuda")
         mindist = torch.empty(n, device="cuda")
-        csq = torch.empty(k, device="cuda")
+        if hasattr(other, "estep_assign"):  # this tree's arguments
+            def then():
+                D._launch(other, x, c, labels, mindist)
+                return labels, mindist
+        else:
+            fn = other.estep_assign_f32
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 4)
+            csq = torch.empty(k, device="cuda")
 
-        def then():
-            build.check(fn(x.data_ptr(), c.data_ptr(), n, d, k,
-                           labels.data_ptr(), mindist.data_ptr(),
-                           csq.data_ptr(),
-                           torch.cuda.current_stream().cuda_stream),
-                        "other estep_assign")
-            return labels, mindist
+            def then():
+                build.check(fn(x.data_ptr(), c.data_ptr(), n, d, k,
+                               labels.data_ptr(), mindist.data_ptr(),
+                               csq.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream),
+                            "other estep_assign")
+                return labels, mindist
 
         (la, ma), (lb, mb) = then(), this()
         line += (f" label mismatches with other "

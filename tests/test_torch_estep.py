@@ -37,7 +37,8 @@ def _inputs(n, d, k, seed, ties=False):
 @pytest.mark.parametrize("n,d,k,ties", [(300, 24, 7, False),
                                         (257, 64, 130, False),
                                         (100, 16, 1, False),
-                                        (200, 32, 10, True)])
+                                        (200, 32, 10, True),
+                                        (300, 101, 300, False)])
 def test_plain_matches_pallas_and_xla(n, d, k, ties):
     x, c = _inputs(n, d, k, seed=n + k, ties=ties)
     labels, mindist = D.estep_assign(torch.from_numpy(x), torch.from_numpy(c))

@@ -504,18 +504,28 @@ def test_tower_attention_runs_the_kernel(cuda, pixels):
 
 @pytest.mark.parametrize("n,d,k,ties", [(5_000, 768, 100, False),
                                         (1_001, 64, 1, False),
-                                        (3_000, 100, 130, True)])
+                                        (3_000, 100, 130, True),
+                                        # x a view at row offset 1 (not
+                                        # 16-byte aligned at D 101), three
+                                        # center tiles, the runners' shape
+                                        (1_001, 101, 7, "view"),
+                                        (20_000, 768, 300, False),
+                                        (130_048, 768, 100, False)])
 def test_estep_kernel_matches_plain(cuda, n, d, k, ties):
     """Labels equal to the plain version's (unit rows, margins far above
     f32 error; exact ties go to the lower index), min distances within
-    1e-4; two runs repeat their bits."""
+    1e-4; two runs repeat their bits.  ``ties`` "view": no ties, x the rows
+    from 1 on of a contiguous [N + 1, D] tensor."""
     from scd_tpu_torch.ops import distance as D
 
     g = torch.Generator(device=cuda).manual_seed(n + k)
     cls = 3.0 * torch.randn(k, d, generator=g, device=cuda)
-    lab = torch.randint(0, k, (n,), generator=g, device=cuda)
-    x = _unit(cls[lab] + 0.5 * torch.randn(n, d, generator=g, device=cuda), 1)
+    rows = n + 1 if ties == "view" else n
+    lab = torch.randint(0, k, (rows,), generator=g, device=cuda)
+    x = _unit(cls[lab] + 0.5 * torch.randn(rows, d, generator=g, device=cuda),
+              1)[rows - n:]
     c = _unit(cls + 0.05 * torch.randn(k, d, generator=g, device=cuda), 1)
+    ties = ties is True
     if ties:
         c[1::2] = c[0::2]
     before = D.estep_assign_cuda.launches

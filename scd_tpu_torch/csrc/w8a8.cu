@@ -58,9 +58,10 @@
 //   order, so the output is bit-equal to the plain version's;
 // - the output goes out through each warp's staging rows in shared memory,
 //   128 bytes of its 16 rows at a time, as 16-byte stores of whole rows:
-//   stored straight from the accumulator layout (four threads a row, 4 or
-//   8 bytes each, eight rows an instruction) the 116 MB of the qkv layer's
-//   bf16 output held the kernel at 0.164 ms, 0.057 of it the products.
+//   stores straight from the accumulator layout (four threads a row, 4 or
+//   8 bytes each, eight rows an instruction) reach ~1.1 TB/s on an H100,
+//   which made the qkv layer's 116 MB bf16 output take twice the products'
+//   time.
 //
 // w8a8_fusedq (x quantized in the kernel).  A block owns a panel
 // of 128 rows and a run of 64-column tiles (`tiles` x 2, chosen by the
@@ -708,39 +709,6 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-template <int ACT, typename OutT>
-cudaError_t launch_fusedq_t(const void* x, const int8_t* wq, const float* sw, const float* bias,
-                            void* out, int n, int d, int f, int tiles, cudaStream_t stream) {
-  const int slices = (d + SLICE - 1) / SLICE;
-  const int panel_bytes = slices * BM * SLICE;
-  const int static_bytes = 4 * MAX_STAGES * (int)sizeof(uint64_t) + BM * (int)sizeof(float);
-  int stages = (SMEM_MAX - static_bytes - 1024 - panel_bytes) / (2 * STAGE_BYTES);
-  if (stages > MAX_STAGES) stages = MAX_STAGES;
-  if (stages < 1) return cudaErrorInvalidValue;
-  const int smem = 1024 + panel_bytes + 2 * stages * STAGE_BYTES;
-
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorInvalidValue;
-  CUtensorMap mw;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)f};
-  const cuuint64_t strides[1] = {(cuuint64_t)d};
-  const cuuint32_t box[2] = {(cuuint32_t)SLICE, (cuuint32_t)FN};
-  const cuuint32_t elem[2] = {1u, 1u};
-  if (encode(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(wq), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(w8a8_fusedq_kernel<ACT, OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int nt = (f + BN - 1) / BN;
-  const dim3 grid((nt + tiles - 1) / tiles, (n + BM - 1) / BM);
-  w8a8_fusedq_kernel<ACT, OutT><<<grid, FQ_THREADS, smem, stream>>>(
-      mw, reinterpret_cast<const __nv_bfloat16*>(x), sw, bias, reinterpret_cast<OutT*>(out), n,
-      d, f, tiles, stages);
-  return cudaGetLastError();
-}
-
 // A 2-D map over an int8 [rows, d] matrix: boxes of 128 bytes of D x
 // box_rows rows, 128-byte swizzle, zeros past the edges.
 bool make_map_s8(CUtensorMap* map, const int8_t* ptr, int rows, int d, int box_rows) {
@@ -754,6 +722,30 @@ bool make_map_s8(CUtensorMap* map, const int8_t* ptr, int rows, int d, int box_r
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+template <int ACT, typename OutT>
+cudaError_t launch_fusedq_t(const void* x, const int8_t* wq, const float* sw, const float* bias,
+                            void* out, int n, int d, int f, int tiles, cudaStream_t stream) {
+  const int slices = (d + SLICE - 1) / SLICE;
+  const int panel_bytes = slices * BM * SLICE;
+  const int static_bytes = 4 * MAX_STAGES * (int)sizeof(uint64_t) + BM * (int)sizeof(float);
+  int stages = (SMEM_MAX - static_bytes - 1024 - panel_bytes) / (2 * STAGE_BYTES);
+  if (stages > MAX_STAGES) stages = MAX_STAGES;
+  if (stages < 1) return cudaErrorInvalidValue;
+  const int smem = 1024 + panel_bytes + 2 * stages * STAGE_BYTES;
+
+  CUtensorMap mw;
+  if (!make_map_s8(&mw, wq, f, d, FN)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(w8a8_fusedq_kernel<ACT, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nt = (f + BN - 1) / BN;
+  const dim3 grid((nt + tiles - 1) / tiles, (n + BM - 1) / BM);
+  w8a8_fusedq_kernel<ACT, OutT><<<grid, FQ_THREADS, smem, stream>>>(
+      mw, reinterpret_cast<const __nv_bfloat16*>(x), sw, bias, reinterpret_cast<OutT*>(out), n,
+      d, f, tiles, stages);
+  return cudaGetLastError();
 }
 
 template <typename OutT>

@@ -12,8 +12,9 @@ Phases, each printing its own lines and seconds:
    card, at the main paths' shapes and at edge shapes (attention at L 257,
    325, 577, 785 and 1,025 through its long paths: bf16 on ``wgmma``,
    resident to L 832 and streamed past it, f32 on SIMT; ``classify_topk``
-   at k 17 and 32 through the matmul route), with the stated tolerances;
-   every kernel must also repeat its bits exactly;
+   at k 17 and 32 through the matmul route; ``topk_softmax`` at k 1 over
+   raw logits at V 68,000 and V 100, ptsup's bound passes), with the
+   stated tolerances; every kernel must also repeat its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
    ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
    nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
@@ -38,7 +39,7 @@ Phases, each printing its own lines and seconds:
    stored in bf16, with the f32 SIMT bound printed beside it);
    ``fused_em_step`` with both bf16 and f32 x (the ``kernels`` line takes
    the main path's); the attention long path at image 256, 288 and 384
-   (L 257, 325, 577);
+   (L 257, 325, 577); ``topk_softmax`` at k 1 (ptsup's bound pass);
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -51,7 +52,26 @@ Phases, each printing its own lines and seconds:
 7. the k-means runners: ``scd_tpu_torch.cluster.runners.main --optimal``
    over fabricated, L2-normalised ImageNet-100-scale features (130,048 x
    768, 100 classes) on the card (the ``estep_assign`` kernel) and on the
-   CPU (plain versions): the printed ACC lines must be equal.
+   CPU (plain versions): the printed ACC lines must be equal;
+8. the partially supervised path on phase 3's root:
+   ``scd_tpu_torch.pipelines.ptsup.run_ptsup`` from the stage cache with
+   SSKM (n_init 10, max_iterations 10), its sACC bound lines, cluster ACC,
+   final vote and stage seconds; ``topk_softmax`` must launch >= 25 times
+   (12 chunks of 8,192 rows in each of the two bound passes, then the
+   names' top-k) and ``fused_em_step`` at all, and ACC and IoU must clear
+   phase 3's floors.  Then ConSSKM on the Sinkhorn track (size bounds
+   [50, 1,200], n_init 10, max_iterations 10): every unlabelled cluster
+   size within the bounds, its E-steps' count, seconds, dual iterations
+   and MCF fallbacks printed.  Then the exact MCF track at full width
+   over the 97,536 unlabelled rows, cut to n_init 1 and max_iterations 2
+   (the host solver takes seconds an E-step at this shape), the solver's
+   and the device step's seconds per iteration; the MCF track on the
+   card and the CPU from one set of centers at 4,000 x 64, K 20 (rounded
+   costs at most 1 apart on at most 0.1% of entries, labels equal on >=
+   99.5% of rows, inertia within 1e-4); a small root clustered on the
+   card with SSKM, ConSSKM and FINCH, each re-entered on the card and the
+   CPU with equal ptsup lines; and ``scripts/smoke_all.sh``'s ptsup
+   command through ``ptsup.main`` on the card.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -61,6 +81,8 @@ with phase 3's launches, ``w8a8_fusedq`` with phase 4's ``run_unsup``,
 ``dense_w8a8`` and ``dense_w8a8_3d`` (one kernel, ``w8a8_prequant``) with
 phase 4's ``pad_seq_to=0`` pass, ``vit_attention`` and ``qkv_attention``
 (one kernel) with phase 6's, and ``estep_assign`` with phase 7's.
+Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
+in its ``run_ptsup``) and prints them on a line of their own.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -775,6 +797,10 @@ def phase_parity(seed: int):
     prequant_parity((BATCH * L_VIT, 768), 2_304, gen, "vit-qkv-2d")
     errs["topk_softmax"] = topk_parity(N_IMAGES - 32_512, D_CLIP, VOCAB,
                                        TOPK, gen, tag="slice")[0]
+    # the ptsup bound passes: k 1 over raw logits, over the vocabulary
+    # and over the ground-truth names alone (V = K)
+    topk_parity(N_IMAGES - 32_512, D_CLIP, VOCAB, 1, gen, tag="bound-lb")
+    topk_parity(N_IMAGES - 32_512, D_CLIP, K, 1, gen, tag="bound-ub")
     topk_parity(1_005, 64, 1_003, 1, gen, tag="edge-k1")
     topk_parity(1_005, 64, 1_003, 16, gen, tag="edge-k16")
     topk_parity(777, 100, 2_000, 5, gen, dup_cols=True, tag="edge-ties")
@@ -873,7 +899,7 @@ def phase_main_path(seed: int, workdir: str):
           "small root: card and CPU metric lines differ")
     print(f"small root: {len(texts[('cpu', False)])} metric lines equal on "
           f"the card and the CPU")
-    return launches, estep
+    return launches, estep, cfg
 
 
 # ------------------------------------------------------------- phase 4
@@ -1327,6 +1353,22 @@ def phase_timing(seed: int, estep):
           f"({topk_by}, split bf16 on the tensor cores; f32 SIMT bound "
           f"{topk_simt:.3f} ms); {3 * flops / (t_topk * 1e-3) / 1e12:.1f} "
           f"TFLOP/s of bf16 products")
+    # the ptsup lower-bound pass: k 1 over raw logits
+    t_k1 = cuda_ms(lambda: topk_softmax_cuda(f, w, 1), reps=3)
+    t_k1_plain = cuda_ms(lambda: classify_topk_plain(
+        f, w, 1, 100.0, apply_softmax=False), reps=1)
+
+    def k1_library():
+        for lo in range(0, n_u, 8192):
+            torch.max(torch.matmul(f[lo:lo + 8192], w), dim=1)
+
+    t_k1_lib = cuda_ms(k1_library, reps=3)
+    k1_bound, k1_by, _ = _f32_product_bound(
+        flops, 4.0 * (n_u * D_CLIP + D_CLIP * VOCAB) + n_u * 16)
+    print(f"  topk_softmax N={n_u} D={D_CLIP} V={VOCAB} k=1 (ptsup bound "
+          f"pass): kernel {t_k1:.3f} ms, plain {t_k1_plain:.3f} ms, library "
+          f"(matmul + max) {t_k1_lib:.3f} ms, bound {k1_bound:.3f} ms "
+          f"({k1_by})")
     del f, w
 
     x, c = em_inputs(n_u, D_FEAT, K, gen)
@@ -1593,6 +1635,340 @@ def phase_runners(seed: int, workdir: str):
     return {"estep_assign": launches["estep_assign"]}
 
 
+# ------------------------------------------------------------- phase 8
+
+# ConSSKM's size bounds: the config's defaults (the reference's
+# main_unsup.py:219-220) at ImageNet-100 scale; on the small root, bounds
+# its ~3,000 unlabelled rows over 100 clusters can meet
+SIZE_MIN, SIZE_MAX, SMALL_SIZE_MIN, SMALL_SIZE_MAX = 50, 1_200, 5, 100
+# the ptsup commands of scripts/smoke_all.sh (ConSSKM) and
+# scripts/evaluate_partial_supervised.sh (SSKM), asset-free
+SMOKE_PTSUP = ["--dataset_name", "synthetic", "--cluster", "ConSSKM",
+               "--n_cluster", "10", "--cluster_size_min", "5",
+               "--cluster_size_max", "50"]
+
+
+def _ptsup(cfg, device):
+    """``run_ptsup`` on ``device``: (result, printed lines, seconds)."""
+    from scd_tpu_torch.pipelines.ptsup import run_ptsup
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = run_ptsup(cfg, device=device)
+    return res, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _unlab_sizes(cfg):
+    """Cluster sizes of the unlabelled rows in ``cfg``'s cluster cache."""
+    import numpy as np
+
+    from scd_tpu_torch.pipelines.common import cluster_cache_key, stage_cache
+
+    u_preds = stage_cache(cfg).load("cluster", cluster_cache_key(cfg))[
+        "u_preds"]
+    return np.bincount(u_preds, minlength=cfg.cluster.n_clusters)
+
+
+def _constrained_counts():
+    from scd_tpu_torch.cluster.constrained import fit_constrained
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign as sk
+
+    return {"fallbacks": fit_constrained.mcf_fallbacks,
+            "mcf_seconds": list(fit_constrained.mcf_seconds),
+            "mcf_iterations": fit_constrained.mcf_iterations,
+            "sinkhorn_calls": sk.calls,
+            "dual_iterations": sk.dual_iterations,
+            "repair_passes": sk.repair_passes}
+
+
+def _reset_constrained():
+    from scd_tpu_torch.cluster import constrained
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign as sk
+
+    constrained.reset_counters()
+    sk.calls = sk.dual_iterations = sk.repair_passes = 0
+
+
+def ptsup_warm(cfg):
+    """The warm ptsup run (SSKM) on the ImageNet-100-scale root, with the
+    launch counts of its run."""
+    _reset_counts()
+    res, lines, wall = _ptsup(cfg, "cuda")
+    counts = _counts()
+    launches = {k: counts[k] for k in ("topk_softmax", "fused_em_step")}
+    keep = ("=====", "sACC all", "Soft sACC all", "clip ACC:",
+            "SSKM Accuracies:")
+    for ln in lines:
+        if ln.startswith(keep):
+            print("  " + ln)
+    hist = res["voting"].history
+    check(hist, "ptsup: the voting loop ran no round")
+    print(f"  final vote (iter {res['voting'].n_iters}): ACC "
+          f"{hist[-1]['all_acc']}, IoU {res['iou']}")
+    print("stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["stage_seconds"].items())
+        + f" | run_ptsup {wall:.3f} s")
+    print(f"launches in run_ptsup: {launches}")
+    # 12 chunks of 8,192 rows in each bound pass, then topk_names
+    check(launches["topk_softmax"] >= 25 and launches["fused_em_step"] > 0,
+          f"ptsup: a kernel of the path launched too rarely: {launches}")
+    acc, vote_acc = res["cluster_acc"][0], hist[-1]["all_acc"]
+    check(acc >= ACC_FLOOR and vote_acc >= ACC_FLOOR,
+          f"ptsup: ACC {acc} / voted ACC {vote_acc} below {ACC_FLOOR}")
+    check(res["iou"] >= IOU_FLOOR, f"ptsup: IoU {res['iou']} below "
+          f"{IOU_FLOOR}")
+    return launches
+
+
+def ptsup_consskm(cfg, device, size_min, size_max):
+    """ptsup with ConSSKM on the Sinkhorn track: every unlabelled cluster
+    size within the bounds.  Returns (result, lines, counts, sizes)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        cfg, run_cluster=True, cluster=dataclasses.replace(
+            cfg.cluster, algorithm="ConSSKM", size_min=size_min,
+            size_max=size_max, constrained_backend="sinkhorn"))
+    _reset_constrained()
+    res, lines, _wall = _ptsup(cfg, device)
+    counts = _constrained_counts()
+    sizes = _unlab_sizes(cfg)
+    check(sizes.min() >= size_min and sizes.max() <= size_max,
+          f"ConSSKM sizes [{sizes.min()}, {sizes.max()}] outside "
+          f"[{size_min}, {size_max}]")
+    return res, lines, counts, sizes
+
+
+def sinkhorn_estep_profile(cfg, size_min, size_max):
+    """One Sinkhorn E-step at the phase's shape (the root's unlabelled
+    clustering features against K of their rows as centers): host-clock
+    ms, and the card's busy ms from ``torch.profiler`` (the sum of its
+    kernels' device time), so the idle share.  Returns (wall ms, busy ms
+    or None when the profiler saw no device time, dual iterations, the
+    four kernels of most device time as (name, ms, launches))."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scd_tpu_torch.ops.distance import pairwise_sqdist
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign as sk
+    from scd_tpu_torch.pipelines.common import feature_cache_key, stage_cache
+
+    feats = stage_cache(cfg).load("features", feature_cache_key(cfg, "feat"))
+    u = torch.as_tensor(feats["all_feats"][~feats["mask_lab"].astype(bool)],
+                        device="cuda")
+    k = cfg.cluster.n_clusters
+    pick = np.linspace(0, len(u) - 1, k).round().astype(np.int64)
+    cost = torch.sqrt(pairwise_sqdist(u, u[torch.as_tensor(pick,
+                                                           device="cuda")]))
+
+    def estep():
+        return sk(cost, k, size_min, size_max, eps=cfg.cluster.sinkhorn_epsilon,
+                  iters=cfg.cluster.sinkhorn_iters)
+
+    estep()
+    torch.cuda.synchronize()
+    before = sk.dual_iterations
+    t0 = time.perf_counter()
+    estep()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    iters = sk.dual_iterations - before
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        estep()
+        torch.cuda.synchronize()
+    # the kernels' own events (an operator's total would count them again)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+           for e in kernels[:4]]
+    return wall, (busy or None), iters, top
+
+
+def mcf_full_width(cfg, device, size_min, size_max, n_init=1, max_iter=2):
+    """``fit_constrained`` on the exact track over the root's clustering
+    features (all unlabelled rows, the labelled ones pinned).  Returns
+    (result, counts, seconds)."""
+    import numpy as np
+
+    from scd_tpu_torch.cluster.constrained import fit_constrained
+    from scd_tpu_torch.core.config import ClusterConfig
+    from scd_tpu_torch.pipelines.common import feature_cache_key, stage_cache
+
+    feats = stage_cache(cfg).load("features", feature_cache_key(cfg, "feat"))
+    lab = feats["mask_lab"].astype(bool)
+    x, t = feats["all_feats"], feats["targets"].astype(np.int64)
+    ccfg = ClusterConfig(n_clusters=cfg.cluster.n_clusters, n_init=n_init,
+                         max_iterations=max_iter, size_min=size_min,
+                         size_max=size_max, constrained_backend="mcf")
+    _reset_constrained()
+    t0 = time.perf_counter()
+    res = fit_constrained(x[~lab], x[lab], t[lab], ccfg, device=device)
+    wall = time.perf_counter() - t0
+    sizes = np.bincount(res.labels[int(lab.sum()):],
+                        minlength=ccfg.n_clusters)
+    check(sizes.min() >= size_min and sizes.max() <= size_max,
+          f"MCF sizes [{sizes.min()}, {sizes.max()}] outside "
+          f"[{size_min}, {size_max}]")
+    return res, _constrained_counts(), wall
+
+
+def mcf_card_against_cpu(seed, n=4_000, d=64, k=20):
+    """The exact track from one set of injected centers on the card and on
+    the CPU.  The two f32 products differ in their last bits, so a cost
+    near a half-integer can round the other way: at most 1 apart, on at
+    most 0.1% of entries.  Labels equal on >= 99.5% of rows, inertia
+    within 1e-4 relative; one int32 cost matrix gives the solver's labels
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.cluster import constrained as C
+    from scd_tpu_torch.core.config import ClusterConfig
+    from scd_tpu_torch.ops.distance import pairwise_sqdist
+    from scd_tpu_torch.ops.native import constrained_assign
+
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, n)
+    x = (2.0 * rng.standard_normal((k, d)))[y] + rng.standard_normal((n, d))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    centers = x[rng.choice(n, k, replace=False)]
+    costs = {dev: C._costs(pairwise_sqdist(
+        torch.as_tensor(x, device=dev), torch.as_tensor(centers, device=dev)
+    )).cpu().numpy() for dev in ("cuda", "cpu")}
+    diff = np.abs(costs["cuda"].astype(np.int64) - costs["cpu"])
+    check(diff.max() <= 1 and (diff > 0).mean() <= 1e-3,
+          f"MCF costs: card and CPU differ by up to {diff.max()} on "
+          f"{(diff > 0).mean():.2e} of entries")
+    lab_a = constrained_assign(costs["cuda"], 100, 300)
+    lab_b = constrained_assign(costs["cuda"].copy(), 100, 300)
+    check(np.array_equal(lab_a, lab_b), "MCF: one cost matrix, two labels")
+    cfg = ClusterConfig(n_clusters=k, n_init=1, max_iterations=5,
+                        size_min=100, size_max=300, constrained_backend="mcf")
+    real = C._seed_centers
+    C._seed_centers = lambda u, *a, **kw: torch.as_tensor(centers,
+                                                          device=u.device)
+    try:
+        res = {dev: C.fit_constrained_unsup(x, cfg, device=dev)
+               for dev in ("cuda", "cpu")}
+    finally:
+        C._seed_centers = real
+    same = (res["cuda"].labels == res["cpu"].labels).mean()
+    rel = abs(res["cuda"].inertia - res["cpu"].inertia) / res["cpu"].inertia
+    print(f"  MCF track N={n} D={d} K={k}, card against CPU from one set of "
+          f"centers: {int((diff > 0).sum())} of {diff.size} rounded costs "
+          f"differ (by at most {diff.max()}); labels equal on {same:.4%} of "
+          f"rows; inertia rel diff {rel:.2e}; iterations "
+          f"{res['cuda'].n_iter} / {res['cpu'].n_iter}")
+    check(same >= 0.995 and rel <= 1e-4,
+          "MCF track: the card and the CPU disagree")
+
+
+def ptsup_small_root(seed, workdir, device="cuda"):
+    """A small root clustered on ``device`` with SSKM, ConSSKM (Sinkhorn)
+    and FINCH; each re-entered from that cache on ``device`` and on the
+    CPU prints the same lines.  Returns the lines' count per algorithm."""
+    import dataclasses
+
+    from scd_tpu_torch.testing.fabricate import (fabricate_imagenet100,
+                                                 imagenet100_config)
+
+    base = dataclasses.replace(
+        imagenet100_config(os.path.join(workdir, "small_ptsup"), n_init=2,
+                           max_iterations=5), partially_supervised=True)
+    fabricate_imagenet100(base, seed=seed, device=device, n_images=4_000,
+                          d_feat=64, d_clip=32, vocab=3_000, n_genus=20)
+    out = {}
+    for alg in ("SSKM", "ConSSKM", "FINCH"):
+        cfg = dataclasses.replace(base, cluster=dataclasses.replace(
+            base.cluster, algorithm=alg, size_min=SMALL_SIZE_MIN,
+            size_max=SMALL_SIZE_MAX))
+        _ptsup(cfg, device)
+        if alg == "ConSSKM":
+            sizes = _unlab_sizes(cfg)
+            check(sizes.min() >= SMALL_SIZE_MIN
+                  and sizes.max() <= SMALL_SIZE_MAX,
+                  f"small root ConSSKM sizes [{sizes.min()}, {sizes.max()}]")
+        cached = dataclasses.replace(cfg, run_cluster=False)
+        lines = {dev: _ptsup(cached, dev)[1] for dev in (device, "cpu")}
+        check(lines[device] == lines["cpu"] and len(lines["cpu"]) > 12,
+              f"small root {alg}: card and CPU ptsup lines differ")
+        out[alg] = len(lines["cpu"])
+    return out
+
+
+def phase_ptsup(seed: int, cfg, workdir: str):
+    """Phase 8: the partially supervised path (see the module
+    docstring).  ``cfg`` is phase 3's ImageNet-100-scale root."""
+    import dataclasses
+
+    import numpy as np
+
+    from scd_tpu_torch.pipelines.ptsup import main as ptsup_main
+
+    cfg = dataclasses.replace(cfg, partially_supervised=True,
+                              run_cluster=True)
+    t0 = time.perf_counter()
+    launches = ptsup_warm(cfg)
+    print(f"warm ptsup (SSKM) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res, lines, counts, sizes = ptsup_consskm(cfg, "cuda", SIZE_MIN,
+                                              SIZE_MAX)
+    secs = res["stage_seconds"]["cluster"]
+    calls = max(counts["sinkhorn_calls"], 1)
+    print(f"  {[ln for ln in lines if ln.startswith('ConSSKM')][0]}")
+    print(f"ConSSKM (Sinkhorn track) N={N_IMAGES - 32_512} K={K} sizes in "
+          f"[{SIZE_MIN}, {SIZE_MAX}]: cluster {secs:.3f} s, "
+          f"{counts['sinkhorn_calls']} E-steps ({secs / calls * 1e3:.1f} ms "
+          f"each, {counts['dual_iterations'] / calls:.1f} dual iterations "
+          f"and {counts['repair_passes'] / calls:.2f} repair passes on "
+          f"average), mcf_fallbacks {counts['fallbacks']}; unlabelled "
+          f"sizes [{sizes.min()}, {sizes.max()}]; run_ptsup "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    wall, busy, iters, top = sinkhorn_estep_profile(cfg, SIZE_MIN, SIZE_MAX)
+    print(f"one Sinkhorn E-step N={N_IMAGES - 32_512} K={K}: {wall:.1f} ms "
+          f"(host clock), {iters} dual iterations; card busy "
+          + (f"{busy:.1f} ms (torch.profiler), idle {1 - busy / wall:.1%}"
+             if busy else "not measured (the profiler saw no device time)"))
+    for name, ms, count in top:
+        print(f"  {ms:.2f} ms in {count} launches of {name}")
+
+    # cut: n_init 1, max_iterations 2 (the host solver takes seconds per
+    # E-step at this shape)
+    t0 = time.perf_counter()
+    res, counts, wall = mcf_full_width(cfg, "cuda", SIZE_MIN, SIZE_MAX)
+    it = max(counts["mcf_iterations"], 1)
+    sizes = np.bincount(res.labels[32_512:], minlength=K)
+    print(f"ConSSKM (MCF track) N={N_IMAGES - 32_512} D={D_FEAT} K={K}, "
+          f"n_init 1, max_iterations 2: {counts['mcf_iterations']} "
+          f"iterations, solver {counts['mcf_seconds'][0] / it:.3f} s and "
+          f"device step {counts['mcf_seconds'][1] / it:.4f} s per iteration "
+          f"(device step with the costs' copy to the host); fit "
+          f"{wall:.3f} s; sizes [{sizes.min()}, {sizes.max()}]")
+    mcf_card_against_cpu(seed)
+    print(f"MCF phases {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    n_lines = ptsup_small_root(seed, workdir)
+    print(f"small root: ptsup lines equal on the card and the CPU for "
+          f"{n_lines} in {time.perf_counter() - t0:.1f} s")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ptsup_main(SMOKE_PTSUP + ["--cache_dir",
+                                  os.path.join(workdir, "smoke_cache")])
+    last = buf.getvalue().splitlines()[-1]
+    check(last == "IoU: 1.0", f"smoke_all.sh ptsup command: {last}")
+    print(f"smoke_all.sh ptsup command (ConSSKM, synthetic) on the card: "
+          f"{last}")
+    return launches
+
+
 # (kernels line name, source, the TPU kernel it replaces, key of the
 # launch count and the times); rows 3-4 share the attention kernel and
 # rows 6-7 the w8a8_prequant kernel, and each pair reports that kernel's
@@ -1642,8 +2018,9 @@ def main(argv=None) -> int:
     print(f"phase 2 {time.perf_counter() - t0:.1f} s")
     section("phase 3: warm main path (run_unsup, ImageNet-100 scale)")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
-        launches, estep = phase_main_path(args.seed, workdir)
+    # phase 8 reads phase 3's root again
+    in100_dir = tempfile.TemporaryDirectory()
+    launches, estep, in100 = phase_main_path(args.seed, in100_dir.name)
     print(f"phase 3 {time.perf_counter() - t0:.1f} s")
     section("phase 4: cold main path (extraction and vocabulary, --int8)")
     t0 = time.perf_counter()
@@ -1663,7 +2040,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         launches.update(phase_runners(args.seed, workdir))
-    print(f"phase 7 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 7 {time.perf_counter() - t0:.1f} s")
+    section("phase 8: partially supervised path (ptsup, ConSSKM, FINCH)")
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            ptsup_launches = phase_ptsup(args.seed, in100, workdir)
+    finally:
+        in100_dir.cleanup()
+    print(f"launches in phase 8's run_ptsup: {json.dumps(ptsup_launches)}")
+    print(f"phase 8 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

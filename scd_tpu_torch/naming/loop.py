@@ -1,16 +1,18 @@
-"""Iterative CLIP vocabulary-voting loop (unsupervised) and its textual
-enhancement round.
+"""Iterative CLIP vocabulary-voting loops (unsupervised and partially
+supervised) and their textual enhancement rounds.
 
-Port of ``scd_tpu/naming/loop.py`` (reference ``main_unsup.py:568-641``).
-Each round:
+Port of ``scd_tpu/naming/loop.py`` (reference ``main_unsup.py:568-641``,
+``main_ptsup.py:629-705``).  Each round:
 
 1. per-cluster histograms over the members' (fixed) top-k full-vocabulary
    name indices;
 2. candidate pool = union of each cluster's ``num_common_vote`` most common
-   names;
+   names (ptsup: the labelled classes' names are pruned from the
+   histograms, ``main_ptsup.py:638``);
 3. Hungarian assignment over the cluster x candidate vote matrix picks one
-   candidate per cluster; the resulting name list is **positional** (row
-   order);
+   candidate per cluster; unsup keeps the resulting name list
+   **positional** (row order), ptsup rebuilds ``cand_names = sorted(voted
+   ∪ labelled)`` (``main_ptsup.py:657-659``);
 4. every unlabelled image is re-classified against only the selected names'
    text embeddings — one [N, D]·[D, C] matmul on the features' device
    (``main_unsup.py:601-614``); the argmaxes become the new memberships;
@@ -18,8 +20,7 @@ Each round:
 
 Host work is only set algebra and a tiny Hungarian.  The feature and
 weight tensors stay on their device across rounds; only the [N] argmax
-comes back each round.  The partially supervised loops come with the ptsup
-slice.
+comes back each round.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class VotingResult:
     u_preds: np.ndarray  # final per-image candidate assignment
     n_iters: int
     history: List[dict]  # per-iteration diagnostics from the callback
+    lab_class_index: Optional[List[int]] = None  # ptsup: candidate cols of labelled names
 
 
 def gather_weight_columns(weights: torch.Tensor,
@@ -152,3 +154,112 @@ def voting_loop_te(nouns: Sequence[str],
     return voting_loop(nouns, name_idx_topk, enhanced, zeroshot_weights,
                        result.u_preds, n_clusters, cfg,
                        metrics_cb=metrics_cb)
+
+
+def voting_loop_ptsup_te(nouns: Sequence[str],
+                         name_idx_topk: np.ndarray,
+                         clip_u_feats: torch.Tensor,
+                         zeroshot_weights: torch.Tensor,
+                         result: VotingResult,
+                         lab_names: Sequence[str],
+                         n_clusters: int,
+                         cfg: NamingConfig,
+                         alpha: float = 0.5,
+                         metrics_cb=None) -> VotingResult:
+    """Textual-enhancement round for the partially supervised loop: enhance
+    the visual features with the converged assignment's name embeddings and
+    re-run ``voting_loop_ptsup`` from that assignment (labelled names stay
+    pinned).  Gives the ptsup 'w/TE' rows of the reference tables."""
+    noun_to_col = {n: i for i, n in enumerate(nouns)}
+    cols = [noun_to_col[n] for n in result.cand_names]
+    enhanced = textual_enhancement(clip_u_feats, zeroshot_weights,
+                                   result.u_preds, cols, alpha=alpha)
+    lab_set = set(lab_names)
+    unlab_cluster_idx = [i for i, n in enumerate(result.cand_names)
+                         if n not in lab_set]
+    return voting_loop_ptsup(nouns, name_idx_topk, enhanced,
+                             zeroshot_weights, result.u_preds,
+                             unlab_cluster_idx, lab_names, n_clusters, cfg,
+                             metrics_cb=metrics_cb)
+
+
+def voting_loop_ptsup(nouns: Sequence[str],
+                      name_idx_topk: np.ndarray,
+                      clip_u_feats: torch.Tensor,
+                      zeroshot_weights: torch.Tensor,
+                      u_preds_init: np.ndarray,
+                      unlab_cluster_idx_init: Sequence[int],
+                      lab_names: Sequence[str],
+                      n_clusters: int,
+                      cfg: NamingConfig,
+                      metrics_cb: Optional[Callable[[int, np.ndarray, List[str]], dict]] = None,
+                      ) -> VotingResult:
+    """Partially-supervised voting loop (``main_ptsup.py:629-705``).
+
+    Labelled classes pin their ground-truth names; only unlabelled clusters
+    vote, with labelled names pruned from the histograms.  After each round
+    ``cand_names = sorted(voted ∪ labelled)`` and the cluster/known index
+    sets are recomputed against the new candidate list.
+    """
+    noun_to_col = {n: i for i, n in enumerate(nouns)}
+    lab_names = list(lab_names)
+    num_unlab_classes = n_clusters - len(lab_names)
+
+    u_preds = np.asarray(u_preds_init).copy()
+    lab_set = set(lab_names)
+    known_name_idx = {noun_to_col[n] for n in lab_names}
+    unlab_cluster_set = set(unlab_cluster_idx_init)
+    cur_voted = [0]
+    prev_voted = [1]
+    history: List[dict] = []
+    it = 0
+    cand_names: List[str] = []
+    lab_class_index: List[int] = []
+
+    while set(cur_voted) != set(prev_voted) and it < cfg.max_vote_iters:
+        it += 1
+        counters = cluster_name_counters(name_idx_topk, u_preds, cfg.topk)
+        counters = {c: [(n, v) for n, v in e if n not in known_name_idx]
+                    for c, e in counters.items() if c in unlab_cluster_set}
+        if not counters:
+            # every image reclassified into a labelled name (or every
+            # unlabelled histogram was pruned away): nothing left to vote
+            # on, so stop with the labelled names as the candidate set (the
+            # reference would crash on a zero-size vote matrix).  On a
+            # first-iteration break u_preds are still the caller's cluster
+            # ids: reclassify against the returned candidate list and
+            # report the labelled columns.
+            if not cand_names:
+                cand_names = sorted(lab_names)
+                u_preds = _reclassify(clip_u_feats, zeroshot_weights,
+                                      [noun_to_col[n] for n in cand_names],
+                                      cfg.logit_scale)
+                name_pos = {n: i for i, n in enumerate(cand_names)}
+                lab_class_index = [name_pos[n] for n in lab_names]
+            break
+
+        voted_idx = sorted({n for e in counters.values()
+                            for n, _ in e[:cfg.num_common_vote]})
+        ind, _w = assign_name(voted_idx, counters,
+                              num_common=cfg.num_common_linear)
+
+        prev_voted = cur_voted
+        cur_voted = [nouns[voted_idx[col]] for _row, col in ind[:num_unlab_classes]
+                     if col < len(voted_idx)]
+
+        cand_names = sorted(set(cur_voted) | lab_set)
+        # one dict inversion keeps the bookkeeping O(K) per round
+        name_pos = {n: i for i, n in enumerate(cand_names)}
+        lab_class_index = [name_pos[n] for n in lab_names]
+        unlab_cluster_set = {name_pos[n] for n in cand_names
+                             if n not in lab_set}
+
+        u_preds = _reclassify(clip_u_feats, zeroshot_weights,
+                              [noun_to_col[n] for n in cand_names],
+                              cfg.logit_scale)
+        if metrics_cb is not None:
+            history.append(metrics_cb(it, u_preds, cand_names) or {})
+
+    return VotingResult(cand_names=cand_names, u_preds=u_preds,
+                        n_iters=it, history=history,
+                        lab_class_index=lab_class_index)

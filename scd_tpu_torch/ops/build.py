@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the host C++ solver.
 
 Each kernel is one ``scd_tpu_torch/csrc/<name>.cu`` file with a plain C
 interface.  At first use it is compiled with
@@ -6,6 +6,12 @@ interface.  At first use it is compiled with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>_<hash>.so <name>.cu
 
+A ``scd_tpu_torch/csrc/<name>.cc`` file (the min-cost-flow solver, which
+runs on the host) takes the host route instead,
+
+    g++ -O3 -std=c++17 -shared -fPIC -o lib<name>_<hash>.so <name>.cc
+
+without ``-march=native``, whose code differs between hosts.  Both go
 into the build directory (``SCD_TORCH_KERNEL_DIR``, default
 ``scd_tpu_torch/_build``, listed in ``.gitignore``) and loaded with
 ``ctypes``.  No PyTorch headers are involved, so a build takes seconds and
@@ -30,6 +36,7 @@ from typing import Dict, Iterable
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -49,18 +56,34 @@ def nvcc() -> str:
                        "build on a machine with the CUDA toolkit")
 
 
+def gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found; the host solver builds with it")
+    return path
+
+
+def _route(name: str):
+    """(source, compiler, flags) of ``name``: ``<name>.cu`` for ``nvcc``,
+    else ``<name>.cc`` for the host compiler."""
+    cu = os.path.join(CSRC, f"{name}.cu")
+    if os.path.exists(cu):
+        return cu, nvcc, NVCC_FLAGS
+    return os.path.join(CSRC, f"{name}.cc"), gxx, GXX_FLAGS
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
+    src, _compiler, flags = _route(name)
     with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        tag = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(build_dir(), f"lib{name}_{tag.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together.  Returns {name: ptxas report} for
-    the sources compiled now; raises with the compiler's output when one
-    fails."""
+    """Compile every named source whose library is missing, one compiler
+    per source, all started together.  Returns {name: compiler report
+    (``nvcc``'s holds ptxas's)} for the sources compiled now; raises with
+    the compiler's output when one fails."""
     os.makedirs(build_dir(), exist_ok=True)
     procs = {}
     for name in names:
@@ -68,8 +91,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+        src, compiler, flags = _route(name)
+        cmd = [compiler(), *flags, "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -77,17 +100,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)  # atomic publish: a concurrent loader never sees a torn .so
         reports[name] = log
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
     return reports
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built on first use."""
+    """The library of ``name`` (a kernel, or the host solver), built on
+    first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

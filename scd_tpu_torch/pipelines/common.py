@@ -1,10 +1,10 @@
-"""Shared pipeline stages for the unsup entry point.
+"""Shared pipeline stages for the unsup and ptsup entry points.
 
 Port of the single-device parts of ``scd_tpu/pipelines/common.py``: the
 artifact cache and its keys, feature extraction (one dataset pass feeding
 both image towers, built lazily so a fully cached run loads no weights),
-the zero-shot vocabulary build, clustering (KM, SSKM) and the metric
-printout.  Every stage goes through the ``ArtifactCache`` under the JAX
+the zero-shot vocabulary build, clustering (KM, SSKM, ConSSKM, FINCH) and
+the metric printout.  Every stage goes through the ``ArtifactCache`` under the JAX
 package's keys, so either package re-enters the other's caches.
 """
 
@@ -19,6 +19,8 @@ import torch
 
 from scd_tpu_torch.core.cache import ArtifactCache, tensors_from_arrays
 from scd_tpu_torch.core.config import PipelineConfig, config_hash
+from scd_tpu_torch.cluster.constrained import fit_constrained
+from scd_tpu_torch.cluster.finch import finch_fit
 from scd_tpu_torch.cluster.kmeans import fit_kmeans, fit_sskm
 from scd_tpu_torch.data.loader import iterate_batches
 from scd_tpu_torch.metrics import (
@@ -216,7 +218,8 @@ def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],
                    device="cuda") -> Dict[str, np.ndarray]:
     """Cluster per config (reference ``main_unsup.py:334-364``) on
     ``device``.  Returns the reference's cluster_result contract as numpy:
-    all_preds (-1 for KM), u_preds, u_targets, mask."""
+    all_preds (-1 on the labelled rows for KM and FINCH; SSKM and ConSSKM
+    give the labelled rows their class ids), u_preds, u_targets, mask."""
     c = cfg.cluster
     mask_lab = feats["mask_lab"].astype(bool)
     mask_cls = feats["mask_cls"].astype(bool)
@@ -224,26 +227,23 @@ def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],
     u_targets = targets[~mask_lab]
     mask = mask_cls[~mask_lab]
 
-    if c.algorithm == "ConSSKM":
-        raise NotImplementedError(
-            "ConSSKM is not ported yet (ROADMAP: constrained clustering)")
-    if c.algorithm == "FINCH":
-        raise NotImplementedError(
-            "FINCH is not ported yet (ROADMAP: other clusterers)")
-    if c.algorithm not in ("KM", "SSKM"):
+    if c.algorithm not in ("KM", "SSKM", "ConSSKM", "FINCH"):
         raise ValueError(f"unknown cluster algorithm {c.algorithm!r}")
 
     all_feats = tensors_from_arrays({"all_feats": feats["all_feats"]},
                                     device)["all_feats"]
     lab_t = torch.as_tensor(mask_lab, device=all_feats.device)
     u_feats = all_feats[~lab_t]
-    if c.algorithm == "KM":
-        res = fit_kmeans(u_feats, c)
-        preds = res.labels.astype(np.int64)
+    if c.algorithm in ("KM", "FINCH"):
+        # the labelled rows keep -1
+        preds = (fit_kmeans(u_feats, c).labels if c.algorithm == "KM"
+                 else finch_fit(u_feats, req_clust=c.n_clusters))
+        preds = preds.astype(np.int64)
         all_preds = np.full(len(mask_lab), -1, np.int64)
         all_preds[~mask_lab] = preds
     else:
-        res = fit_sskm(u_feats, all_feats[lab_t], targets[mask_lab], c)
+        fit = fit_sskm if c.algorithm == "SSKM" else fit_constrained
+        res = fit(u_feats, all_feats[lab_t], targets[mask_lab], c)
         n_l = int(mask_lab.sum())
         all_preds = np.empty(len(mask_lab), np.int64)
         all_preds[mask_lab] = res.labels[:n_l]

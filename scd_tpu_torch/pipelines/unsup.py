@@ -9,8 +9,7 @@ per-iteration ACC/sACC/Soft-sACC printouts -> name-set IoU.  The metric
 lines are byte-identical to the JAX package's.  ``--int8`` runs the towers'
 qkv and fc1 layers through the W8A8 kernels.  The synthetic dataset runs
 with the synthetic encoder pair (``models/synthetic.py``) and needs no
-assets.  The ``resnet50`` backbone and the other clusterers come with
-later slices (ROADMAP).
+assets.  The ``resnet50`` backbone comes with a later slice (ROADMAP).
 
 Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name synthetic
 --device cpu`` (asset-free), or ``... --dataset_name imagenet_100
@@ -339,7 +338,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "dino_vit_t | vit_supervised | resnet50 | gcd")
     p.add_argument("--prop_train_labels", type=float, default=0.5)
     p.add_argument("--cluster", type=str, default="SSKM",
-                   help="KM | SSKM (ConSSKM and FINCH are not ported yet)")
+                   help="KM | SSKM | ConSSKM | FINCH")
     p.add_argument("--n_cluster", type=int, default=10)
     p.add_argument("--cluster_size_min", type=int, default=0)
     p.add_argument("--cluster_size_max", type=int, default=10 ** 9)

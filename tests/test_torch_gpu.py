@@ -563,3 +563,133 @@ def test_optimal_runner_card_matches_cpu(cuda, tmp_path):
         lines[dev] = buf.getvalue().splitlines()
         assert D.estep_assign_cuda.launches == before + (dev == "cuda")
     assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) == 3
+
+
+@pytest.mark.parametrize("v", [2_000, 20])
+def test_topk_k1_raw_logits_matches_plain(cuda, v):
+    """The zero-shot bound passes' call: k 1 over raw logits, over a
+    vocabulary and over the ground-truth names alone (V = K)."""
+    from scd_tpu_torch.ops import topk
+
+    g = torch.Generator(device=cuda).manual_seed(v)
+    f = _unit(torch.randn(3_000, 64, generator=g, device=cuda), 1)
+    w = _unit(torch.randn(64, v, generator=g, device=cuda), 0)
+    before = topk.topk_softmax_cuda.launches
+    kv, ki = topk.classify_topk(f, w, 1, apply_softmax=False)
+    assert topk.topk_softmax_cuda.launches == before + 1
+    pv, pi = topk.classify_topk_plain(f, w, 1, apply_softmax=False)
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=2e-3)
+
+
+def test_run_ptsup_card_matches_cpu(cuda, tmp_path):
+    """A tiny fabricated root: ptsup on the card (kernels) and on the CPU
+    (plain versions) print the same lines from one cached clustering."""
+    from scd_tpu_torch.ops import em, topk
+    from scd_tpu_torch.pipelines.ptsup import run_ptsup
+    from scd_tpu_torch.testing.fabricate import (fabricate_imagenet100,
+                                                 imagenet100_config)
+
+    cfg = dataclasses.replace(
+        imagenet100_config(str(tmp_path / "root"), n_init=2,
+                           max_iterations=5), partially_supervised=True)
+    fabricate_imagenet100(cfg, seed=3, device="cuda", n_images=3_000,
+                          d_feat=64, d_clip=32, vocab=2_000, n_genus=10)
+    t0, e0 = topk.topk_softmax_cuda.launches, em.fused_em_step_cuda.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = run_ptsup(cfg, device="cuda")
+    assert topk.topk_softmax_cuda.launches >= t0 + 3
+    assert em.fused_em_step_cuda.launches > e0
+    assert res["cluster_acc"][0] > 0.9
+    lines = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_ptsup(dataclasses.replace(cfg, run_cluster=False),
+                      device=dev)
+        lines[dev] = buf.getvalue().splitlines()
+    assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) > 12
+
+
+@pytest.mark.parametrize("size_min,size_max", [(20, 400), (95, 105)])
+def test_sinkhorn_assign_card_matches_cpu(cuda, size_min, size_max):
+    """The Sinkhorn E-step on the card against the CPU: the same
+    ``feasible``, duals within 1e-4 of the cost's std, labels equal outside
+    the tie band (best and second-best reduced cost within 1e-3)."""
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign
+
+    g = torch.Generator().manual_seed(size_min)
+    x = _unit(torch.randn(2_000, 32, generator=g), 1)
+    c = _unit(torch.randn(20, 32, generator=g), 1)
+    cost = torch.cdist(x, c)
+    cpu = sinkhorn_constrained_assign(cost, 20, size_min, size_max, eps=0.01)
+    card = sinkhorn_constrained_assign(cost.to(cuda), 20, size_min,
+                                       size_max, eps=0.01)
+    assert card.feasible == cpu.feasible and cpu.feasible
+    std = float(cost.std(correction=0))
+    torch.testing.assert_close(card.col_duals.cpu(), cpu.col_duals, rtol=0,
+                               atol=1e-4 * std)
+    red = ((cost - cpu.col_duals[None]) / std).sort(dim=1).values
+    outside = (red[:, 1] - red[:, 0]) >= 1e-3
+    assert torch.equal(card.labels.cpu()[outside], cpu.labels[outside])
+
+
+def test_mcf_track_card_matches_cpu(cuda, monkeypatch):
+    """The exact track from injected centers on the card and the CPU: the
+    rounded costs differ by at most 1 on at most 0.1% of entries (the two
+    f32 products differ in their last bits), labels are equal on >= 99.5%
+    of rows, inertia within 1e-4 relative."""
+    from scd_tpu_torch.cluster import constrained as C
+    from scd_tpu_torch.core.config import ClusterConfig
+    from scd_tpu_torch.ops.distance import pairwise_sqdist
+
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 20, 4_000)
+    x = (2.0 * rng.standard_normal((20, 64)))[y] \
+        + rng.standard_normal((4_000, 64))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    centers = x[rng.choice(4_000, 20, replace=False)]
+    monkeypatch.setattr(C, "_seed_centers",
+                        lambda u, *a, **kw: torch.as_tensor(centers,
+                                                            device=u.device))
+    costs = {d: C._costs(pairwise_sqdist(torch.as_tensor(x, device=d),
+                                         torch.as_tensor(centers, device=d)))
+             .cpu().numpy().astype(np.int64) for d in ("cuda", "cpu")}
+    diff = np.abs(costs["cuda"] - costs["cpu"])
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    cfg = ClusterConfig(n_clusters=20, n_init=1, max_iterations=5,
+                        size_min=100, size_max=300, constrained_backend="mcf")
+    res = {d: C.fit_constrained_unsup(x, cfg, device=d)
+           for d in ("cuda", "cpu")}
+    assert (res["cuda"].labels == res["cpu"].labels).mean() >= 0.995
+    assert abs(res["cuda"].inertia - res["cpu"].inertia) \
+        <= 1e-4 * res["cpu"].inertia
+    counts = np.bincount(res["cuda"].labels, minlength=20)
+    assert counts.min() >= 100 and counts.max() <= 300
+
+
+def test_fit_constrained_numpy_runs_on_the_card(cuda, monkeypatch):
+    """With no ``device``, numpy goes to the card (the Sinkhorn E-step
+    sees CUDA costs); with no card the same call raises."""
+    from scd_tpu_torch.cluster import constrained as C
+    from scd_tpu_torch.core.config import ClusterConfig
+
+    seen = []
+    real = C.sinkhorn_constrained_assign
+
+    def spy(cost, *a, **kw):
+        seen.append(cost.device.type)
+        return real(cost, *a, **kw)
+
+    monkeypatch.setattr(C, "sinkhorn_constrained_assign", spy)
+    rng = np.random.default_rng(1)
+    y = rng.integers(0, 4, 600)
+    x = ((4.0 * rng.standard_normal((4, 16)))[y]
+         + 0.3 * rng.standard_normal((600, 16))).astype(np.float32)
+    cfg = ClusterConfig(n_clusters=4, n_init=2, size_min=50, size_max=300)
+    res = C.fit_constrained(x[:500], x[500:], y[500:], cfg)
+    assert seen and set(seen) == {"cuda"}
+    assert res.labels.shape == (600,)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        C.fit_constrained(x[:500], x[500:], y[500:], cfg)

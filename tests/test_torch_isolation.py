@@ -1,8 +1,9 @@
 """The port imports neither JAX nor anything of the JAX package.
 
 A fresh interpreter imports every ``scd_tpu_torch`` module (the towers,
-the tokenizer, the kernels' ops, the runners and the serving entry point
-among them) and ``chip_smoke``, then looks
+the tokenizer, the kernels' ops, the runners, the serving entry point, the
+ptsup entry point, the constrained and FINCH clusterers, the min-cost-flow
+bridge and the reference-cache importer among them) and ``chip_smoke``, then looks
 at ``sys.modules``.  ``scd_tpu_torch`` itself
 starts with ``scd_tpu``, so the check matches the JAX package by exact name
 or the ``scd_tpu.`` prefix.
@@ -35,6 +36,7 @@ def test_port_imports_no_jax_and_no_scd_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     n_modules, bad = res.stdout.strip().split(" ", 1)
-    # the towers, tokenizer, W8A8 and attention ops, runners, serving
-    assert int(n_modules) >= 48
+    # the towers, tokenizer, W8A8 and attention ops, runners, serving,
+    # ptsup, interop, constrained + sinkhorn + native, finch
+    assert int(n_modules) >= 56
     assert bad == "[]", bad

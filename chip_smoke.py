@@ -73,11 +73,36 @@ Phases, each printing its own lines and seconds:
    CPU with equal ptsup lines; and ``scripts/smoke_all.sh``'s ptsup
    command through ``ptsup.main`` on the card.
 
+9. ``estimate_k`` and the new readers: ``fused_em_step`` at K = 1,000
+   slots, the ones at or past k_active (10, 100, 1,000) at the 1e12
+   sentinel, against its plain version on phase 7's features (130,048 x
+   768, f32), with every sentinel slot empty, and timed at k_active 100;
+   ``scd_tpu_torch.cluster.estimate_k.main`` on those features with the
+   CLI's defaults (Brent over [10, 1,000], n_init 3, max_iterations 50),
+   each probe's K, objective and seconds, the chosen K (within [10,
+   1,000]) and the objective at K 100 (at least 0.9); the objective at
+   five K on the card and the CPU from the same initial centers (4,000 x
+   64, 20 classes of tight sub-blobs, max_k 100): equal; then warm runs
+   on fabricated roots at the published sizes through the new readers
+   (V = 68,000, 768-d / 512-d features): ``run_unsup`` on CUB (K 200,
+   SSKM) and ``run_ptsup`` with the textual-enhancement round on
+   Stanford Dogs (K 120, SSKM), each clustered on the card, with
+   ``fused_em_step`` and ``topk_softmax`` then held against their plain
+   versions on the inputs each run passed them (the first call at each
+   shape, x as the run passed it), then re-entered from its cache on the
+   card and on the CPU with equal lines (both read the card's cluster
+   labels, so this compares the naming stages);
+   and the Dogs run with ConSSKM on the Sinkhorn track, every unlabelled
+   cluster within the config's size bounds.  Cut to stay near ~90 s: the
+   halving search and the ConSSKM run's CPU re-entry (21 s and 26 s on
+   an H100).
+
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
 the run.  The ``kernels`` line has one row per TPU kernel of
 ``scd_tpu/ops/pallas_kernels.py``: ``topk_softmax`` and ``fused_em_step``
-with phase 3's launches, ``w8a8_fusedq`` with phase 4's ``run_unsup``,
+with phase 3's launches plus phase 9's (the ``estimate_k`` search and the
+first run on each fine-grained root), ``w8a8_fusedq`` with phase 4's ``run_unsup``,
 ``dense_w8a8`` and ``dense_w8a8_3d`` (one kernel, ``w8a8_prequant``) with
 phase 4's ``pad_seq_to=0`` pass, ``vit_attention`` and ``qkv_attention``
 (one kernel) with phase 6's, and ``estep_assign`` with phase 7's.
@@ -342,28 +367,40 @@ def _unit(t, dim):
 
 
 def topk_parity(n, d, v, k, gen, dup_cols=False, tag=""):
-    """Kernel vs plain on one shape.  Indices must be equal wherever the
-    exact (f64) logits of the two choices differ by more than
-    TOPK_LOGIT_TOL; returns (max abs err of raw logits, of softmax)."""
+    """Kernel vs plain on one shape of random unit rows and columns (see
+    :func:`topk_hold`); ``dup_cols`` makes column 2j+1 repeat column 2j
+    (V even): exact ties."""
+    import torch
+
+    dev = torch.device("cuda")
+    f = _unit(torch.randn(n, d, generator=gen, device=dev), 1)
+    w = _unit(torch.randn(d, v, generator=gen, device=dev), 0)
+    if dup_cols:
+        w[:, 1::2] = w[:, 0::2]
+    return topk_hold(f, w, k, 100.0, dup_cols, tag)
+
+
+def topk_hold(f, w, k, scale=100.0, dup_cols=False, tag=""):
+    """Hold ``topk_softmax`` against its plain version on feats ``f`` [N,
+    D] and weights ``w`` [D, V].  Indices must be equal wherever the exact
+    (f64) logits of the two choices differ by more than TOPK_LOGIT_TOL;
+    with ``dup_cols`` a tie must go to the lowest index.  Returns (max abs
+    err of raw logits, of softmax)."""
     import torch
 
     from scd_tpu_torch.ops.topk import (classify_topk_plain,
                                         topk_softmax_cuda)
 
-    dev = torch.device("cuda")
-    f = _unit(torch.randn(n, d, generator=gen, device=dev), 1)
-    w = _unit(torch.randn(d, v, generator=gen, device=dev), 0)
-    if dup_cols:  # exact ties: column 2j+1 repeats column 2j (V even)
-        w[:, 1::2] = w[:, 0::2]
-    m, s, kv, ki = topk_softmax_cuda(f, w, k, scale=100.0)
+    (n, d), v = f.shape, w.shape[1]
+    m, s, kv, ki = topk_softmax_cuda(f, w, k, scale=scale)
     torch.cuda.synchronize()
-    pv, pi = classify_topk_plain(f, w, k, 100.0, apply_softmax=False)
+    pv, pi = classify_topk_plain(f, w, k, scale, apply_softmax=False)
     diff = ki != pi
     if bool(diff.any()):
         rows = diff.any(dim=1).nonzero().flatten()
         f64 = f[rows].double()
-        ek = 100.0 * (f64[:, None, :] * w.t()[ki[rows].long()].double()).sum(-1)
-        ep = 100.0 * (f64[:, None, :] * w.t()[pi[rows].long()].double()).sum(-1)
+        ek = scale * (f64[:, None, :] * w.t()[ki[rows].long()].double()).sum(-1)
+        ep = scale * (f64[:, None, :] * w.t()[pi[rows].long()].double()).sum(-1)
         gap = (ek - ep).abs().max().item()
         check(gap <= TOPK_LOGIT_TOL,
               f"topk {tag}: indices differ beyond the tie band ({gap:.3e})")
@@ -375,14 +412,14 @@ def topk_parity(n, d, v, k, gen, dup_cols=False, tag=""):
               f"topk {tag}: a tie did not go to the lowest index")
     err_raw = (kv - pv).abs().max().item()
     probs = torch.exp(kv - m[:, None]) / s[:, None]
-    pprob, _ = classify_topk_plain(f, w, k, 100.0, apply_softmax=True)
+    pprob, _ = classify_topk_plain(f, w, k, scale, apply_softmax=True)
     err_prob = (probs - pprob).abs().max().item()
     rel = err_raw / max(pv.abs().max().item(), 1e-30)
     check(err_raw <= TOPK_LOGIT_TOL, f"topk {tag}: logit error {err_raw}")
     check(err_prob <= TOPK_PROB_TOL, f"topk {tag}: softmax error {err_prob}")
-    print(f"  topk_softmax {tag} N={n} D={d} V={v} k={k}: idx mismatches "
-          f"{int(diff.sum())}, max abs err {err_raw:.3e} (rel {rel:.3e}), "
-          f"softmax max abs err {err_prob:.3e}")
+    print(f"  topk_softmax {tag} N={n} D={d} V={v} k={k} scale={scale:g}: "
+          f"idx mismatches {int(diff.sum())}, max abs err {err_raw:.3e} "
+          f"(rel {rel:.3e}), softmax max abs err {err_prob:.3e}")
     return err_raw, err_prob
 
 
@@ -442,20 +479,32 @@ def em_inputs(n, d, k, gen):
 
 
 def em_parity(n, d, k, gen, masked=False, x_bf16=False, tag=""):
-    """Kernel vs plain on one shape.  Labels must be equal wherever the
-    exact (f64) squared distances of the two choices differ by more than
-    EM_DIST_TOL; sums and counts are held against the plain segment sums
-    of the kernel's own labels; returns max abs err of the sums."""
+    """Kernel vs plain on one shape of :func:`em_inputs` (see
+    :func:`em_hold`); returns max abs err of the sums."""
     import torch
-
-    from scd_tpu_torch.ops.em import em_iteration_plain, fused_em_step_cuda
-    from scd_tpu_torch.ops.segment import segment_sums
 
     x, c = em_inputs(n, d, k, gen)
     row_w = None
     if masked:
         row_w = (torch.rand(n, generator=gen, device=x.device) > 0.3).float()
     xk = x.to(torch.bfloat16) if x_bf16 else x
+    return em_hold(xk, c, row_w, tag)[0]
+
+
+def em_hold(xk, c, row_w=None, tag=""):
+    """Hold ``fused_em_step`` against its plain version on x ``xk`` and
+    centers ``c``.  Labels must be equal wherever the exact (f64) squared
+    distances of the two choices differ by more than EM_DIST_TOL; sums and
+    counts are held against the plain segment sums of the kernel's own
+    labels; the kernel must repeat its bits.  Returns (max abs err of the
+    sums, the kernel's (labels, sums, counts, inertia))."""
+    import torch
+
+    from scd_tpu_torch.ops.em import em_iteration_plain, fused_em_step_cuda
+    from scd_tpu_torch.ops.segment import segment_sums
+
+    n, d = xk.shape
+    k = c.shape[0]
     lab, sums, counts, ine = fused_em_step_cuda(xk, c, row_w)
     torch.cuda.synchronize()
     lab2, sums2, counts2, ine2 = fused_em_step_cuda(xk, c, row_w)
@@ -474,16 +523,17 @@ def em_parity(n, d, k, gen, masked=False, x_bf16=False, tag=""):
               f"fused_em {tag}: labels differ beyond the tie band ({gap:.3e})")
     rsums, rcounts = segment_sums(xk.float(), lab.long(), k, weights=row_w)
     err = (sums - rsums).abs().max().item()
-    check(torch.allclose(sums, rsums, rtol=EM_SUM_RTOL, atol=EM_SUM_ATOL),
-          f"fused_em {tag}: sums error {err}")
-    check(torch.equal(counts, rcounts), f"fused_em {tag}: counts differ")
     rel = err / max(rsums.abs().max().item(), 1e-30)
+    check(torch.allclose(sums, rsums, rtol=EM_SUM_RTOL, atol=EM_SUM_ATOL),
+          f"fused_em {tag}: sums error {err} (rel {rel:.3e} of the largest)")
+    check(torch.equal(counts, rcounts), f"fused_em {tag}: counts differ")
     rel_ine = abs(ine.item() - pine.item()) / max(abs(pine.item()), 1e-30)
     check(rel_ine <= EM_INERTIA_RTOL, f"fused_em {tag}: inertia rel {rel_ine}")
-    print(f"  fused_em_step {tag} N={n} D={d} K={k} mask={masked} "
-          f"x_bf16={x_bf16}: label mismatches {int(diff.sum())}, sums max "
-          f"abs err {err:.3e} (rel {rel:.3e}), inertia rel err {rel_ine:.3e}")
-    return err
+    print(f"  fused_em_step {tag} N={n} D={d} K={k} "
+          f"mask={row_w is not None} x_bf16={xk.dtype == torch.bfloat16}: "
+          f"label mismatches {int(diff.sum())}, sums max abs err {err:.3e} "
+          f"(rel {rel:.3e}), inertia rel err {rel_ine:.3e}")
+    return err, (lab, sums, counts, ine)
 
 
 def w8a8_inputs(n, d, f, gen):
@@ -1589,15 +1639,13 @@ def phase_serving(seed: int, workdir: str):
 
 # ------------------------------------------------------------- phase 7
 
-def phase_runners(seed: int, workdir: str):
-    """The k-means runner's upper bound (``cluster/runners.py main
-    --optimal``) on fabricated, L2-normalised ImageNet-100-scale features:
+def write_features_packed(seed: int, path: str) -> str:
+    """Fabricated, L2-normalised ImageNet-100-scale features in the
+    runners' and ``estimate_k``'s ``features_packed.npz`` layout:
     RUNNER_N rows, 768-d, 100 classes, the first 50 old, half their rows
-    labelled."""
+    labelled (``prop_train_labels`` 0.5)."""
     import numpy as np
     import torch
-
-    from scd_tpu_torch.cluster import runners
 
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
@@ -1607,12 +1655,20 @@ def phase_runners(seed: int, workdir: str):
                                                device="cuda"), 1)
     lab = (targets < K // 2) & (torch.rand(RUNNER_N, generator=g,
                                            device="cuda") < 0.5)
-    path = os.path.join(workdir, "features_packed.npz")
     np.savez(path, features=x.cpu().numpy(), targets=targets.cpu().numpy(),
              mask_lab=lab.cpu().numpy())
-    del x
     print(f"fabricated N={RUNNER_N} D={D_FEAT} features of {K} classes in "
           f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def phase_runners(seed: int, workdir: str):
+    """The k-means runner's upper bound (``cluster/runners.py main
+    --optimal``) on :func:`write_features_packed`'s features."""
+    from scd_tpu_torch.cluster import runners
+
+    path = write_features_packed(seed, os.path.join(workdir,
+                                                    "features_packed.npz"))
     argv = ["--features", path, "--n_train_classes", str(K // 2),
             "--optimal"]
     out = {}
@@ -1969,6 +2025,330 @@ def phase_ptsup(seed: int, cfg, workdir: str):
     return launches
 
 
+# ------------------------------------------------------------- phase 9
+
+# estimate_k's slots (the JAX CLI's --max_k default) and search range; the
+# live slots of the sentinel parity; the card-against-CPU check at phase
+# 8's small size (20 classes, max_k 100, five K)
+MAX_K, MIN_K, K_ACTIVE = 1_000, 10, (10, 100, 1_000)
+EK_SMALL = dict(n=4_000, d=64, classes=20, max_k=100,
+                ks=(5, 10, 20, 40, 100))
+# the fine-grained roots' vocabulary and cluster counts (BASELINE.json
+# configs 1, 2 and 4: K = the class count)
+K_CUB, K_SDOGS = 200, 120
+
+
+def _estimate_k_module():
+    """``scd_tpu_torch.cluster.estimate_k`` the module (the package's
+    ``cluster`` exports the function of that name, as the JAX package's
+    does)."""
+    import importlib
+
+    return importlib.import_module("scd_tpu_torch.cluster.estimate_k")
+
+
+def _kernel_launches(keys=("topk_softmax", "fused_em_step")):
+    counts = _counts()
+    return {k: counts[k] for k in keys}
+
+
+def sentinel_em(x, gen):
+    """``fused_em_step`` at MAX_K slots, the ones at or past k_active at
+    ``estimate_k``'s 1e12 sentinel (squared norm ~7.7e26 at D 768), against
+    its plain version (:func:`em_hold`'s tolerances) for each k_active of
+    K_ACTIVE: every sentinel slot empty.  Then the times at k_active 100:
+    kernel, plain, one library call, and the bound at MAX_K slots (the
+    work the kernel does, as the JAX package's does) and at the live slots
+    (the work this data needs).  Returns the sums' max abs error and the
+    times."""
+    import torch
+
+    from scd_tpu_torch.cluster.estimate_k import SENTINEL
+    from scd_tpu_torch.ops.em import em_iteration_plain, fused_em_step_cuda
+
+    n, d = x.shape
+    errs = []
+    for k_active in K_ACTIVE:
+        c = torch.full((MAX_K, d), SENTINEL, device="cuda")
+        pick = torch.randperm(n, generator=gen, device="cuda")[:k_active]
+        c[:k_active] = x[pick]
+        err, (_, sums, counts, _) = em_hold(x, c, tag=f"sentinel-{k_active}")
+        check(float(counts[k_active:].abs().sum()) == 0
+              and bool((sums[k_active:] == 0).all()),
+              f"fused_em sentinel-{k_active}: a sentinel slot got rows")
+        errs.append(err)
+        if k_active == 100:
+            c100 = c
+
+    def library():
+        cross = torch.matmul(x, c100.t())
+        d2 = (c100 * c100).sum(1)[None, :] - 2.0 * cross
+        lab = torch.argmin(d2, dim=1)
+        return torch.zeros(MAX_K, d, device="cuda").index_add_(0, lab, x)
+
+    t_k = cuda_ms(lambda: fused_em_step_cuda(x, c100), reps=20, warmup=3)
+    t_plain = cuda_ms(lambda: em_iteration_plain(x, c100, MAX_K), reps=3)
+    t_lib = cuda_ms(library, reps=10)
+    nbytes = 4.0 * (n * d + MAX_K * d + n + MAX_K * d + MAX_K + 1)
+    bound, by, _ = _f32_product_bound(2.0 * n * MAX_K * d + n * d, nbytes)
+    live, live_by, _ = _f32_product_bound(2.0 * n * 100 * d + n * d, nbytes)
+    print(f"  fused_em_step N={n} D={d} K={MAX_K} (100 live slots), f32 x: "
+          f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, library (f32 "
+          f"matmul + argmin + index_add_) {t_lib:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}, {MAX_K} slots) / {live:.4f} ms "
+          f"({live_by}, the 100 live slots)")
+    return max(errs), (t_k, t_plain, t_lib, bound, by)
+
+
+def estimate_k_full(path):
+    """``estimate_k.main`` on the features at ``path`` with the CLI's
+    defaults (Brent, n_init 3, max_iterations 50), each probe timed; then
+    the objective at K 100, the gate.  Returns (the fused_em_step and
+    topk_softmax launches of the search, seconds)."""
+    import numpy as np
+    import torch
+
+    ek = _estimate_k_module()
+
+    real = ek.labelled_acc_objective_dynamic
+    probes = []
+
+    def timed_objective(*a, **kw):
+        obj = real(*a, **kw)
+
+        def probe(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc = obj(k)
+            probes.append((int(k), acc, time.perf_counter() - t0))
+            return acc
+
+        return probe
+
+    ek.labelled_acc_objective_dynamic = timed_objective
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            best_k, best_acc = ek.main(["--features", path, "--min_k",
+                                        str(MIN_K), "--max_k", str(MAX_K)])
+        wall = time.perf_counter() - t0
+        launches = _kernel_launches()
+    finally:
+        ek.labelled_acc_objective_dynamic = real
+    for k, acc, secs in probes:
+        print(f"  probe K={k}: objective {acc:.4f}, {secs:.3f} s")
+    print(f"  {buf.getvalue().splitlines()[-1]}")
+    print(f"estimate_k (Brent) N={RUNNER_N} D={D_FEAT} max_k={MAX_K}: "
+          f"{len(probes)} probes, chosen K {best_k} (objective "
+          f"{best_acc:.4f}), {wall:.1f} s; launches {launches}")
+    check(MIN_K <= best_k <= MAX_K, f"estimate_k: K {best_k} out of range")
+    check(launches["fused_em_step"] > 0, "estimate_k: fused_em_step never "
+          "launched")
+    with np.load(path) as z:
+        obj = real(z["features"], z["targets"], z["mask_lab"], MAX_K,
+                   device="cuda")
+    acc100 = obj(100)
+    print(f"  objective at K 100: {acc100:.4f}")
+    check(acc100 >= 0.9, f"estimate_k: objective at K 100 is {acc100}")
+    return launches, wall
+
+
+def estimate_k_card_against_cpu(seed):
+    """The objective at five K on the card and on the CPU from the same
+    initial centers (drawn on the CPU, copied to the card), on
+    :func:`subclustered_blobs`: equal."""
+    from scd_tpu_torch.testing.fabricate import subclustered_blobs
+    from scd_tpu_torch.testing.shared_centers import centers_drawn_on_cpu
+
+    ek = _estimate_k_module()
+
+    x, y, mask_lab = subclustered_blobs(EK_SMALL["n"], EK_SMALL["d"],
+                                        EK_SMALL["classes"], seed)
+    accs = {}
+    with centers_drawn_on_cpu(x) as reset:
+        for dev in ("cuda", "cpu"):
+            reset()
+            obj = ek.labelled_acc_objective_dynamic(
+                x, y, mask_lab, EK_SMALL["max_k"], device=dev)
+            accs[dev] = [obj(k) for k in EK_SMALL["ks"]]
+    print(f"  objective at K {EK_SMALL['ks']} ({EK_SMALL['n']} x "
+          f"{EK_SMALL['d']}, max_k {EK_SMALL['max_k']}): card {accs['cuda']}, "
+          f"CPU {accs['cpu']}")
+    check(accs["cuda"] == accs["cpu"], "estimate_k: the card's objective "
+          "differs from the CPU's")
+
+
+def _run(fn, cfg, device):
+    """``fn(cfg, device)``: (result, printed lines, seconds)."""
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(cfg, device=device)
+    return res, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def path_inputs():
+    """Within the block, the inputs of the first call of
+    ``fused_em_step_cuda`` and of ``topk_softmax_cuda`` at each distinct
+    shape, dtype and option are copied into the yielded dict, under the
+    kernel's name; every call runs on as it would.  A wrapper counts its
+    launches on the module's name for it, so each spy carries the count
+    while it stands in, and hands it back on leaving."""
+    from scd_tpu_torch.ops import em, topk
+
+    seen = {"fused_em_step": {}, "topk_softmax": {}}
+    real_em, real_topk = em.fused_em_step_cuda, topk.topk_softmax_cuda
+
+    def em_spy(x, centers, row_w=None):
+        key = (tuple(x.shape), x.dtype, tuple(centers.shape), row_w is None)
+        if key not in seen["fused_em_step"]:
+            seen["fused_em_step"][key] = (
+                x.clone(), centers.clone(),
+                None if row_w is None else row_w.clone())
+        return real_em(x, centers, row_w)
+
+    def topk_spy(feats, weights, k, scale=100.0):
+        key = (tuple(feats.shape), tuple(weights.shape), k, scale)
+        if key not in seen["topk_softmax"]:
+            seen["topk_softmax"][key] = (feats.clone(), weights.clone(), k,
+                                         scale)
+        return real_topk(feats, weights, k, scale=scale)
+
+    pairs = ((em_spy, real_em), (topk_spy, real_topk))
+    for spy, real in pairs:
+        spy.launches = real.launches
+    em.fused_em_step_cuda, topk.topk_softmax_cuda = em_spy, topk_spy
+    try:
+        yield seen
+    finally:
+        em.fused_em_step_cuda, topk.topk_softmax_cuda = real_em, real_topk
+        for spy, real in pairs:
+            real.launches = spy.launches
+
+
+def hold_path_inputs(seen, tag):
+    """Each kernel against its plain version on the inputs a main path
+    passed it (:func:`path_inputs`), with :func:`em_hold`'s and
+    :func:`topk_hold`'s tolerances."""
+    for i, (x, c, row_w) in enumerate(seen["fused_em_step"].values()):
+        em_hold(x, c, row_w, tag=f"{tag} #{i}")
+    for i, (f, w, k, scale) in enumerate(seen["topk_softmax"].values()):
+        topk_hold(f, w, k, scale, tag=f"{tag} #{i}")
+
+
+def fine_grained_run(fn, cfg, tag, against_cpu=True):
+    """A warm run of ``fn`` (``run_unsup`` or ``run_ptsup``) on the card
+    with clustering, its stage seconds and launches; then each kernel held
+    against its plain version on the inputs that run passed it; then (with
+    ``against_cpu``) the cached re-entry on the card and on the CPU: equal
+    metric lines.  Both re-entries read the cluster labels the card's run
+    cached, so that comparison covers the naming stages; the clustering
+    is covered by the holds.  Returns the first run's launches."""
+    import dataclasses
+
+    _reset_counts()
+    with path_inputs() as seen:
+        res, lines, wall = _run(fn, cfg, "cuda")
+    launches = _kernel_launches()
+    for ln in lines:
+        if ln.startswith(("SSKM Accuracies:", "ConSSKM Accuracies:",
+                          "sACC all", "IoU:")):
+            print("  " + ln)
+    print(f"{tag}: stage seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["stage_seconds"].items())
+        + f" | {wall:.3f} s; launches {launches}")
+    check(res["cluster_acc"][0] >= ACC_FLOOR,
+          f"{tag}: ACC {res['cluster_acc'][0]} below {ACC_FLOOR}")
+    hold_path_inputs(seen, tag)
+    if not against_cpu:
+        return launches
+    cached = dataclasses.replace(cfg, run_cluster=False)
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        _, texts[dev], secs = _run(fn, cached, dev)
+        print(f"  {tag} cached re-entry on {dev}: {secs:.1f} s")
+    check(texts["cuda"] == texts["cpu"] and len(texts["cpu"]) > 10,
+          f"{tag}: the card's lines differ from the CPU's")
+    print(f"  {tag}: {len(texts['cpu'])} lines equal on the card and the CPU "
+          f"(naming stages, from the card's cluster labels)")
+    return launches
+
+
+def phase_estimate_k(seed: int, workdir: str):
+    """Phase 9 (see the module docstring).  Returns the sentinel parity's
+    error and times, and the launches of the phase's main paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.pipelines.ptsup import run_ptsup
+    from scd_tpu_torch.pipelines.unsup import run_unsup
+    from scd_tpu_torch.testing.fabricate import (fabricate_fine_grained,
+                                                 warm_config)
+
+    path = write_features_packed(seed, os.path.join(workdir,
+                                                    "features_packed.npz"))
+    t0 = time.perf_counter()
+    with np.load(path) as z:
+        x = torch.from_numpy(z["features"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    err, times = sentinel_em(x, gen)
+    del x
+    print(f"sentinel parity and timing {time.perf_counter() - t0:.1f} s")
+
+    launches = {"topk_softmax": 0, "fused_em_step": 0}
+    ek_launches, ek_wall = estimate_k_full(path)
+    launches["fused_em_step"] += ek_launches["fused_em_step"]
+    t0 = time.perf_counter()
+    estimate_k_card_against_cpu(seed)
+    print(f"card against CPU {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cub = warm_config(os.path.join(workdir, "cub"), "cub", K_CUB)
+    info = fabricate_fine_grained(cub, seed=seed, device="cuda",
+                                  d_feat=D_FEAT, d_clip=D_CLIP, vocab=VOCAB)
+    print(f"fabricated CUB N={info['n_images']} (labelled "
+          f"{info['n_labelled']}), V={len(info['nouns'])} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k, v in fine_grained_run(run_unsup, cub, "CUB run_unsup").items():
+        launches[k] += v
+    check(launches["topk_softmax"] > 0, "CUB: topk_softmax never launched")
+
+    t0 = time.perf_counter()
+    dogs = warm_config(os.path.join(workdir, "sdogs"), "sdogs", K_SDOGS,
+                       textual_enhancement=True, partially_supervised=True)
+    info = fabricate_fine_grained(dogs, seed=seed, device="cuda",
+                                  d_feat=D_FEAT, d_clip=D_CLIP, vocab=VOCAB)
+    print(f"fabricated Stanford Dogs N={info['n_images']} (labelled "
+          f"{info['n_labelled']}) in {time.perf_counter() - t0:.1f} s")
+    dogs_launches = fine_grained_run(run_ptsup, dogs, "Dogs run_ptsup (TE)")
+    check(dogs_launches["topk_softmax"] >= 3
+          and dogs_launches["fused_em_step"] > 0,
+          f"Dogs: a kernel of the path launched too rarely: {dogs_launches}")
+    for k, v in dogs_launches.items():
+        launches[k] += v
+    con = dataclasses.replace(dogs, cluster=dataclasses.replace(
+        dogs.cluster, algorithm="ConSSKM", constrained_backend="sinkhorn"))
+    # cut: the ConSSKM run is not re-entered on the CPU (26 s on an H100;
+    # its naming stages are the SSKM run's, held just above)
+    for k, v in fine_grained_run(run_ptsup, con, "Dogs run_ptsup (TE, "
+                                 "ConSSKM)", against_cpu=False).items():
+        launches[k] += v
+    sizes = _unlab_sizes(con)
+    print(f"  ConSSKM unlabelled sizes [{sizes.min()}, {sizes.max()}] in "
+          f"[{con.cluster.size_min}, {con.cluster.size_max}]")
+    check(sizes.min() >= con.cluster.size_min
+          and sizes.max() <= con.cluster.size_max,
+          "Dogs ConSSKM: a cluster size out of bounds")
+    print(f"estimate_k search {ek_wall:.1f} s; launches in phase 9's main "
+          f"paths: {launches}")
+    return err, times, launches
+
+
 # (kernels line name, source, the TPU kernel it replaces, key of the
 # launch count and the times); rows 3-4 share the attention kernel and
 # rows 6-7 the w8a8_prequant kernel, and each pair reports that kernel's
@@ -2049,7 +2429,17 @@ def main(argv=None) -> int:
     finally:
         in100_dir.cleanup()
     print(f"launches in phase 8's run_ptsup: {json.dumps(ptsup_launches)}")
-    print(f"phase 8 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 8 {time.perf_counter() - t0:.1f} s")
+    section("phase 9: estimate_k and the new readers (CUB, Stanford Dogs)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        sentinel_err, sentinel_times, ek_launches = phase_estimate_k(
+            args.seed, workdir)
+    for key, n in ek_launches.items():
+        launches[key] += n
+    print(f"fused_em_step at K {MAX_K} with sentinel slots: max abs err "
+          f"{sentinel_err:.3e}; ms {sentinel_times[0]:.4f}")
+    print(f"phase 9 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

@@ -6,8 +6,8 @@ both derive the same artifact-cache keys and each re-enters the other's
 caches.  Every knob and every filesystem location lives in one typed
 dataclass tree; a stable hash of the tree keys the artifact cache.
 
-Some fields only steer code that is not ported yet (the mesh, ConSSKM,
-training, int8 towers); they stay so that the hashes agree.
+Some fields only steer code that is not ported yet (the mesh and
+training); they stay so that the hashes agree.
 """
 
 from __future__ import annotations

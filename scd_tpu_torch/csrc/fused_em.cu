@@ -62,8 +62,12 @@
 //    builds the one-hot A fragment in registers (weight where the row's
 //    label is the center, else 0) and issues wgmma m64n128k16 with x as an
 //    MN-major B (the transpose bit), and a m64n8k16 against a tile of ones
-//    in shared memory for the counts.  The unit writes its [128, 128]
-//    partial sums once.  Units are about one per SM: the runs are sized so.
+//    in shared memory for the counts.  As in the E-step, each stage's
+//    products go to a stage accumulator that is added to the run's sums
+//    with f32 adds (at K 1,000 with 10 live slots a run holds ~4,000 rows
+//    of one cluster; accumulated on the tensor cores, the sums drifted
+//    past the contract's 1e-4 relative).  The unit writes its [128, 128] partial sums once.  Units
+//    are about one per SM: the runs are sized so.
 // 4. Finalize: sums, counts and inertia summed over the runs' partials
 //    (and the E-step blocks' inertia) in index order.
 // No float atomics: every sum is taken in an order fixed by the shapes and
@@ -588,8 +592,10 @@ mstep_kernel(const __grid_constant__ CUtensorMap xh, const __grid_constant__ CUt
   const int g = lane >> 2, t = lane & 3;
   const int m_a = mg * 128 + wg * 64 + q * 16 + g, m_b = m_a + 8;
   const uint64_t dones = desc_plain(base + L::ONES);
-  float acc[DN / 2];
+  float acc[DN / 2], part[DN / 2];
   float cnt[4];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
   for (int j = 0; j < ns; ++j) {
     const int s = j % M_STAGES;
     mbar_wait(smem_u32(&full[s]), (j / M_STAGES) & 1);
@@ -611,16 +617,20 @@ mstep_kernel(const __grid_constant__ CUtensorMap xh, const __grid_constant__ CUt
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < RM / 16; ++kk) {
-      const int on = (j | kk) != 0;
-      wgmma_rs_n128_tb(acc, a[kk], desc_mn128(st + kk * 16 * 128), on);
-      if (SPLIT) wgmma_rs_n128_tb(acc, a[kk], desc_mn128(st + 2 * M_BOX + kk * 16 * 128), 1);
-      wgmma_rs_n8(cnt, a[kk], dones, on);
+      wgmma_rs_n128_tb(part, a[kk], desc_mn128(st + kk * 16 * 128), kk != 0);
+      if (SPLIT) wgmma_rs_n128_tb(part, a[kk], desc_mn128(st + 2 * M_BOX + kk * 16 * 128), 1);
+      wgmma_rs_n8(cnt, a[kk], dones, (j | kk) != 0);  // integers: exact
     }
     wg_commit();
     wg_wait<0>();  // the A registers are rewritten for the next stage
-    reg_fence<DN / 2>(acc);
+    reg_fence<DN / 2>(part);
     reg_fence<4>(cnt);
     mbar_arrive(smem_u32(&empty[s]));
+    // the stage's sums join the run's with f32 adds: the tensor cores'
+    // accumulation truncates, and over a run's thousands of rows of one
+    // cluster that drifted past the contract's 1e-4 relative
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) acc[i] += part[i];
   }
 
   // the unit's partial sums, written once

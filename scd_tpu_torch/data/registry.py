@@ -1,9 +1,8 @@
 """Dataset registry + class splits (reference ``gcd/data/get_datasets.py``).
 
-Port of ``scd_tpu/data/registry.py``.  The class splits of every dataset
-are here; the readers of this slice are ``synthetic``, ``imagefolder``,
-``imagenet_100`` and ``imagenet_1000``, and the others raise until they are
-ported (ROADMAP "Remaining data").
+Port of ``scd_tpu/data/registry.py``: every reader of the JAX registry,
+under the same root subdirectories, and the class splits of every
+dataset.
 """
 
 from __future__ import annotations
@@ -23,15 +22,22 @@ from scd_tpu_torch.data.core import (
 
 _READERS = {
     "synthetic": lambda cfg: D.make_synthetic(),
+    "cub": lambda cfg: D.make_cub(cfg.root_dir),
+    "sdogs": lambda cfg: D.make_sdogs(cfg.root_dir),
+    "cifar10": lambda cfg: D.make_cifar(cfg.root_dir, 10),
+    "cifar100": lambda cfg: D.make_cifar(cfg.root_dir, 100),
     "imagenet_100": lambda cfg: D.make_imagenet_100(
         os.path.join(cfg.root_dir, "ILSVRC12")),
     "imagenet_1000": lambda cfg: D.make_imagenet_1000(
         os.path.join(cfg.root_dir, "ILSVRC12")),
+    "imagenet_127": lambda cfg: D.make_imagenet_127(
+        os.path.join(cfg.root_dir, "imagenet127")),
+    "aircraft": lambda cfg: D.make_aircraft(cfg.root_dir),
+    "scars": lambda cfg: D.make_scars(cfg.root_dir),
+    "herbarium_19": lambda cfg: D.make_herbarium(cfg.root_dir),
     "imagefolder": lambda cfg: D.make_imagefolder(
         os.path.join(cfg.root_dir, "train"), os.path.join(cfg.root_dir, "val")),
 }
-_NOT_PORTED = ("cub", "sdogs", "cifar10", "cifar100", "imagenet_127",
-               "aircraft", "scars", "herbarium_19")
 
 # default Old/New class ranges (reference get_class_splits,
 # get_datasets.py:101-231); SSB datasets may override from pickles
@@ -88,9 +94,6 @@ def get_datasets(cfg: DataConfig, train_transform=None, test_transform=None,
     """Returns (train MergedDataset, test, unlabelled_train_test, extras) —
     the reference's ``get_datasets`` contract (``get_datasets.py:53-98``)."""
     name = cfg.dataset_name
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} reader is not ported yet (ROADMAP: remaining data)")
     if name not in _READERS:
         raise ValueError(f"unknown dataset {name!r}")
     if train_classes is None or unlabeled_classes is None:

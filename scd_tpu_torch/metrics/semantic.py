@@ -9,7 +9,8 @@ Reference semantics:
   over all synset pairs of (pred, target) names, normalized by the batch max
   (``main_unsup.py:170-199``).  The similarity is injected as a callable so
   the taxonomy backend (nltk WordNet, our WNDB reader, or a synthetic
-  fixture) is pluggable.
+  fixture) is pluggable.  ``soft_semantic_acc_from_table`` is the same
+  metric gathered from a precomputed similarity table.
 - ``name_set_iou`` — IoU of predicted vs GT name sets (``main_unsup.py:645-647``).
 """
 
@@ -55,6 +56,21 @@ def evaluate_soft_semantic_acc(u_targets: Sequence[int],
     ], dtype=np.float64)
     sims = sims / max(float(sims.max()), 1e-12)
     return float(sims.sum() / len(sims))
+
+
+def soft_semantic_acc_from_table(u_targets: np.ndarray,
+                                 u_preds: np.ndarray,
+                                 target_name_idx: np.ndarray,
+                                 pred_name_idx: np.ndarray,
+                                 sim_table: np.ndarray) -> float:
+    """Vectorized Soft-sACC: ``sim_table[pred_name, target_name]`` gathered per
+    instance.  ``target_name_idx[c]`` maps a GT class index to a row of the
+    precomputed similarity table; ``pred_name_idx[k]`` maps a cluster/candidate
+    index likewise."""
+    sims = sim_table[pred_name_idx[np.asarray(u_preds, dtype=np.int64)],
+                     target_name_idx[np.asarray(u_targets, dtype=np.int64)]]
+    sims = sims / max(float(sims.max()), 1e-12)
+    return float(sims.mean())
 
 
 def name_set_iou(cand_names: Sequence[str], gt_names: Sequence[str]) -> float:

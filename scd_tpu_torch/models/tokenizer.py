@@ -2,7 +2,7 @@
 
 Port of ``scd_tpu/models/tokenizer.py`` (``CLIPTokenizer`` with the
 compositional ``prompt_tokens`` / ``template_pieces`` the vocabulary build
-uses): the byte-to-unicode table, end-of-word markers, merge ranks and the
+uses, and the asset-free ``HashTokenizer``): the byte-to-unicode table, end-of-word markers, merge ranks and the
 CLIP text regex, with the merges read from a configurable path
 (``bpe_simple_vocab_16e6.txt.gz`` in the CLIP release).  Without the
 ``regex`` package the standard ``re`` module takes over with an
@@ -272,3 +272,75 @@ def _splice_prompt_tokens(encode, sot: int, eot: int, pieces,
             out[row, :len(toks)] = toks
             row += 1
     return out
+
+
+class HashTokenizer:
+    """Deterministic fallback with the CLIP tokenizer interface: words hash
+    into the CLIP vocab id range.  For tests / missing-asset environments —
+    NOT compatible with real CLIP checkpoints.
+
+    Text splits with the same word/punct regex shape as the CLIP BPE
+    pattern (letter runs | single digits | punctuation runs | contraction
+    alternatives), so the compositional splice machinery —
+    ``template_pieces`` / ``prompt_tokens`` / the prefix-cached vocabulary
+    build — has the SAME exactness and hazard semantics as the real
+    tokenizer and can be exercised without the BPE asset."""
+
+    _word_re = re.compile(
+        r"""'s|'t|'re|'ve|'m|'ll|'d|[^\W\d_]+|\d|[^\s\w]+""",
+        re.IGNORECASE | re.UNICODE)
+
+    def __init__(self, vocab_size: int = 49408):
+        self.vocab_size = vocab_size
+        self.sot = vocab_size - 2
+        self.eot = vocab_size - 1
+        self._template_pieces_cache: Dict[tuple, list] = {}
+
+    def encode(self, text: str) -> List[int]:
+        import hashlib
+
+        out = []
+        for word in self._word_re.findall(_clean(text)):
+            h = int(hashlib.md5(word.encode()).hexdigest(), 16)
+            out.append(h % (self.vocab_size - 2))
+        return out
+
+    def __call__(self, texts: Sequence[str],
+                 context_length: int = CONTEXT_LENGTH) -> np.ndarray:
+        out = np.zeros((len(texts), context_length), np.int32)
+        for i, text in enumerate(texts):
+            toks = [self.sot] + self.encode(text) + [self.eot]
+            toks = toks[:context_length]
+            if toks[-1] != self.eot:
+                toks[-1] = self.eot
+            out[i, :len(toks)] = toks
+        return out
+
+    @property
+    def sot_id(self) -> int:
+        return self.sot
+
+    @property
+    def eot_id(self) -> int:
+        return self.eot
+
+    def template_pieces(self, templates: Sequence[str]) -> list:
+        """CLIPTokenizer-compatible splice pieces (same regex-word
+        compositionality — see ``_split_template_pieces``)."""
+        key = tuple(templates)
+        pieces = self._template_pieces_cache.get(key)
+        if pieces is None:
+            pieces = _split_template_pieces(self.encode, templates)
+            self._template_pieces_cache[key] = pieces
+        return pieces
+
+    name_boundary_punct = staticmethod(
+        lambda name: _name_boundary_punct(name))
+
+    def prompt_tokens(self, templates: Sequence[str], names: Sequence[str],
+                      context_length: int = CONTEXT_LENGTH) -> np.ndarray:
+        """Compositional (name, template) batch tokenization — same
+        contract as ``CLIPTokenizer.prompt_tokens``."""
+        return _splice_prompt_tokens(self.encode, self.sot_id, self.eot_id,
+                                     self.template_pieces(templates),
+                                     templates, names, context_length)

@@ -84,6 +84,17 @@ def cluster_name_counters(name_idx_topk: np.ndarray, u_preds: np.ndarray,
     return out
 
 
+def vote_candidates(counters: Dict[int, List[Tuple[int, int]]],
+                    num_common_vote: int) -> List[int]:
+    """Union of each cluster's top ``num_common_vote`` candidate name indices
+    (reference ``main_unsup.py:579-586``), deduplicated, sorted."""
+    voted = set()
+    for entries in counters.values():
+        for name_idx, _cnt in entries[:num_common_vote]:
+            voted.add(name_idx)
+    return sorted(voted)
+
+
 def assign_name(unique_name_idx: Sequence[int],
                 cluster_to_counter: Dict[int, List[Tuple[int, int]]],
                 num_common: int = 4) -> Tuple[np.ndarray, np.ndarray]:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import math
 import os
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 class Taxonomy:
@@ -198,3 +198,32 @@ class Taxonomy:
                 seen.add(n)
                 out.append(n)
         return out
+
+
+def _tree_taxonomy(spec: Dict[str, Tuple[Optional[str], List[str]]]) -> Taxonomy:
+    """Build a Taxonomy from {wnid: (parent_wnid|None, [lemmas])}."""
+    wnids = list(spec.keys())
+    idx = {w: i for i, w in enumerate(wnids)}
+    lemmas = [spec[w][1] for w in wnids]
+    hypernyms = [[idx[spec[w][0]]] if spec[w][0] is not None else []
+                 for w in wnids]
+    return Taxonomy(wnids, lemmas, hypernyms)
+
+
+def SyntheticTaxonomy() -> Taxonomy:
+    """Small animal/artifact tree for tests (deterministic)."""
+    spec = {
+        "n00000001": (None, ["entity"]),
+        "n00000002": ("n00000001", ["animal"]),
+        "n00000003": ("n00000002", ["canine"]),
+        "n00000004": ("n00000003", ["dog"]),
+        "n00000005": ("n00000003", ["wolf"]),
+        "n00000006": ("n00000002", ["feline"]),
+        "n00000007": ("n00000006", ["cat"]),
+        "n00000008": ("n00000001", ["artifact"]),
+        "n00000009": ("n00000008", ["vehicle"]),
+        "n00000010": ("n00000009", ["car"]),
+        "n00000011": ("n00000009", ["truck"]),
+        "n00000012": ("n00000004", ["puppy"]),  # depth 4 -> taxonomy depth 4
+    }
+    return _tree_taxonomy(spec)

@@ -54,6 +54,11 @@ def estep_assign_plain(x: torch.Tensor, c: torch.Tensor
     return labels.to(torch.int32), mindist
 
 
+def masked_min_sum(mindist: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Inertia over the first ``n_valid`` rows (rows beyond are padding)."""
+    return mindist[:n_valid].sum()
+
+
 def estep_assign_cuda(x: torch.Tensor, c: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel.  x [N, D] f32 and c [K, D] f32, contiguous on one

@@ -133,8 +133,8 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
         return clip.encode_image, clip.encode_image, clip.encode_text
     if name == "resnet50":
         raise NotImplementedError(
-            "the resnet50 backbone is not ported yet (ROADMAP item 12: "
-            "training, models/resnet50.py)")
+            "the resnet50 backbone is not ported yet (ROADMAP queue 1, "
+            "item 5: training, models/resnet50.py)")
     vit_feat_cfgs = vit_feature_backbones()
     if name != "clip" and name not in vit_feat_cfgs:
         raise ValueError(f"unknown feat_model {name!r}")

@@ -1,10 +1,10 @@
 """Where the fused EM kernels' time goes, on the card.
 
-    python -m scd_tpu_torch.testing.em_breakdown
+    python -m scd_tpu_torch.testing.em_breakdown [--n N --d D --k K]
 
 Times each part of one ``fused_em_step`` call (``csrc/fused_em.cu``) at
-the main path's shape (N = 97,536, D = 768, K = 100), with bf16 and with
-f32 x: the split pre-pass, the E-step, the M-step, the finalize, and all
+the main path's shape (N = 97,536, D = 768, K = 100, or the shape given),
+with bf16 and with f32 x: the split pre-pass, the E-step, the M-step, the finalize, and all
 four together.  Each part runs through ``ops.em.fused_em_launch(phases=...)``
 on the scratch of a whole call, captured once in a CUDA graph and replayed,
 so the host's time per call (Python, tensor maps, launches) is not in the
@@ -83,4 +83,11 @@ def main(n: int = 97_536, d: int = 768, k: int = 100, reps: int = 50) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--n", type=int, default=97_536)
+    p.add_argument("--d", type=int, default=768)
+    p.add_argument("--k", type=int, default=100)
+    a = p.parse_args()
+    main(a.n, a.d, a.k)

@@ -1,4 +1,5 @@
-"""Fabricate an ImageNet-100 artifact root for the port's main path.
+"""Fabricate artifact roots for the port's paths: ImageNet-100, CUB and
+Stanford Dogs.
 
 Everything ``run_unsup`` reads, made from a seed, at any size.
 
@@ -20,6 +21,12 @@ CLIP features, V = 68,000 nouns, K = 100, or a tiny one for tests):
   ``mask_lab`` are the dataset's own, modelled on ``bench.py:934-966``;
 - ``zeroshot_weights.npz``: a [D_clip, V] matrix of random unit columns in
   which each class name's column carries its class signature.
+
+CUB and Stanford Dogs warm roots (:func:`fabricate_fine_grained`, the
+deployments of ``BASELINE.json`` configs 1, 2 and 4): each dataset's
+metadata at its published split sizes (CUB 200 classes, 5,994 / 5,794
+images, with an SSB split pickle; Dogs 120 breeds, 12,000 / 8,580), a
+taxonomy whose leaves include every class name, and the same caches.
 
 Cold root (:func:`fabricate_cold_root`): the same tree and taxonomy, no
 caches, and the assets the encoders need instead: an OpenAI-layout CLIP
@@ -241,32 +248,50 @@ def fabricate_imagenet100(cfg: PipelineConfig, seed: int = 0,
     """Write the warm root that ``cfg`` (see :func:`imagenet100_config`)
     points at.  Returns what was written: nouns, the GT name of each class,
     and the vocabulary column of each class."""
+    info = fabricate_imagenet_tree(cfg, n_images, vocab, n_genus)
+    return _write_warm_caches(cfg, info, seed, device, d_feat, d_clip)
+
+
+def _write_warm_caches(cfg: PipelineConfig, info: Dict, seed: int, device,
+                       d_feat: int, d_clip: int) -> Dict:
+    """The caches a warm run re-enters, for the dataset ``cfg`` names:
+    class-structured, L2-normalised clustering and CLIP features in the
+    dataset's own row order, with its ``targets`` (remapped: Old classes
+    first) and ``mask_lab``, and a zero-shot matrix [D_clip, V] of random
+    unit columns in which each class name's column carries its class
+    signature.  ``info["gt_cols"]`` is the vocabulary column of each class
+    by the dataset's original class id."""
     from scd_tpu_torch.data import get_datasets
+    from scd_tpu_torch.data.core import make_target_transform
     from scd_tpu_torch.pipelines.common import feature_cache_key, stage_cache
 
-    info = fabricate_imagenet_tree(cfg, n_images, vocab, n_genus)
-    nouns, class_names, gt_cols = (info["nouns"], info["class_names"],
-                                   info["gt_cols"])
+    nouns, gt_cols = info["nouns"], info["gt_cols"]
+    vocab, n_cls = len(nouns), len(gt_cols)
 
     # ---- the dataset's own targets and labelled mask
     train, _test, _unlab, extras = get_datasets(cfg.data)
     targets_np = train.targets.astype(np.int64)
     mask_lab = train.mask_lab
     mask_cls = targets_np < len(extras["train_classes"])  # remapped: Old first
+    tt = make_target_transform(extras["train_classes"],
+                               extras["unlabeled_classes"])
+    remapped_cols = [0] * n_cls
+    for c, col in enumerate(gt_cols):
+        remapped_cols[tt(c)] = col
 
     # ---- class-structured features and vocabulary, on the device
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     targets = torch.as_tensor(targets_np, device=dev)
     n = len(targets_np)
-    feat_c = 3.0 * torch.randn(100, d_feat, generator=g, device=dev)
-    clip_c = _unit_rows(torch.randn(100, d_clip, generator=g, device=dev))
+    feat_c = 3.0 * torch.randn(n_cls, d_feat, generator=g, device=dev)
+    clip_c = _unit_rows(torch.randn(n_cls, d_clip, generator=g, device=dev))
     feats = _unit_rows(feat_c[targets] + 0.5 * torch.randn(
         n, d_feat, generator=g, device=dev))
     clip = _unit_rows(clip_c[targets] + 0.1 * torch.randn(
         n, d_clip, generator=g, device=dev))
     zw = _unit_rows(torch.randn(vocab, d_clip, generator=g, device=dev))
-    zw[torch.as_tensor(gt_cols, device=dev)] = clip_c
+    zw[torch.as_tensor(remapped_cols, device=dev)] = clip_c
     zw = zw.t().contiguous()  # [D, V]
 
     meta = {"targets": targets_np.astype(np.float64), "mask_lab": mask_lab,
@@ -279,8 +304,182 @@ def fabricate_imagenet100(cfg: PipelineConfig, seed: int = 0,
                {"all_feats": clip.cpu().numpy(), **meta},
                meta={"fabricated": seed})
     np.savez(cfg.data.zeroshot_weights, weights=zw.cpu().numpy())
-    return {"nouns": nouns, "class_names": class_names, "gt_cols": gt_cols,
-            "n_images": n, "n_labelled": int(mask_lab.sum())}
+    return {"nouns": nouns, "class_names": info["class_names"],
+            "gt_cols": gt_cols, "n_images": n,
+            "n_labelled": int(mask_lab.sum())}
+
+
+def subclustered_blobs(n: int, d: int, classes: int, seed: int = 0,
+                       per_class: int = 5):
+    """(x [n, d] f32, targets [n], mask_lab [n]) of ``classes`` classes,
+    each ``per_class`` tight sub-blobs (spread 0.01) around its class
+    mean; the first half of the classes labelled on half their rows.  At
+    any K up to ``classes * per_class`` k-means keeps whole sub-blobs
+    together, so no row lies near a tie between two centers and a Lloyd
+    loop on the card (split-bf16 products) and on the CPU (f32) give the
+    same labels from the same initial centers."""
+    rng = np.random.default_rng(seed)
+    means = rng.standard_normal((classes, d))
+    subs = (np.repeat(means, per_class, axis=0)
+            + 0.3 * rng.standard_normal((classes * per_class, d)))
+    sub = rng.integers(0, classes * per_class, n)
+    x = (subs[sub] + 0.01 * rng.standard_normal((n, d))).astype(np.float32)
+    y = sub // per_class
+    return x, y, (y < classes // 2) & (rng.random(n) < 0.5)
+
+
+# ------------------------------------------------- CUB and Stanford Dogs
+
+# the published split sizes: CUB-200-2011 (train_test_split.txt) and
+# Stanford Dogs (train_list.mat / test_list.mat)
+CUB_CLASSES, CUB_TRAIN, CUB_TEST = 200, 5_994, 5_794
+SDOGS_CLASSES, SDOGS_TRAIN, SDOGS_TEST = 120, 12_000, 8_580
+
+
+def warm_config(root: str, dataset_name: str, n_clusters: int,
+                n_init: int = 10, max_iterations: int = 10,
+                textual_enhancement: bool = False,
+                partially_supervised: bool = False) -> PipelineConfig:
+    """The pipeline config of a fabricated CUB or Stanford Dogs root:
+    DINO clustering features, the WordNet corpus, SSKM and the reference's
+    naming settings, as :func:`imagenet100_config`."""
+    cfg = imagenet100_config(root, n_clusters=n_clusters, n_init=n_init,
+                             max_iterations=max_iterations)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, dataset_name=dataset_name),
+        naming=dataclasses.replace(
+            cfg.naming, textual_enhancement=textual_enhancement),
+        partially_supervised=partially_supervised)
+
+
+def _write_vocabulary(cfg: PipelineConfig, class_names: Sequence[str],
+                      vocab: int, n_genus: int) -> Dict:
+    """A WNDB taxonomy ``entity`` -> genera -> leaves and its vocabulary
+    file, V names in all; the class names are leaves spread over the
+    genera, the other leaves ``noun_NNNNN``.  Returns the nouns and each
+    class name's vocabulary column."""
+    n_leaves = vocab - 1 - n_genus
+    if n_leaves < len(class_names):
+        raise ValueError(f"vocab={vocab} leaves room for {n_leaves} < "
+                         f"{len(class_names)} class leaves")
+    leaves = [f"noun_{i:05d}" for i in range(n_leaves)]
+    at = np.linspace(0, n_leaves - 1, len(class_names)).round().astype(int)
+    for i, name in zip(at, class_names):
+        leaves[i] = name
+    tree: Dict[str, List[str]] = {"entity": []}
+    per = -(-n_leaves // n_genus)
+    for g in range(n_genus):
+        genus = f"genus_{g:03d}"
+        tree["entity"].append(genus)
+        tree[genus] = leaves[g * per:(g + 1) * per]
+        for leaf in tree[genus]:
+            tree[leaf] = []
+    build_wndb(cfg.data.wordnet_db_dir, tree)
+    nouns = list(tree.keys())
+    os.makedirs(cfg.data.corpus_dir, exist_ok=True)
+    with open(os.path.join(cfg.data.corpus_dir, "wordnet_all_noun.txt"),
+              "w") as f:
+        f.write("\n".join(nouns) + "\n")
+    noun_col = {n: c for c, n in enumerate(nouns)}
+    return {"nouns": nouns, "class_names": list(class_names),
+            "gt_cols": [noun_col[n] for n in class_names]}
+
+
+def _class_counts(n: int, n_cls: int) -> List[int]:
+    base, rem = divmod(n, n_cls)
+    return [base + int(c < rem) for c in range(n_cls)]
+
+
+def fabricate_cub_tree(root: str, seed: int = 0, n_train: int = CUB_TRAIN,
+                       n_test: int = CUB_TEST) -> List[str]:
+    """The CUB-200-2011 metadata of ``make_cub`` (``CUB_200_2011/`` txts,
+    image ids class by class, no image files) and an SSB split pickle
+    (``ssb_splits/cub_osr_splits.pkl``: half the classes known, drawn from
+    ``seed``, the rest in Hard / Medium / Easy tiers).  Returns the class
+    names as the vocabulary spells them."""
+    import pickle
+
+    base = os.path.join(root, "CUB_200_2011")
+    os.makedirs(base, exist_ok=True)
+    dirs = [f"{c + 1:03d}.Bird_{c:03d}" for c in range(CUB_CLASSES)]
+    images, labels, split = [], [], []
+    i = 1
+    for c, (tr, te) in enumerate(zip(_class_counts(n_train, CUB_CLASSES),
+                                     _class_counts(n_test, CUB_CLASSES))):
+        for j in range(tr + te):
+            images.append(f"{i} {dirs[c]}/{dirs[c][4:]}_{j:04d}.jpg")
+            labels.append(f"{i} {c + 1}")
+            split.append(f"{i} {int(j < tr)}")
+            i += 1
+    for name, lines in (("images.txt", images),
+                        ("image_class_labels.txt", labels),
+                        ("train_test_split.txt", split),
+                        ("classes.txt", [f"{c + 1} {d}"
+                                         for c, d in enumerate(dirs)])):
+        with open(os.path.join(base, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    order = np.random.default_rng(seed).permutation(CUB_CLASSES)
+    known = sorted(int(c) for c in order[:CUB_CLASSES // 2])
+    unknown = [int(c) for c in order[CUB_CLASSES // 2:]]
+    third = len(unknown) // 3
+    os.makedirs(os.path.join(root, "ssb_splits"), exist_ok=True)
+    with open(os.path.join(root, "ssb_splits", "cub_osr_splits.pkl"),
+              "wb") as f:
+        pickle.dump({"known_classes": known, "unknown_classes": {
+            "Hard": sorted(unknown[:third]),
+            "Medium": sorted(unknown[third:2 * third]),
+            "Easy": sorted(unknown[2 * third:])}}, f)
+    return [d[4:].lower() for d in dirs]
+
+
+def fabricate_sdogs_tree(root: str, n_train: int = SDOGS_TRAIN,
+                         n_test: int = SDOGS_TEST) -> List[str]:
+    """The Stanford Dogs layout of ``make_sdogs``: one (empty) breed
+    directory per class under ``StanfordDogs/Images/`` and the
+    ``train_list.mat`` / ``test_list.mat`` file lists with 1-based labels.
+    Returns the class names as the vocabulary spells them."""
+    from scipy.io import savemat
+
+    base = os.path.join(root, "StanfordDogs")
+    breeds = [f"n{2_085_620 + c:08d}-Breed_{c:03d}"
+              for c in range(SDOGS_CLASSES)]
+    for b in breeds:
+        os.makedirs(os.path.join(base, "Images", b), exist_ok=True)
+    for mat_name, n, tag in (("train_list.mat", n_train, "tr"),
+                             ("test_list.mat", n_test, "te")):
+        files, lab = [], []
+        for c, count in enumerate(_class_counts(n, SDOGS_CLASSES)):
+            files += [f"{breeds[c]}/{tag}_{j:04d}.jpg" for j in range(count)]
+            lab += [c + 1] * count
+        fl = np.empty((len(files), 1), object)
+        for i, f in enumerate(files):
+            fl[i, 0] = np.array([f])
+        savemat(os.path.join(base, mat_name),
+                {"file_list": fl, "labels": np.array(lab)[:, None]})
+    return [b[10:].lower() for b in breeds]
+
+
+def fabricate_fine_grained(cfg: PipelineConfig, seed: int = 0, device="cpu",
+                           n_train: int = 0, n_test: int = 0,
+                           d_feat: int = 768, d_clip: int = 512,
+                           vocab: int = 68_000, n_genus: int = 99) -> Dict:
+    """Write the warm root of ``cfg`` (``cub`` or ``sdogs``, see
+    :func:`warm_config`): the dataset's metadata at the published split
+    sizes (or ``n_train`` / ``n_test`` when given), a taxonomy and
+    vocabulary holding every class name, and the caches a warm
+    ``run_unsup`` / ``run_ptsup`` re-enters.  The readers list paths and
+    never open an image, so no image file is written."""
+    root, name = cfg.data.root_dir, cfg.data.dataset_name
+    if name == "cub":
+        class_names = fabricate_cub_tree(root, seed, n_train or CUB_TRAIN,
+                                         n_test or CUB_TEST)
+    elif name == "sdogs":
+        class_names = fabricate_sdogs_tree(root, n_train or SDOGS_TRAIN,
+                                           n_test or SDOGS_TEST)
+    else:
+        raise ValueError(f"no fine-grained fabricator for {name!r}")
+    info = _write_vocabulary(cfg, class_names, vocab, n_genus)
+    return _write_warm_caches(cfg, info, seed, device, d_feat, d_clip)
 
 
 # ------------------------------------------------------------- cold root

@@ -146,6 +146,70 @@ def test_em_kernel_matches_plain(cuda, n, d, k, masked, x_bf16):
     torch.testing.assert_close(sums, rs, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("k_active", [10, 100, 1_000])
+def test_em_kernel_with_sentinel_slots_matches_plain(cuda, k_active):
+    """``estimate_k``'s shape: 130,048 rows, 1,000 center slots, the ones
+    at or past ``k_active`` at the 1e12 sentinel (squared norm ~7.7e26 at
+    D 768); at k_active 10 a cluster holds ~13,000 rows.  Labels and
+    counts equal, every sentinel slot empty, sums and inertia within the
+    EM tolerances."""
+    from scd_tpu_torch.cluster.estimate_k import SENTINEL
+    from scd_tpu_torch.ops import em
+
+    n, d, max_k = 130_048, 768, 1_000
+    g = torch.Generator(device=cuda).manual_seed(k_active)
+    cls = 3.0 * torch.randn(k_active, d, generator=g, device=cuda)
+    lab = torch.randint(0, k_active, (n,), generator=g, device=cuda)
+    x = _unit(cls[lab] + 0.3 * torch.randn(n, d, generator=g, device=cuda),
+              1).contiguous()
+    c = torch.full((max_k, d), SENTINEL, device=cuda)
+    c[:k_active] = _unit(cls, 1)
+    before = em.fused_em_step_cuda.launches
+    lab_k, sums, counts, ine = em.em_iteration(x, c, max_k)
+    assert em.fused_em_step_cuda.launches == before + 1
+    plab, psums, pcounts, pine = em.em_iteration_plain(x, c, max_k)
+    assert torch.equal(lab_k.long(), plab.long())
+    assert torch.equal(counts, pcounts)
+    assert int(counts[k_active:].abs().sum()) == 0
+    assert bool((sums[k_active:] == 0).all())
+    torch.testing.assert_close(sums, psums, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ine, pine, rtol=1e-4, atol=0)
+
+
+def test_fit_kmeans_dynamic_k_card_matches_cpu(cuda):
+    """The dynamic-K Lloyd loop on the card (one kernel launch an
+    iteration) and on the CPU from one set of initial centers, on blobs
+    with no row near a tie: equal labels, inertia within 1e-4; and the
+    objective equal at three K."""
+    import importlib
+
+    from scd_tpu_torch.ops import em
+    from scd_tpu_torch.testing.fabricate import subclustered_blobs
+    from scd_tpu_torch.testing.shared_centers import centers_drawn_on_cpu
+
+    ek = importlib.import_module("scd_tpu_torch.cluster.estimate_k")
+    x, y, mask_lab = subclustered_blobs(5_000, 64, 20)
+    x_cpu = ek._normalized_device(x, "cpu")
+    out = {}
+    with centers_drawn_on_cpu(x) as reset:
+        for dev in ("cuda", "cpu"):
+            reset()
+            before = em.fused_em_step_cuda.launches
+            labels, inertia = ek.fit_kmeans_dynamic_k(
+                None, x_cpu.to(dev), 20, 100, n_init=2, max_iterations=10)
+            launches = em.fused_em_step_cuda.launches - before
+            reset()
+            obj = ek.labelled_acc_objective_dynamic(
+                x, y, mask_lab, 100, n_init=2, max_iterations=10, device=dev)
+            out[dev] = (labels, inertia, launches,
+                        [obj(k) for k in (5, 20, 60)])
+    (lc, ic, nc, ac), (lp, ip, npl, ap) = out["cuda"], out["cpu"]
+    assert nc == 20 and npl == 0
+    np.testing.assert_array_equal(lc, lp)
+    assert abs(ic - ip) <= 1e-4 * abs(ip)
+    assert ac == ap and ac[1] > max(ac[0], ac[2])
+
+
 def test_fit_kmeans_numpy_runs_on_the_card(cuda):
     """With no ``device``, ``fit_kmeans`` sends numpy to the card: the
     fused EM kernel launches, and the labels recover the blobs."""

@@ -2,7 +2,14 @@
 hashes, the artifact cache in both directions, the dtype rules of
 ``tensors_from_arrays``, metrics, vote counters, the Hungarian name
 assignment and WordNet lch.  All of it is host numpy/scipy code in both
-packages, so every comparison is exact equality."""
+packages, so every comparison is exact equality.
+
+Also the pieces no pipeline calls: ``HashTokenizer``,
+``SyntheticTaxonomy``, ``vote_candidates`` and
+``soft_semantic_acc_from_table`` (host code, exact); the assignment ops
+(contingency counts and the auction, exact: the auction runs the JAX
+loop's f32 arithmetic step for step); ``segment_mean`` / ``mstep_update``
+and ``masked_min_sum`` (f32 sums in another order: 1e-5)."""
 
 import os
 
@@ -186,3 +193,132 @@ def test_lch_equal_on_fabricated_wndb(tmp_path):
     for a in names:
         for b in names:
             assert tt.name_similarity(a, b) == jt.name_similarity(a, b)
+
+
+def test_hash_tokenizer_bit_equal():
+    from scd_tpu.models.tokenizer import HashTokenizer as J
+    from scd_tpu_torch.models.tokenizer import HashTokenizer as T
+
+    j, t = J(), T(vocab_size=1000)
+    assert T().sot_id == j.sot_id and T().eot_id == j.eot_id
+    j = J(vocab_size=1000)
+    texts = ["a photo of a dog.", "it's 42 o'clock -- Ice-cream!", "",
+             "word " * 90]
+    for text in texts:
+        assert t.encode(text) == j.encode(text)
+    np.testing.assert_array_equal(t(texts), j(texts))
+    np.testing.assert_array_equal(t(texts, context_length=9),
+                                  j(texts, context_length=9))
+    templates = ["a photo of a {}.", "{} in the wild", "art of the {}!",
+                 "({})", "itap of {}'s"]
+    names = ["dog", "great_white-shark", "o'clock", "(x)", "b.c"]
+    assert t.template_pieces(templates) == j.template_pieces(templates)
+    np.testing.assert_array_equal(t.prompt_tokens(templates, names),
+                                  j.prompt_tokens(templates, names))
+    assert T.name_boundary_punct("(x)") == J.name_boundary_punct("(x)")
+
+
+def test_synthetic_taxonomy_equal():
+    from scd_tpu.naming.wordnet import SyntheticTaxonomy as J
+    from scd_tpu_torch.naming.wordnet import SyntheticTaxonomy as T
+
+    j, t = J(), T()
+    assert (t.wnids, t.lemmas, t.hypernyms) == (j.wnids, j.lemmas,
+                                                j.hypernyms)
+    assert t.all_names() == j.all_names() and t.max_depth() == j.max_depth()
+    for a in t.all_names():
+        for b in t.all_names():
+            assert t.name_similarity(a, b) == j.name_similarity(a, b)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_vote_candidates_and_soft_table_bit_equal(seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.zipf(1.6, (200, 5)) % 30
+    counters = jvote.cluster_name_counters(idx, rng.integers(0, 7, 200), 5)
+    for m in (1, 3, 50):
+        assert tvote.vote_candidates(counters, m) == \
+            jvote.vote_candidates(counters, m)
+    n_names, n_cls, k = 12, 6, 8
+    table = rng.random((n_names, n_names))
+    tgt = rng.integers(0, n_cls, 300)
+    prd = rng.integers(0, k, 300)
+    t_idx, p_idx = rng.integers(0, n_names, n_cls), rng.integers(0, n_names, k)
+    assert tsemantic.soft_semantic_acc_from_table(tgt, prd, t_idx, p_idx,
+                                                  table) == \
+        jsemantic.soft_semantic_acc_from_table(tgt, prd, t_idx, p_idx, table)
+
+
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_assignment_ops_match_jax(n):
+    import jax.numpy as jnp
+
+    from scd_tpu.ops import assignment as ja
+    from scd_tpu_torch.ops import assignment as ta
+
+    rng = np.random.default_rng(n)
+    y_pred, y_true = rng.integers(0, n + 2, 500), rng.integers(0, n, 500)
+    want = ja.contingency_matrix_device(jnp.asarray(y_pred),
+                                        jnp.asarray(y_true), n + 2, n)
+    got = ta.contingency_matrix_device(torch.as_tensor(y_pred),
+                                       torch.as_tensor(y_true), n + 2, n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for profit in (rng.integers(0, 60, (n, n)).astype(np.float64),
+                   np.tile(rng.integers(0, 3, n)[:, None], (1, n)),  # ties
+                   rng.integers(0, 60, (n, n)) * 1e9):  # host-solve range
+        a = ta.auction_assignment(profit, device="cpu")
+        np.testing.assert_array_equal(a, ja.auction_assignment(profit))
+        assert sorted(a.tolist()) == list(range(n))
+    # max_iters hit: both fall back to the exact host solve
+    profit = rng.integers(0, 60, (n, n))
+    np.testing.assert_array_equal(
+        ta.auction_assignment(profit, max_iters=1, device="cpu"),
+        ja.auction_assignment(profit, max_iters=1))
+    cost = rng.random((n, n)).astype(np.float32)
+    np.testing.assert_array_equal(
+        ta.linear_assignment_device(cost, device="cpu"),
+        ja.linear_assignment_device(cost))
+
+
+@pytest.mark.parametrize("policy,weighted",
+                         [("keep", False), ("farthest", False),
+                          ("farthest", True)])
+def test_segment_mean_and_mstep_update_match_jax(policy, weighted):
+    import jax.numpy as jnp
+
+    from scd_tpu.ops import distance as jd
+    from scd_tpu.ops import segment as js
+    from scd_tpu_torch.ops import distance as td
+    from scd_tpu_torch.ops import segment as ts
+
+    rng = np.random.default_rng(3)
+    n, d, k = 300, 10, 9
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    labels = rng.integers(0, k - 3, n)  # the last three clusters are empty
+    prev = rng.standard_normal((k, d)).astype(np.float32)
+    mindist = rng.random(n).astype(np.float32)
+    w = (rng.random(n) < 0.7).astype(np.float32) if weighted else None
+    jw = None if w is None else jnp.asarray(w)
+    tw = None if w is None else torch.from_numpy(w)
+    jm, jc = js.segment_mean(jnp.asarray(x), jnp.asarray(labels), k, jw)
+    tm, tc = ts.segment_mean(torch.from_numpy(x), torch.from_numpy(labels),
+                             k, tw)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    want = js.mstep_update(jnp.asarray(x), jnp.asarray(labels), k,
+                           jnp.asarray(prev), jnp.asarray(mindist), policy,
+                           jw)
+    got = ts.mstep_update(torch.from_numpy(x), torch.from_numpy(labels), k,
+                          torch.from_numpy(prev), torch.from_numpy(mindist),
+                          policy, tw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="unknown empty_policy"):
+        ts.mstep_update(torch.from_numpy(x), torch.from_numpy(labels), k,
+                        torch.from_numpy(prev), empty_policy="nearest")
+    for nv in (n, n - 17):
+        np.testing.assert_allclose(
+            float(td.masked_min_sum(torch.from_numpy(mindist), nv)),
+            float(jd.masked_min_sum(jnp.asarray(mindist), nv)), rtol=1e-5)

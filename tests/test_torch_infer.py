@@ -188,5 +188,5 @@ def test_main_returns_the_image_count_as_jax(tiny, tmp_path, monkeypatch):
 def test_mesh_request_raises():
     from scd_tpu_torch.pipelines.infer import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
         main(["--mesh_data", "2", "--device", "cpu"])

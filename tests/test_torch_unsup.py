@@ -223,7 +223,7 @@ def test_cache_miss_names_the_encoder_slice(tmp_path):
     feat, clip, _txt = lazy_encoders(
         lambda: built.append(1) or build_encoders(cfg, {}, device="cpu"))
     assert not built  # nothing is built until an encoder is used
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
         load_shared_features(cfg, stage_cache(cfg), feat, clip,
                              [(np.zeros((4, 4, 3), np.uint8), 0, 0)], [0])
     assert built == [1]

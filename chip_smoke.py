@@ -13,8 +13,12 @@ Phases, each printing its own lines and seconds:
    325, 577, 785 and 1,025 through its long paths: bf16 on ``wgmma``,
    resident to L 832 and streamed past it, f32 on SIMT; ``classify_topk``
    at k 17 and 32 through the matmul route; ``topk_softmax`` at k 1 over
-   raw logits at V 68,000 and V 100, ptsup's bound passes), with the
-   stated tolerances; every kernel must also repeat its bits exactly;
+   raw logits at V 68,000 and V 100, ptsup's bound passes; the attention
+   gradient, ``csrc/attention_bwd.cu``, against autograd of the plain
+   attention at a training step's shape, B 256 x L 197 x H 12 x d 64 bf16,
+   at L 208 with l_valid 197, in f32, and at L 1, 17 and 256, and the
+   shapes it does not take raising), with the stated tolerances; every
+   kernel must also repeat its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
    ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
    nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
@@ -39,7 +43,9 @@ Phases, each printing its own lines and seconds:
    stored in bf16, with the f32 SIMT bound printed beside it);
    ``fused_em_step`` with both bf16 and f32 x (the ``kernels`` line takes
    the main path's); the attention long path at image 256, 288 and 384
-   (L 257, 325, 577); ``topk_softmax`` at k 1 (ptsup's bound pass);
+   (L 257, 325, 577); ``topk_softmax`` at k 1 (ptsup's bound pass); the
+   attention gradient at a training step's shape (L 197, and L 208 with
+   l_valid 197) beside the backward of ``F.scaled_dot_product_attention``;
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -96,6 +102,31 @@ Phases, each printing its own lines and seconds:
    cluster within the config's size bounds.  Cut to stay near ~90 s: the
    halving search and the ConSSKM run's CPU re-entry (21 s and 26 s on
    an H100).
+10. GCD training (``scd_tpu_torch.train``): one f32 step of a ViT-B/16
+   GCD model (grad_from_block 11, proj_dim 65,536, 2 x 8 images at 224)
+   on the card and on the CPU from the port's seeded init: losses within
+   1e-4, every trainable update within 1e-3 of its largest element with
+   a cosine >= 0.999, every frozen parameter bit-unchanged; then
+   ``scd_tpu_torch.train.metric_learn.main`` at full width (ViT-B/16 at
+   224, batch 128 x 2 views, bf16, 2 epochs of 10 steps, k-means evals
+   with max_kmeans_iter 10) on a fabricated ImageNet-100 tree of 3,000
+   train images (256 x 256 arrays made from ``(seed, path)`` at load
+   time): its epoch lines, ms a step, images/s, eval seconds and peak
+   memory; the attention forward must launch >= 12 x 20 times in the
+   steps, the gradient kernel once a step and ``fused_em_step`` in the
+   evals; the losses finite, ``manifest.json`` with latest and best, and
+   a fresh trainer restored from the last checkpoint must take one more
+   step with the same bits as the trainer that was not restored; two
+   steps under ``--int8_frozen 1`` (``w8a8_fusedq`` in the 11 frozen
+   blocks, the gradient kernel at L 208 / l_valid 197) with losses within
+   2% of bf16's from the same parameters, and the frozen blocks' summed
+   residual updates and the first qkv update close to bf16's; and a bf16
+   step's device time by kernel (``torch.profiler``), its peak memory and
+   the host's augmentation time.  The card step, ``metric_learn.main``
+   and the int8 steps each hold every kernel call they made
+   (``attention``, its gradient, ``fused_em_step``, ``w8a8_fusedq``)
+   against its plain version on the arguments the path passed it, once
+   per shape (``path_inputs``).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -105,9 +136,13 @@ with phase 3's launches plus phase 9's (the ``estimate_k`` search and the
 first run on each fine-grained root), ``w8a8_fusedq`` with phase 4's ``run_unsup``,
 ``dense_w8a8`` and ``dense_w8a8_3d`` (one kernel, ``w8a8_prequant``) with
 phase 4's ``pad_seq_to=0`` pass, ``vit_attention`` and ``qkv_attention``
-(one kernel) with phase 6's, and ``estep_assign`` with phase 7's.
+(one kernel) with phase 6's, and ``estep_assign`` with phase 7's; a
+last row, ``attention_bwd`` (no TPU kernel: the JAX package takes its
+attention gradient from XLA autodiff), with phase 10's training steps.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
-in its ``run_ptsup``) and prints them on a line of their own.
+in its ``run_ptsup``) and prints them on a line of their own; so does
+phase 10 (the attention forward, its gradient and ``fused_em_step`` in
+``metric_learn``'s steps and evals).
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -122,6 +157,7 @@ import ast
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -140,6 +176,8 @@ TOPK = 5
 COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
 # a ViT-B/16 tower at image 256: 16 x 16 patches + class token
 IMAGE_LONG, L_257 = 256, 257
+# a GCD training step's batch: 2 views x 128 images
+TRAIN_B = 256
 # the text tower's largest batch (64 names x 80 templates) and the k-means
 # runner's feature store (ImageNet-100's 130,048 training images)
 TEXT_BATCH, RUNNER_N = 5_120, 130_048
@@ -159,6 +197,14 @@ EM_DIST_TOL = 1e-4
 #   each summed in another order than the plain version's matmul
 EM_SUM_RTOL, EM_SUM_ATOL = 1e-4, 1e-4
 EM_INERTIA_RTOL = 1e-4
+# - and each row's term of the inertia, |x|^2 + |c|^2 - 2 x.c in f32 from
+#   the contract's split products, is off by a share of |x|^2 + |c|^2
+#   whatever the distance: the dropped lo.lo products, up to 2^-18 of it,
+#   all of one sign where a row lies at its center; the split's rounding
+#   and the f32 sums, of both signs.  An inertia near 0 (rows at their
+#   centers, as when K = N) is all cancellation.  Read on an H100 at K = N
+#   = 100, every row its own center: 2.9e-6 of |x|^2 + |c|^2
+EM_INERTIA_ROW = 2.0 ** -17
 # - W8A8: the kernels repeat the plain versions' arithmetic step by step
 #   (IEEE division, round half to even, exact int32 products, each dequant
 #   step rounded), so outputs before the activation are equal; after it
@@ -181,13 +227,18 @@ ATTN_BF16_REL, ATTN_BF16_VREL = 2.0 ** -7, 2.0 ** -8
 # - attention, f32: dot products, exp and sums in another order than the
 #   plain version's matmuls: ~1e-6 of max|v|
 ATTN_F32_VREL = 1e-5
+# - the attention gradient, against autograd of the plain version, per
+#   element of dQ, dK, dV: bf16 2^-7 |want| + 2^-6 M, f32 1e-4 M, with M
+#   the sum of the absolute values of the terms it sums; the reasons stand
+#   in scd_tpu_torch/testing/attention_grad.py, which the gpu tests share
 # - estep_assign: squared distances of unit-norm rows in f32 (labels equal
 #   wherever the exact distances differ by more than EM_DIST_TOL)
 ESTEP_DIST_TOL = 1e-4
 # floors of the fabricated structure (class signal far above the noise)
 ACC_FLOOR, IOU_FLOOR = 0.90, 0.80
 # the kernel sources under scd_tpu_torch/csrc, built together in phase 1
-SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep")
+SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep",
+           "attention_bwd")
 
 
 def fail(msg: str):
@@ -296,19 +347,20 @@ def phase_build():
 
 def _short(mangled: str) -> str:
     """A kernel's name and template arguments, from its mangled name (the
-    name follows its length, after the namespace's)."""
+    name follows its length, after the namespace's).  Of the identifiers
+    ending in ``_kernel`` that a length prefix spells, the innermost (the
+    last to start): the anonymous namespace's name carries a hash of the
+    source's path whose digits can spell a longer one around it."""
     import re
 
-    name, end = mangled[:48], 0
+    name, start, end = mangled[:48], -1, 0
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
         for i in range(len(digits)):
             cand = mangled[m.end():m.end() + int(digits[i:])]
-            if cand.endswith("_kernel") and cand.isidentifier():
-                name, end = cand, m.end() + len(cand)
-                break
-        if end:
-            break
+            if (cand.endswith("_kernel") and cand.isidentifier()
+                    and m.end() > start):
+                name, start, end = cand, m.end(), m.end() + len(cand)
     tail = mangled[end:]
     args = re.match(r"ILi(\d+)E", tail)
     out = "bf16" if "bfloat16E" in tail[:24] else (
@@ -527,12 +579,18 @@ def em_hold(xk, c, row_w=None, tag=""):
     check(torch.allclose(sums, rsums, rtol=EM_SUM_RTOL, atol=EM_SUM_ATOL),
           f"fused_em {tag}: sums error {err} (rel {rel:.3e} of the largest)")
     check(torch.equal(counts, rcounts), f"fused_em {tag}: counts differ")
-    rel_ine = abs(ine.item() - pine.item()) / max(abs(pine.item()), 1e-30)
-    check(rel_ine <= EM_INERTIA_RTOL, f"fused_em {tag}: inertia rel {rel_ine}")
+    w = 1.0 if row_w is None else row_w.float()
+    mag = (w * (xk.float().square().sum(1)
+                + c.square().sum(1)[lab.long()])).sum().item()
+    ine_err = abs(ine.item() - pine.item())
+    ine_tol = EM_INERTIA_RTOL * abs(pine.item()) + EM_INERTIA_ROW * mag
+    check(ine_err <= ine_tol, f"fused_em {tag}: inertia {ine.item()} vs "
+          f"plain {pine.item()}, beyond {ine_tol:.3e}")
     print(f"  fused_em_step {tag} N={n} D={d} K={k} "
           f"mask={row_w is not None} x_bf16={xk.dtype == torch.bfloat16}: "
           f"label mismatches {int(diff.sum())}, sums max abs err {err:.3e} "
-          f"(rel {rel:.3e}), inertia rel err {rel_ine:.3e}")
+          f"(rel {rel:.3e}), inertia {ine.item():.6e} vs plain "
+          f"{pine.item():.6e}: {ine_err / ine_tol:.3f} of the bound")
     return err, (lab, sums, counts, ine)
 
 
@@ -566,12 +624,14 @@ def _w8a8_check(got, want, act, tag):
     return err.max().item()
 
 
-def fusedq_parity(n, d, f, act, out, gen, tag):
+def fusedq_parity(n, d, f, act, out, gen, tag, inputs=None):
+    """Kernel vs plain on random inputs of one shape, or on ``inputs``
+    (x, wq_t, s_w, bias) a path passed it; returns the max abs error."""
     import torch
 
     from scd_tpu_torch.ops import w8a8
 
-    x, wq_t, s_w, bias = w8a8_inputs(n, d, f, gen)
+    x, wq_t, s_w, bias = inputs or w8a8_inputs(n, d, f, gen)
     want = w8a8.dense_w8a8_fusedq_plain(x, wq_t, s_w, bias, out, act)
     got = w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, out, act)
     again = w8a8.w8a8_fusedq_cuda(x, wq_t, s_w, bias, out, act)
@@ -645,16 +705,16 @@ def _attn_inputs(b, length, h, d, dtype, packed, gen):
 
 
 def attention_parity(b, length, h, d, dtype, gen, causal=False, l_valid=None,
-                     packed=True, tag="", inputs=None):
+                     packed=True, tag="", inputs=None, scale=None):
     """Kernel (through ``qkv_attention`` or ``vit_attention``) vs plain on
     one shape, with the tolerances above; returns the max abs error.
     ``inputs``: the (qkv, (q, k, v)) of ``_attn_inputs`` to check, else
-    made here from ``gen``."""
+    made here from ``gen``; ``scale`` defaults to d^-0.5."""
     import torch
 
     from scd_tpu_torch.ops import attention as A
 
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qkv, (q, k, v) = inputs or _attn_inputs(b, length, h, d, dtype, packed,
                                             gen)
     if packed:
@@ -683,6 +743,93 @@ def attention_parity(b, length, h, d, dtype, gen, causal=False, l_valid=None,
           f"{'qkv' if packed else 'vit'}: max abs err {err.max().item():.3e}"
           f" (max |v| {vmax:.2f})")
     return err.max().item()
+
+
+def attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=None, tag="",
+                         inputs=None, scale=None):
+    """The gradient kernel (``qkv_attention_bwd_cuda``) against autograd
+    of ``attention_plain`` on the card (``qkv_attention_bwd_plain``), from
+    a random packed qkv and output gradient, or ``inputs`` (qkv, dout) a
+    path passed it (``scale`` defaults to d^-0.5); every element of dQ,
+    dK and dV within the bound of ``testing/attention_grad.py``, the bits
+    repeated.  Returns the max abs error."""
+    import torch
+
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.attention_grad import grad_bound
+
+    scale = d ** -0.5 if scale is None else scale
+    if inputs is None:
+        qkv = torch.randn(b, length, 3 * h * d, generator=gen,
+                          device="cuda").to(dtype)
+        dout = torch.randn(b, length, h * d, generator=gen,
+                           device="cuda").to(dtype)
+    else:
+        qkv, dout = inputs
+    got = A.qkv_attention_bwd_cuda(qkv, dout, h, scale, False, l_valid)
+    again = A.qkv_attention_bwd_cuda(qkv, dout, h, scale, False, l_valid)
+    torch.cuda.synchronize()
+    name = f"attention_bwd {tag}"
+    check(torch.equal(got, again), f"{name}: two runs differ")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite gradient")
+    want = A.qkv_attention_bwd_plain(qkv, dout, h, scale, False, l_valid)
+    lv = length if l_valid is None else l_valid
+    bound = grad_bound(qkv, dout, h, scale, lv, want)
+    errs = []
+    for part, g, w, m in zip("qkv", A._heads(got, h), A._heads(want, h),
+                             A._heads(bound, h)):
+        err = (g.float() - w.float()).abs()
+        ratio = (err / m.clamp_min(1e-30)).max().item()
+        check(bool((err <= m).all()),
+              f"{name}: d{part} error {err.max().item():.3e} beyond the "
+              f"stated bound (worst ratio {ratio:.3f})")
+        errs.append((err.max().item(), w.float().abs().max().item(), ratio))
+    check(bool((A._heads(got, h)[1][:, lv:] == 0).all()
+               and (A._heads(got, h)[2][:, lv:] == 0).all()),
+          f"{name}: nonzero dK or dV at a masked key")
+    print(f"  {name} B={b} L={length} H={h} d={d} {str(dtype)[6:]} "
+          f"l_valid={l_valid}: max abs err dq/dk/dv "
+          + " / ".join(f"{e:.3e} (max {m:.3e}, {r:.3f} of bound)"
+                       for e, m, r in errs))
+    return max(e for e, _m, _r in errs)
+
+
+def parity_attention_bwd(seed: int):
+    """The gradient kernel at the training shape, the int8-padded one,
+    f32, and the edges; returns the max abs error at the training shape.
+    Shapes it does not take must raise."""
+    import torch
+
+    from scd_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = max(
+        attention_bwd_parity(TRAIN_B, L_VIT, 12, 64, bf16, gen,
+                             tag="train"),
+        attention_bwd_parity(TRAIN_B, L_PAD, 12, 64, bf16, gen,
+                             l_valid=L_VIT, tag="train-int8-pad"))
+    attention_bwd_parity(16, L_VIT, 12, 64, f32, gen, tag="f32-train")
+    attention_bwd_parity(5, 1, 3, 64, bf16, gen, tag="edge-L1")
+    attention_bwd_parity(7, 17, 5, 64, bf16, gen, l_valid=9,
+                         tag="edge-L17")
+    attention_bwd_parity(3, 256, 7, 64, bf16, gen, tag="edge-L256")
+    attention_bwd_parity(3, 256, 2, 128, f32, gen, l_valid=200,
+                         tag="edge-f32-d128")
+    attention_bwd_parity(4, 33, 3, 40, f32, gen, tag="edge-f32-d40")
+    qkv = torch.zeros(2, 257, 3 * 64, device="cuda", dtype=bf16)
+    dout = torch.zeros(2, 257, 64, device="cuda", dtype=bf16)
+    for args, what in (((qkv, dout, 1, 0.125), "L 257"),
+                       ((qkv[:, :16], dout[:, :16], 1, 0.125, True),
+                        "causal"),
+                       ((qkv[:, :16], dout[:, :16], 2, 0.125),
+                        "bf16 head_dim 32")):
+        try:
+            A.qkv_attention_bwd_cuda(*args)
+        except (NotImplementedError, ValueError):
+            continue
+        fail(f"attention_bwd: {what} did not raise")
+    return err
 
 
 def estep_parity(n, d, k, gen, dup=False, view=False, tag=""):
@@ -870,6 +1017,7 @@ def phase_parity(seed: int):
     em_parity(37, 768, 7, gen, x_bf16=True, masked=True, tag="edge-N37-bf16")
     em_parity(20_000, 768, 683, gen, x_bf16=True, tag="edge-K683-bf16")
     errs.update(parity_attention_estep(seed))
+    errs["attention_bwd"] = parity_attention_bwd(seed)
     return errs
 
 
@@ -970,7 +1118,9 @@ def _counters():
             "attention_long_wgmma": (attention.attention_cuda,
                                      "long_wgmma_launches"),
             "estep_assign": (distance.estep_assign_cuda, "launches"),
-            "topk_matmul_route": (topk.classify_topk, "matmul_calls")}
+            "topk_matmul_route": (topk.classify_topk, "matmul_calls"),
+            "attention_bwd": (attention.qkv_attention_bwd_cuda,
+                              "launches")}
 
 
 def _reset_counts():
@@ -1291,6 +1441,63 @@ def _attention_bound(b, length, h, d, causal, l_valid, elem_bytes=2):
                   4.0 * elem_bytes * b * length * h * d)
 
 
+def _attention_bwd_bound(b, length, h, d, l_valid, elem_bytes=2):
+    """q, k, v and dO read once, dq, dk, dv written once; the five
+    products a backward needs (s = q . k^T again, dP = dO . V^T,
+    dV = P^T . dO, dQ = dS . K, dK = dS^T . Q) over the score pairs this
+    input keeps (keys < l_valid), at the bf16 tensor-core peak."""
+    return _bound(10.0 * b * h * d * length * l_valid, PEAK_BF16_FLOPS,
+                  7.0 * elem_bytes * b * length * h * d)
+
+
+def time_attention_bwd(gen):
+    """The gradient kernel at a training step's shape (B 256, L 197; and
+    L 208 with l_valid 197, under --int8_frozen): kernel, plain version
+    (autograd of ``attention_plain``), and as the yardstick the backward
+    of ``F.scaled_dot_product_attention`` by autograd (timed here, called
+    nowhere in the port), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from scd_tpu_torch.ops import attention as A
+
+    out = {}
+    for tag, length, lv in (("train", L_VIT, L_VIT),
+                            ("train-int8-pad", L_PAD, L_VIT)):
+        qkv = torch.randn(TRAIN_B, length, 3 * 768, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        dout = torch.randn(TRAIN_B, length, 768, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+        def kern():
+            return A.qkv_attention_bwd_cuda(qkv, dout, 12, 0.125, False, lv)
+
+        ms = cuda_ms(kern, reps=5, warmup=1)
+        ms_again = cuda_ms(kern, reps=5, warmup=1)
+        plain = cuda_ms(lambda: A.qkv_attention_bwd_plain(
+            qkv, dout, 12, 0.125, False, lv), reps=2)
+        q, k, v = (t.transpose(1, 2).detach().requires_grad_(True)
+                   for t in A._heads(qkv, 12))
+        mask = None
+        if lv < length:
+            mask = (torch.arange(length, device="cuda") < lv)[
+                None, None, None, :]
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        go = dout.view(TRAIN_B, length, 12, 64).transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), go,
+                                                  retain_graph=True),
+                      reps=5, warmup=1)
+        bound, by = _attention_bwd_bound(TRAIN_B, length, 12, 64, lv)
+        print(f"  attention_bwd {tag} B={TRAIN_B} L={length} l_valid={lv} "
+              f"H=12 d=64 bf16: kernel {ms:.4f} ms (again {ms_again:.4f}), "
+              f"plain {plain:.4f} ms, library (SDPA backward) {lib:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}); {ms / bound:.1f} x the bound")
+        out[f"attention_bwd-{tag}"] = (ms, plain, lib, bound, by)
+        del qkv, dout, q, k, v, o, go
+    out["attention_bwd"] = out.pop("attention_bwd-train")
+    return out
+
+
 def time_attention_estep(gen):
     """The attention kernel through both entry points at the image
     towers' shape and the qkv entry at the text tower's, and the estep
@@ -1462,6 +1669,7 @@ def phase_timing(seed: int, estep):
         "fused_em_step": em_times[bool(estep[1])],
         **time_w8a8(gen),
         **time_attention_estep(gen),
+        **time_attention_bwd(gen),
     }
 
 
@@ -2189,54 +2397,115 @@ def _run(fn, cfg, device):
     return res, buf.getvalue().splitlines(), time.perf_counter() - t0
 
 
+# the kernels whose inputs :func:`path_inputs` copies: name -> (module
+# under scd_tpu_torch.ops, the wrapper that launches the kernel)
+PATH_WRAPPERS = {"fused_em_step": ("em", "fused_em_step_cuda"),
+                 "topk_softmax": ("topk", "topk_softmax_cuda"),
+                 "attention": ("attention", "attention_cuda"),
+                 "attention_bwd": ("attention", "qkv_attention_bwd_cuda"),
+                 "w8a8_fusedq": ("w8a8", "w8a8_fusedq_cuda")}
+
+
+def _path_key(args):
+    """A call's shapes, dtypes, strides and options."""
+    import torch
+
+    return tuple((name, (tuple(v.shape), v.dtype, v.stride()))
+                 if isinstance(v, torch.Tensor) else (name, v)
+                 for name, v in args.items())
+
+
+def _path_copy(args):
+    """``args`` with every tensor copied.  Tensors that are views of one
+    contiguous buffer (the q, k, v of a packed qkv) stay views of one
+    copy, at their strides."""
+    import torch
+
+    tensors = [v for v in args.values() if isinstance(v, torch.Tensor)]
+    copies = {}
+    for v in tensors:
+        base = v._base
+        if (base is not None and base.is_contiguous()
+                and sum(t._base is base for t in tensors) > 1):
+            copies.setdefault(id(base), (base, base.clone()))
+    out = {}
+    for name, v in args.items():
+        if not isinstance(v, torch.Tensor):
+            out[name] = v
+        elif v._base is not None and id(v._base) in copies:
+            base, copy = copies[id(v._base)]
+            out[name] = copy.as_strided(
+                v.shape, v.stride(), v.storage_offset() - base.storage_offset())
+        else:
+            out[name] = v.clone()
+    return out
+
+
 @contextlib.contextmanager
 def path_inputs():
-    """Within the block, the inputs of the first call of
-    ``fused_em_step_cuda`` and of ``topk_softmax_cuda`` at each distinct
-    shape, dtype and option are copied into the yielded dict, under the
-    kernel's name; every call runs on as it would.  A wrapper counts its
-    launches on the module's name for it, so each spy carries the count
-    while it stands in, and hands it back on leaving."""
-    from scd_tpu_torch.ops import em, topk
+    """Within the block, the arguments of the first call of each wrapper
+    of PATH_WRAPPERS at each distinct shape, dtype, stride and option are
+    copied into the yielded dict, under the kernel's name; every call runs
+    on as it would.  A wrapper counts its launches on the module's name
+    for it, so each spy carries the counts while it stands in, and hands
+    them back on leaving."""
+    import importlib
+    import inspect
 
-    seen = {"fused_em_step": {}, "topk_softmax": {}}
-    real_em, real_topk = em.fused_em_step_cuda, topk.topk_softmax_cuda
+    seen = {name: {} for name in PATH_WRAPPERS}
+    patched = []
+    for name, (mod_name, attr) in PATH_WRAPPERS.items():
+        mod = importlib.import_module(f"scd_tpu_torch.ops.{mod_name}")
+        real = getattr(mod, attr)
+        sig = inspect.signature(real)
 
-    def em_spy(x, centers, row_w=None):
-        key = (tuple(x.shape), x.dtype, tuple(centers.shape), row_w is None)
-        if key not in seen["fused_em_step"]:
-            seen["fused_em_step"][key] = (
-                x.clone(), centers.clone(),
-                None if row_w is None else row_w.clone())
-        return real_em(x, centers, row_w)
+        def spy(*a, _real=real, _sig=sig, _seen=seen[name], **kw):
+            bound = _sig.bind(*a, **kw)
+            bound.apply_defaults()
+            key = _path_key(bound.arguments)
+            if key not in _seen:
+                _seen[key] = _path_copy(bound.arguments)
+            return _real(*a, **kw)
 
-    def topk_spy(feats, weights, k, scale=100.0):
-        key = (tuple(feats.shape), tuple(weights.shape), k, scale)
-        if key not in seen["topk_softmax"]:
-            seen["topk_softmax"][key] = (feats.clone(), weights.clone(), k,
-                                         scale)
-        return real_topk(feats, weights, k, scale=scale)
-
-    pairs = ((em_spy, real_em), (topk_spy, real_topk))
-    for spy, real in pairs:
-        spy.launches = real.launches
-    em.fused_em_step_cuda, topk.topk_softmax_cuda = em_spy, topk_spy
+        spy.__dict__.update(real.__dict__)
+        setattr(mod, attr, spy)
+        patched.append((mod, attr, real, spy))
     try:
         yield seen
     finally:
-        em.fused_em_step_cuda, topk.topk_softmax_cuda = real_em, real_topk
-        for spy, real in pairs:
-            real.launches = spy.launches
+        for mod, attr, real, spy in patched:
+            setattr(mod, attr, real)
+            real.__dict__.update(spy.__dict__)
 
 
 def hold_path_inputs(seen, tag):
-    """Each kernel against its plain version on the inputs a main path
-    passed it (:func:`path_inputs`), with :func:`em_hold`'s and
-    :func:`topk_hold`'s tolerances."""
-    for i, (x, c, row_w) in enumerate(seen["fused_em_step"].values()):
-        em_hold(x, c, row_w, tag=f"{tag} #{i}")
-    for i, (f, w, k, scale) in enumerate(seen["topk_softmax"].values()):
-        topk_hold(f, w, k, scale, tag=f"{tag} #{i}")
+    """Each kernel against its plain version on the arguments a main path
+    passed it (:func:`path_inputs`), with the tolerances of
+    :func:`em_hold`, :func:`topk_hold`, :func:`attention_parity`,
+    :func:`attention_bwd_parity` and :func:`fusedq_parity`."""
+    for i, a in enumerate(seen["fused_em_step"].values()):
+        em_hold(a["x"], a["centers"], a["row_w"], tag=f"{tag} #{i}")
+    for i, a in enumerate(seen["topk_softmax"].values()):
+        topk_hold(a["feats"], a["weights"], a["k"], a["scale"],
+                  tag=f"{tag} #{i}")
+    for i, a in enumerate(seen["attention"].values()):
+        q = a["q"]
+        b, length, h, d = q.shape
+        attention_parity(b, length, h, d, q.dtype, None, a["causal"],
+                         a["l_valid"], packed=False, tag=f"{tag} #{i}",
+                         inputs=(None, (q, a["k"], a["v"])), scale=a["scale"])
+    for i, a in enumerate(seen["attention_bwd"].values()):
+        qkv, h = a["qkv"], a["heads"]
+        b, length, w3 = qkv.shape
+        check(not a["causal"], f"attention_bwd {tag}: a causal call ran")
+        attention_bwd_parity(b, length, h, w3 // (3 * h), qkv.dtype, None,
+                             a["l_valid"], tag=f"{tag} #{i}",
+                             inputs=(qkv, a["dout"]), scale=a["scale"])
+    for i, a in enumerate(seen["w8a8_fusedq"].values()):
+        x, wq_t = a["x"], a["wq_t"]
+        fusedq_parity(x.shape[0], x.shape[1], wq_t.shape[0], a["act"],
+                      a["out_dtype"], None, f"{tag} #{i}",
+                      inputs=(x, wq_t, a["s_w"], a["bias"]))
 
 
 def fine_grained_run(fn, cfg, tag, against_cpu=True):
@@ -2349,6 +2618,487 @@ def phase_estimate_k(seed: int, workdir: str):
     return err, times, launches
 
 
+# ------------------------------------------------------------- phase 10
+
+# the training step of phase 10: ViT-B/16 at 224, 128 images x 2 views,
+# the GCD recipe's last block and head trainable; the card-against-CPU
+# step's batch (2 views x 8 images); the fabricated ImageNet-100 root's
+# train images (30 a class), its WordNet vocabulary
+TRAIN_IMAGES, TRAIN_VIEWS, GRAD_FROM_BLOCK, PROJ_DIM = 128, 2, 11, 65_536
+CPU_STEP_IMAGES, TRAIN_ROOT_IMAGES, TRAIN_ROOT_VOCAB = 8, 3_000, 1_100
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 10
+# tolerances, with their reasons:
+# - one f32 step card against CPU: the loss and the first SGD update
+#   (-lr (g + wd p)) from f32 forward and backward passes through 12
+#   blocks and the head whose sums run in other orders (cuBLAS and the
+#   attention kernels against the CPU's matmuls and plain versions):
+#   ~1e-6 relative per layer, so 1e-4 on the loss, and each trainable
+#   update within 1e-3 of its largest element with a cosine >= 0.999
+STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_COS_MIN = 1e-4, 1e-3, 0.999
+# - --int8_frozen against bf16 from the same parameters: W8A8 rounding
+#   of qkv and fc1 (amax / 127 steps per row and per channel) in the 11
+#   frozen blocks perturbs the features by ~1e-2 relative; the loss, a
+#   mean over 256 anchors, moves less.  On noise images at init the loss
+#   sits near log(255) whatever the trunk computes, so the trunk itself is
+#   held too: the sum of the frozen blocks' residual updates and the
+#   first qkv update of the trainable block, int8 against bf16, each
+#   within ~3x the deviation read on an H100 at this seed (the updates:
+#   1 - cosine 1.44e-4, 1.70e-2 relative; qkv: 1 - cosine 1.45e-3).
+#   Every int8 weight scale 10% off, imposed at run time, reads 3.96e-3
+#   and 0.167 (caught); the per-channel scales rotated by one channel,
+#   nearly equal at this init, read 2.86e-4 and 2.39e-2 (not caught)
+INT8_LOSS_RTOL = 0.02
+INT8_TRUNK_DEV, INT8_TRUNK_REL, INT8_QKV_DEV = 5e-4, 0.05, 5e-3
+
+
+def _train_configs(dtype, int8_frozen=False, total_steps=TRAIN_EPOCHS
+                   * TRAIN_STEPS):
+    """metric_learn's ViT-B/16 and TrainConfig for ``--vit base
+    --image_size 224 --grad_from_block 11 --proj_dim 65536`` (the CLI's
+    defaults otherwise)."""
+    from scd_tpu_torch.core.config import TrainConfig
+    from scd_tpu_torch.models.vit import ViTConfig
+
+    vit = ViTConfig(image_size=224, patch_size=16, width=768, depth=12,
+                    heads=12, compute_dtype=dtype)
+    cfg = TrainConfig(lr=0.1, sup_con_weight=0.35,
+                      grad_from_block=GRAD_FROM_BLOCK, n_views=TRAIN_VIEWS,
+                      proj_dim=PROJ_DIM, batch_size=TRAIN_IMAGES,
+                      int8_frozen=int8_frozen)
+    return vit, cfg, total_steps
+
+
+def _train_batch(seed, n_images):
+    """A host batch of ``n_images`` x 2 views (normalized-scale noise)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"images": rng.standard_normal(
+                (TRAIN_VIEWS * n_images, 224, 224, 3)).astype(np.float32),
+            "labels": rng.integers(0, 50, n_images),
+            "mask_lab": rng.random(n_images) < 0.5}
+
+
+def train_step_card_against_cpu(seed):
+    """One f32 GCD step of ViT-B/16 on the card and on the CPU from the
+    port's init (seed), carried to both, and one batch."""
+    import torch
+
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    vit, cfg, total = _train_configs(torch.float32)
+    t0 = time.perf_counter()
+    card = GCDTrainer(vit, cfg, seed=seed, total_steps=total, device="cuda")
+    cpu = GCDTrainer(vit, cfg, seed=seed, total_steps=total, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    before = {k: v.cpu().clone() for k, v in card.model.state_dict().items()}
+    trainable = {n for n, p in card.model.named_parameters()
+                 if p.requires_grad}
+    batch = _train_batch(seed + 1, CPU_STEP_IMAGES)
+    _reset_counts()
+    with path_inputs() as seen:
+        m_card = card.step_fn(card.model, card.opt, card.to_device(batch))
+        torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["attention_bwd"] == 1 and counts["attention"] == 12,
+          f"card step: launches {counts}")
+    hold_path_inputs(seen, "f32 step")
+    m_cpu = cpu.step_fn(cpu.model, cpu.opt, cpu.to_device(batch))
+    loss_card, loss_cpu = m_card["loss"].item(), m_cpu["loss"].item()
+    check(abs(loss_card - loss_cpu) <= STEP_LOSS_RTOL * abs(loss_cpu),
+          f"card step loss {loss_card} vs CPU {loss_cpu}")
+    after_cpu = cpu.model.state_dict()
+    worst_cos, worst_err, frozen = 1.0, 0.0, 0
+    for name, v in card.model.state_dict().items():
+        v = v.cpu()
+        if name not in trainable:
+            check(torch.equal(v, before[name]), f"frozen {name} changed")
+            check(torch.equal(after_cpu[name], before[name]),
+                  f"frozen {name} changed on the CPU")
+            frozen += 1
+            continue
+        du = (v - before[name]).double()
+        dw = (after_cpu[name] - before[name]).double()
+        check(dw.norm().item() > 0, f"{name}: no update on the CPU")
+        cos = ((du * dw).sum() / (du.norm() * dw.norm())).item()
+        err = ((du - dw).abs().max() / dw.abs().max()).item()
+        worst_cos, worst_err = min(worst_cos, cos), max(worst_err, err)
+        check(cos >= STEP_COS_MIN and err <= STEP_UPDATE_TOL,
+              f"{name}: update cosine {cos:.6f}, error {err:.2e} of its "
+              f"largest element")
+    print(f"  one f32 step, {TRAIN_VIEWS} x {CPU_STEP_IMAGES} images: loss "
+          f"card {loss_card:.6f} CPU {loss_cpu:.6f}; {len(trainable)} "
+          f"trainable updates: min cosine {worst_cos:.7f}, max error "
+          f"{worst_err:.2e} of the largest element; {frozen} frozen "
+          f"parameters unchanged; {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+
+
+class _TrainProbe:
+    """For the length of a ``with`` block, the clock and the launch counts
+    at the start and the end of each ``GCDTrainer.train_epoch`` and at the
+    start of each ``CheckpointManager.save``.  ``fit`` runs an epoch, its
+    eval, its log line, then the save, so an eval is what lies between an
+    epoch's end and the next save."""
+
+    def __enter__(self):
+        import torch
+
+        from scd_tpu_torch.train import checkpoint, gcd
+
+        self.marks = []
+        self._real = [(gcd.GCDTrainer, "train_epoch",
+                       gcd.GCDTrainer.train_epoch),
+                      (checkpoint.CheckpointManager, "save",
+                       checkpoint.CheckpointManager.save)]
+        epoch_fn, save_fn = (real for _cls, _name, real in self._real)
+
+        def mark(what):
+            torch.cuda.synchronize()
+            self.marks.append((what, time.perf_counter(), _counts()))
+
+        def train_epoch(trainer, *a, **kw):
+            mark("epoch")
+            out = epoch_fn(trainer, *a, **kw)
+            mark("epoch end")
+            return out
+
+        def save(manager, *a, **kw):
+            mark("save")
+            return save_fn(manager, *a, **kw)
+
+        gcd.GCDTrainer.train_epoch = train_epoch
+        checkpoint.CheckpointManager.save = save
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, real in self._real:
+            setattr(cls, name, real)
+
+    def spans(self, start, end):
+        """(seconds, launches by kernel) from each ``start`` mark to the
+        ``end`` mark that follows it."""
+        out, opened = [], None
+        for what, t, counts in self.marks:
+            if what == start:
+                opened = (t, counts)
+            elif what == end and opened is not None:
+                out.append((t - opened[0],
+                            {k: counts[k] - opened[1][k] for k in counts}))
+                opened = None
+        return out
+
+
+def metric_learn_full(seed, workdir):
+    """``metric_learn.main`` at ViT-B/16 full width on a fabricated
+    ImageNet-100 root; returns (main's result, the per-step launches)."""
+    import json as _json
+
+    import torch
+
+    from scd_tpu_torch.testing.fabricate import (fabricate_imagenet_tree,
+                                                 fabricated_images,
+                                                 imagenet100_config)
+    from scd_tpu_torch.train import metric_learn
+
+    t0 = time.perf_counter()
+    cfg = imagenet100_config(os.path.join(workdir, "in100"))
+    fabricate_imagenet_tree(cfg, TRAIN_ROOT_IMAGES, TRAIN_ROOT_VOCAB, 20)
+    print(f"  fabricated an ImageNet-100 tree of {TRAIN_ROOT_IMAGES} train "
+          f"images in {time.perf_counter() - t0:.1f} s")
+    argv = ["--dataset_name", "imagenet_100", "--root_dir",
+            cfg.data.root_dir, "--vit", "base", "--image_size", "224",
+            "--batch_size", str(TRAIN_IMAGES), "--n_views",
+            str(TRAIN_VIEWS), "--grad_from_block", str(GRAD_FROM_BLOCK),
+            "--proj_dim", str(PROJ_DIM), "--bf16", "1", "--epochs",
+            str(TRAIN_EPOCHS), "--steps_per_epoch", str(TRAIN_STEPS),
+            "--max_kmeans_iter", "10", "--exp_root",
+            os.path.join(workdir, "runs")]
+    print("  python -m scd_tpu_torch.train.metric_learn " + " ".join(
+        a if a != cfg.data.root_dir else "<root>" for a in argv))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    # the images are 256 x 256: the imagenet train transform's resize to
+    # 224 / 0.875 = 256 is then the identity, so no decoder is needed
+    with fabricated_images(seed, size=256), _TrainProbe() as probe, \
+            path_inputs() as seen:
+        res = metric_learn.main(argv)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    epochs, evals = probe.spans("epoch", "epoch end"), \
+        probe.spans("epoch end", "save")
+    with open(os.path.join(res["log_dir"], "log.txt")) as f:
+        for ln in f:
+            if "Epoch" in ln:
+                print("  " + ln.split(" INFO ", 1)[-1].rstrip())
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    step_launch = {k: sum(e[1][k] for e in epochs)
+                   for k in ("attention", "attention_bwd", "fused_em_step")}
+    eval_launch = {k: sum(e[1][k] for e in evals)
+                   for k in ("attention", "fused_em_step")}
+    epoch_s = [e[0] for e in epochs]
+    ms_step = 1e3 * sum(epoch_s) / steps
+    print(f"  {steps} steps: {ms_step:.1f} ms a step (host augmentation "
+          f"included), {TRAIN_IMAGES * 1e3 / ms_step:.1f} images/s "
+          f"({TRAIN_VIEWS * TRAIN_IMAGES * 1e3 / ms_step:.1f} views/s); "
+          f"epochs {', '.join(f'{t:.2f}' for t in epoch_s)} s; evals "
+          f"{', '.join(f'{e[0]:.2f}' for e in evals)} s; main "
+          f"{wall:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  launches in the steps {step_launch}, in the evals "
+          f"{eval_launch}, in all {counts}")
+    check(step_launch["attention"] >= 12 * steps,
+          "metric_learn: the attention kernel launched too rarely")
+    check(step_launch["attention_bwd"] == steps
+          and counts["attention_bwd"] == steps,
+          "metric_learn: the gradient kernel did not launch once a step")
+    check(eval_launch["fused_em_step"] > 0,
+          "metric_learn: fused_em_step never launched in the evals")
+    check(all(math.isfinite(float(v)) for v in res["last"].values()),
+          f"metric_learn: a non-finite metric {res['last']}")
+    with open(os.path.join(res["ckpt"].directory, "manifest.json")) as f:
+        manifest = _json.load(f)
+    check(manifest["steps"] == list(range(TRAIN_EPOCHS))
+          and manifest["best_step"] is not None
+          and os.path.exists(os.path.join(res["ckpt"].directory,
+                                          "ckpt_best.pt")),
+          f"metric_learn: manifest {manifest}")
+    print(f"  manifest: latest {max(manifest['steps'])}, best "
+          f"{manifest['best_step']} ({manifest['best_value']:.4f})")
+    check(len(epochs) == len(evals) == TRAIN_EPOCHS,
+          f"metric_learn: {len(epochs)} epochs, {len(evals)} evals timed")
+    hold_path_inputs(seen, "metric_learn")
+    return res, step_launch
+
+
+def restore_and_step(res, seed):
+    """A fresh trainer restored from main's last checkpoint and main's
+    trainer each take one step on one batch: the same bits."""
+    import torch
+
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    vit, cfg, total = _train_configs(torch.bfloat16)
+    trainer, ckpt = res["trainer"], res["ckpt"]
+    fresh = GCDTrainer(vit, cfg, seed=seed + 99, total_steps=total,
+                       device="cuda")
+    step, state = ckpt.restore()
+    fresh.load_state(state)
+    batch = _train_batch(seed + 2, TRAIN_IMAGES)
+    for t in (trainer, fresh):
+        t.step_fn(t.model, t.opt, t.to_device(batch))
+    a, b = trainer.model.state_dict(), fresh.model.state_dict()
+    check(all(torch.equal(a[k], b[k]) for k in a),
+          "restore: a parameter differs after the step")
+    sa, sb = trainer.opt.sgd.state_dict(), fresh.opt.sgd.state_dict()
+    check(trainer.opt.count == fresh.opt.count == total + 1
+          and all(torch.equal(sa["state"][i]["momentum_buffer"],
+                              sb["state"][i]["momentum_buffer"])
+                  for i in sa["state"]),
+          "restore: the optimizer state differs after the step")
+    print(f"  restored checkpoint {step} into a fresh trainer: one more "
+          f"step gives the same bits ({len(a)} parameters, "
+          f"{len(sa['state'])} momentum buffers)")
+    del fresh
+
+
+def _cos_rel(a, b):
+    """(cosine, |a - b| / |b|) of two tensors as flat f64 vectors."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a @ b) / (a.norm() * b.norm())).item(), \
+        ((a - b).norm() / b.norm()).item()
+
+
+def int8_frozen_steps(seed):
+    """Two steps under --int8_frozen 1 and two in bf16, from the same
+    parameters and batches.  What the frozen trunk computes is held int8
+    against bf16: the sum of the 11 frozen blocks' residual updates (the
+    trainable block's input less block 0's, real tokens) and the first
+    step's update of the trainable block's qkv kernel.  The int8 steps'
+    kernel calls are held against their plain versions.  Returns the
+    launches of the int8 steps."""
+    import torch
+
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    losses, seen_len, trunk, qkv_step = {}, [], {}, {}
+    batches = [_train_batch(seed + 3 + i, TRAIN_IMAGES) for i in range(2)]
+    launches = {}
+    for int8 in (True, False):
+        vit, cfg, total = _train_configs(torch.bfloat16, int8_frozen=int8)
+        tr = GCDTrainer(vit, cfg, seed=seed, total_steps=total,
+                        device="cuda")
+        bb = tr.model.backbone
+        top = getattr(bb, f"block_{GRAD_FROM_BLOCK}")
+        inputs = {}
+
+        def keep(name):
+            def hook(_m, args, kw):
+                if name not in inputs:  # the first step's
+                    inputs[name] = args[0][:, :L_VIT].detach().float()
+                    if name == "top":  # the trainable block: L, l_valid
+                        seen_len.append((int8, tuple(args[0].shape),
+                                         kw.get("real_len")))
+            return hook
+
+        hooks = [blk.register_forward_pre_hook(keep(name), with_kwargs=True)
+                 for name, blk in (("first", bb.block_0), ("top", top))]
+        kernel = top.attn.qkv.kernel
+        before = kernel.detach().clone()
+        _reset_counts()
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(path_inputs()) if int8 else None
+            losses[int8] = []
+            for i, b in enumerate(batches):
+                losses[int8].append(tr.step_fn(tr.model, tr.opt,
+                                               tr.to_device(b))["loss"].item())
+                if i == 0:
+                    qkv_step[int8] = (kernel.detach() - before).float()
+        for h in hooks:
+            h.remove()
+        trunk[int8] = inputs["top"] - inputs["first"]
+        if int8:
+            launches = _counts()
+            hold_path_inputs(seen, "int8_frozen")
+        del tr, inputs, before
+    check(launches["w8a8_fusedq"] == 2 * 2 * GRAD_FROM_BLOCK
+          and launches["attention_bwd"] == 2,
+          f"--int8_frozen: launches {launches}")
+    check([x for x in seen_len if x[0]] == [
+        (True, (TRAIN_VIEWS * TRAIN_IMAGES, L_PAD, 768), L_VIT)],
+        f"--int8_frozen: the trainable block saw {seen_len}")
+    trunk_cos, trunk_rel = _cos_rel(trunk[True], trunk[False])
+    row_cos = _row_cos(trunk[True].flatten(0, 1), trunk[False].flatten(0, 1))
+    qkv_cos, qkv_rel = _cos_rel(qkv_step[True], qkv_step[False])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                  losses[False]))
+    print(f"  --int8_frozen 1, two steps: losses "
+          f"{', '.join(f'{v:.5f}' for v in losses[True])} (bf16 "
+          f"{', '.join(f'{v:.5f}' for v in losses[False])}, {rel:.2e} "
+          f"relative); the frozen blocks' residual updates int8 vs bf16: "
+          f"cosine {trunk_cos:.6f} (tokens: min {row_cos.min().item():.6f}, "
+          f"mean {row_cos.mean().item():.6f}), {trunk_rel:.3e} relative; "
+          f"the first qkv update: cosine {qkv_cos:.6f}, {qkv_rel:.3e} "
+          f"relative; w8a8_fusedq {launches['w8a8_fusedq']} launches; the "
+          f"trainable block, and so the gradient kernel, at L {L_PAD} / "
+          f"l_valid {L_VIT}")
+    check(all(math.isfinite(float(v)) for v in losses[True])
+          and rel <= INT8_LOSS_RTOL,
+          f"--int8_frozen losses {losses[True]} vs bf16 {losses[False]}")
+    check(1 - trunk_cos <= INT8_TRUNK_DEV and trunk_rel <= INT8_TRUNK_REL,
+          f"--int8_frozen: the frozen trunk's updates int8 vs bf16: cosine "
+          f"{trunk_cos}, {trunk_rel} relative")
+    check(1 - qkv_cos <= INT8_QKV_DEV,
+          f"--int8_frozen: the first qkv update's cosine to bf16's {qkv_cos}")
+    return launches
+
+
+def step_breakdown(seed):
+    """Where a bf16 training step's device time goes (one step of 128 x 2
+    views under ``torch.profiler``: time by kernel), its CUDA-event time,
+    the trunk's forward alone, the host's augmentation of one batch, and
+    the peak memory of a step."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.data import get_transform
+    from scd_tpu_torch.data.augment import ContrastiveViewGenerator
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    vit, cfg, total = _train_configs(torch.bfloat16)
+    tr = GCDTrainer(vit, cfg, seed=seed, total_steps=total, device="cuda")
+    batch = tr.to_device(_train_batch(seed + 5, TRAIN_IMAGES))
+
+    def step():
+        tr.step_fn(tr.model, tr.opt, batch)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = cuda_ms(step, reps=5, warmup=1)
+    with torch.no_grad():
+        ms_trunk = cuda_ms(lambda: tr.model.backbone(batch["images"]),
+                           reps=5, warmup=1)
+    rng = np.random.default_rng(seed)
+    views = ContrastiveViewGenerator(get_transform(
+        "imagenet", image_size=224, train=True, seed=seed), TRAIN_VIEWS)
+    imgs = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+            for _ in range(TRAIN_IMAGES)]
+    t0 = time.perf_counter()
+    for img in imgs:
+        views(img)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"  a bf16 step on a device batch of {TRAIN_VIEWS} x "
+          f"{TRAIN_IMAGES}: {ms_step:.2f} ms (CUDA events); the trunk's "
+          f"forward alone (no graph) {ms_trunk:.2f} ms; the host's "
+          f"augmentation of one batch {host_ms:.1f} ms on one thread; peak "
+          f"memory of a step {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} GiB above the resident "
+          f"{base / 2**30:.2f} GiB)")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # the kernels' own events (an operator's device time repeats theirs)
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    total_ms = sum(r[1] for r in rows)
+    if not rows:
+        print("  the profiler shows no device time; CUDA-event times above")
+    else:
+        print(f"  device time by kernel in one profiled step "
+              f"({total_ms:.2f} ms in all):")
+        for key, ms, n in rows[:14]:
+            print(f"    {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{n:<4d} "
+                  f"{key[:90]}")
+        groups = {"attention forward": 0.0, "attention gradient": 0.0,
+                  "matrix products": 0.0, "other": 0.0}
+        for key, ms, _n in rows:
+            name = key.lower()
+            if "attn_bwd" in name:
+                groups["attention gradient"] += ms
+            elif "attn_" in name:
+                groups["attention forward"] += ms
+            elif any(t in name for t in ("gemm", "xmma", "cutlass",
+                                         "matmul", "nvjet", "sm90_")):
+                groups["matrix products"] += ms
+            else:
+                groups["other"] += ms
+        print("  by part: " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / total_ms:.1f}%)"
+            for k, v in groups.items()))
+    del tr, batch
+    return ms_step, peak
+
+
+def phase_train(seed, workdir):
+    """Phase 10 (see the module docstring); returns the gradient kernel's
+    launches in the training steps."""
+    t0 = time.perf_counter()
+    train_step_card_against_cpu(seed)
+    print(f"card against CPU {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res, step_launch = metric_learn_full(seed, workdir)
+    restore_and_step(res, seed)
+    del res
+    print(f"metric_learn and restore {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    int8_frozen_steps(seed)
+    step_breakdown(seed)
+    print(f"int8 steps and breakdown {time.perf_counter() - t0:.1f} s")
+    return step_launch
+
+
 # (kernels line name, source, the TPU kernel it replaces, key of the
 # launch count and the times); rows 3-4 share the attention kernel and
 # rows 6-7 the w8a8_prequant kernel, and each pair reports that kernel's
@@ -2370,6 +3120,11 @@ KERNELS = [
      "scd_tpu/ops/pallas_kernels.py:760", "w8a8_prequant"),
     ("w8a8_fusedq", "scd_tpu_torch/csrc/w8a8.cu",
      "scd_tpu/ops/pallas_kernels.py:876", "w8a8_fusedq"),
+    # no TPU kernel: the JAX package differentiates attention with XLA
+    # autodiff; launches from phase 10's training steps
+    ("attention_bwd", "scd_tpu_torch/csrc/attention_bwd.cu",
+     "none: XLA autodiff of scd_tpu/models/vit.py:338",
+     "attention_bwd"),
 ]
 
 
@@ -2439,7 +3194,15 @@ def main(argv=None) -> int:
         launches[key] += n
     print(f"fused_em_step at K {MAX_K} with sentinel slots: max abs err "
           f"{sentinel_err:.3e}; ms {sentinel_times[0]:.4f}")
-    print(f"phase 9 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 9 {time.perf_counter() - t0:.1f} s")
+    section("phase 10: GCD training (metric_learn, ViT-B/16 at 224)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches = phase_train(args.seed, workdir)
+    launches["attention_bwd"] = train_launches["attention_bwd"]
+    print(f"launches in phase 10's training steps: "
+          f"{json.dumps(train_launches)}")
+    print(f"phase 10 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

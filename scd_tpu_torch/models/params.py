@@ -6,14 +6,26 @@ tree (the JAX package's model variables, or what the checkpoint loaders of
 both packages return) maps onto a tower's state dict by joining the path
 with dots.  It is the counterpart, for weights, of
 ``core.cache.tensors_from_arrays``.
+
+:func:`flax_init_` gives a freshly built model Flax's default
+initializers, drawn from a ``torch.Generator`` (the JAX package draws
+from ``jax.random``, so the values differ; the distributions are the
+same).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+# Flax's variance_scaling truncates at +-2 sigma and divides the stddev
+# by this (the std of a unit normal truncated there), so the kept samples
+# have variance scale / fan_in
+_TRUNC_STD = 0.87962566103423978
 
 
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -35,3 +47,41 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def flax_init_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Give every parameter of ``module`` (its towers' and heads' Flax
+    names) Flax's default initializer, in ``named_parameters`` order from
+    one CPU ``torch.Generator(seed)``, then copy it in place (so the values
+    do not depend on the module's device):
+
+    - ``kernel`` (Dense ``[in, out]``, Conv ``[kh, kw, in, out]``):
+      ``lecun_normal``, a normal truncated at +-2 sigma whose samples have
+      variance 1 / fan_in (fan_in: every axis but the last);
+    - ``bias``, ``cls_token``: zeros; a LayerNorm's ``scale``: ones;
+    - ``pos_embed``, ``last_layer``: normal(0.02); a CLIP tower's ``proj``
+      [width, out]: normal(width ** -0.5).
+
+    Returns ``module``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            v = torch.empty(p.shape, dtype=torch.float32)
+            if leaf == "kernel":
+                fan_in = math.prod(p.shape[:-1])
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(v, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=gen)
+            elif leaf in ("bias", "cls_token"):
+                v.zero_()
+            elif leaf == "scale":
+                v.fill_(1.0)
+            elif leaf in ("pos_embed", "last_layer"):
+                v.normal_(0.0, 0.02, generator=gen)
+            elif leaf == "proj":
+                v.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+            else:
+                raise ValueError(f"no Flax initializer known for {name!r}")
+            p.copy_(v)
+    return module

@@ -28,6 +28,18 @@ Attention goes through :func:`scd_tpu_torch.ops.attention.qkv_attention`
 on the packed qkv projection, with the JAX package's masks (pad keys
 masked out, causal for the text tower): on a CUDA device the hand-written
 kernel (``csrc/attention.cu``), on the CPU its plain version.
+
+Training: parameters are made with ``requires_grad=False`` (serving builds
+no graph); a trainer switches on the ones it trains.  A trainable
+:class:`Dense` or :class:`PatchEmbed` casts its parameters inside the
+autograd graph, while a frozen one (or any one under ``no_grad``) takes
+its one cached cast (``_CastCache``); LayerNorms, the CLS token and the
+position embedding are used directly.  A trainable block's attention takes
+its gradient from ``csrc/attention_bwd.cu`` through
+``ops.attention.AttentionFunction``.  ``remat`` wraps each block that
+needs a gradient in ``torch.utils.checkpoint`` (``nn.remat(Block)``); the
+int8 layers are for frozen blocks only (``dense_int8_until``), as
+quantization has no gradient.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from scd_tpu_torch.ops import w8a8
 from scd_tpu_torch.ops.attention import qkv_attention
@@ -63,7 +76,7 @@ class ViTConfig:
     norm_eps: float = 1e-6  # DINO 1e-6, OpenAI CLIP 1e-5
     compute_dtype: Any = torch.float32
     dense_int8: bool = False  # W8A8 qkv and fc1
-    remat: bool = False  # training only; no effect on a forward pass
+    remat: bool = False  # recompute trainable blocks' activations in backward
     dense_int8_until: Optional[int] = None  # quantize blocks i < this only
     # sequence padding for the int8 path: "auto" pads to a multiple of 16
     # when int8 is on, an int forces that length, 0 / None never pads
@@ -94,6 +107,12 @@ def seq_pad_target(cfg: ViTConfig, real_len: int) -> int:
 def _param(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
+
+
+def _in_graph(p: torch.Tensor) -> bool:
+    """A trainable parameter under grad mode: its casts must be recorded
+    by autograd, so the frozen parameters' cache does not serve it."""
+    return p.requires_grad and torch.is_grad_enabled()
 
 
 class _CastCache:
@@ -129,6 +148,9 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if _in_graph(self.kernel):
+            return F.linear(x.to(dt), self.kernel.to(dt).t(),
+                            self.bias.to(dt))
         return F.linear(x.to(dt), self._w.get(self.kernel, dt),
                         self._b.get(self.bias, dt))
 
@@ -348,8 +370,13 @@ class PatchEmbed(nn.Module):
         gh, gw = h // p, w // p
         x = x.reshape(b, gh, p, gw, p, ch).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, gh * gw, p * p * ch)
-        bias = None if self.bias is None else self._b.get(self.bias, dt)
-        return F.linear(x, self._w.get(self.kernel, dt), bias), gh
+        if _in_graph(self.kernel):
+            w = self.kernel.reshape(-1, self.kernel.shape[-1]).to(dt).t()
+            bias = None if self.bias is None else self.bias.to(dt)
+        else:
+            w = self._w.get(self.kernel, dt)
+            bias = None if self.bias is None else self._b.get(self.bias, dt)
+        return F.linear(x, w, bias), gh
 
 
 class VisionTransformer(nn.Module):
@@ -394,7 +421,13 @@ class VisionTransformer(nn.Module):
         if c.pre_post_norm:
             x = self.ln_pre(x)
         for i in range(c.depth):
-            x = getattr(self, f"block_{i}")(x, real_len=rl)
+            block = getattr(self, f"block_{i}")
+            if c.remat and torch.is_grad_enabled() and (
+                    x.requires_grad
+                    or any(p.requires_grad for p in block.parameters())):
+                x = checkpoint(block, x, real_len=rl, use_reentrant=False)
+            else:
+                x = block(x, real_len=rl)
         final = self.ln_post if c.pre_post_norm else self.norm
         x = final(x[:, :1])[:, 0]
         if self.proj is not None:

@@ -21,6 +21,20 @@ tower at image 256 and up) a key-tiled long path, ``wgmma`` for bf16 at
 head_dim 64 and SIMT for f32 or another head_dim, chosen by shape in the
 C entry point.  A CPU tensor runs :func:`attention_plain`.  There is no
 fallback: a CUDA tensor no kernel takes raises.
+
+The gradient: :func:`qkv_attention` routes through
+:class:`AttentionFunction` whenever grad mode is on and the packed qkv
+requires a gradient (the trainable blocks of a training step); otherwise
+it launches as above, so serving and the pipelines are unchanged.  The
+Function's forward is the dispatch above; its backward is the
+hand-written ``csrc/attention_bwd.cu`` on a CUDA tensor
+(:func:`qkv_attention_bwd_cuda`: L <= 256, non-causal, bf16 at head_dim 64
+or f32 at head_dim <= 128; anything else raises) and autograd through
+:func:`attention_plain` on a CPU tensor (:func:`qkv_attention_bwd_plain`,
+also the card's reference).  The JAX package differentiates its attention
+with XLA autodiff, so the kernel replaces no Pallas kernel.  The gradient
+lands in one packed [B, L, 3W] buffer, the gradient of the qkv Dense's
+output.
 """
 
 from __future__ import annotations
@@ -37,20 +51,142 @@ LONG_MAX_HD = 256  # head_dim the SIMT long path takes
 WGMMA_HD = 64  # head_dim of the bf16 wgmma paths, short and long
 
 
+BWD_MAX_L = 256  # the gradient kernel's sequences (the whole-row paths')
+BWD_MAX_HD_F32 = 128  # head_dim of its f32 path; bf16 takes WGMMA_HD only
+
+
 def qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
                   causal: bool = False, l_valid: Optional[int] = None
                   ) -> torch.Tensor:
     """Multi-head attention on the packed projection: [B, L, 3W] ->
     [B, L, W] (``qkv_attention_pallas``'s contract; ``l_valid`` defaults
-    to L)."""
-    b, length, w3 = qkv.shape
+    to L).  Differentiable through :class:`AttentionFunction` when grad
+    mode is on and ``qkv`` requires a gradient."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return AttentionFunction.apply(qkv, heads, scale, causal, l_valid)
+    return _qkv_attention(qkv, heads, scale, causal, l_valid)
+
+
+def _heads(qkv: torch.Tensor, heads: int):
+    """The q, k, v [B, L, H, d] strided views of a packed [B, L, 3W]."""
+    w3 = qkv.shape[-1]
     if w3 % (3 * heads):
         raise ValueError(f"packed width {w3} is not 3 x heads x head_dim "
                          f"(heads={heads})")
-    t = qkv.unflatten(-1, (3, heads, w3 // (3 * heads)))  # strided views
-    out = vit_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2], scale, causal,
-                        l_valid)
+    t = qkv.unflatten(-1, (3, heads, w3 // (3 * heads)))
+    return t[:, :, 0], t[:, :, 1], t[:, :, 2]
+
+
+def _qkv_attention(qkv, heads, scale, causal, l_valid):
+    b, length, w3 = qkv.shape
+    q, k, v = _heads(qkv, heads)
+    out = vit_attention(q, k, v, scale, causal, l_valid)
     return out.reshape(b, length, w3 // 3)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """:func:`qkv_attention` with a gradient: forward as the dispatch,
+    backward :func:`qkv_attention_bwd_cuda` on a CUDA tensor and
+    :func:`qkv_attention_bwd_plain` on a CPU one.  Saves the packed qkv
+    only; the backward recomputes p.  A CUDA shape the gradient kernel
+    does not take raises in the backward, before any update."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, scale, causal, l_valid):
+        ctx.save_for_backward(qkv)
+        ctx.args = (heads, scale, causal, l_valid)
+        return _qkv_attention(qkv, heads, scale, causal, l_valid)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        if qkv.is_cuda:
+            dqkv = qkv_attention_bwd_cuda(qkv, dout, *ctx.args)
+        else:
+            dqkv = qkv_attention_bwd_plain(qkv, dout, *ctx.args)
+        return dqkv, None, None, None, None
+
+
+def qkv_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
+                            heads: int, scale: float, causal: bool = False,
+                            l_valid: Optional[int] = None) -> torch.Tensor:
+    """The gradient of :func:`attention_plain` on the packed qkv, by
+    autograd, on any device: [B, L, 3W] in qkv's dtype.  The plain
+    version of the gradient kernel."""
+    b, length, w3 = qkv.shape
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        q, k, v = _heads(x, heads)
+        out = attention_plain(q, k, v, scale, causal, l_valid)
+        (g,) = torch.autograd.grad(out.reshape(b, length, w3 // 3), x,
+                                   dout.reshape(b, length, w3 // 3))
+    return g
+
+
+def _check_bwd(qkv: torch.Tensor, heads: int, causal: bool) -> None:
+    """Raise for what the gradient kernel does not take."""
+    if qkv.dim() != 3 or qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the attention gradient kernel takes a bf16 or f32 "
+                        f"[B, L, 3W] qkv, got {qkv.dtype} "
+                        f"{tuple(qkv.shape)}")
+    length, hd = qkv.shape[1], qkv.shape[2] // (3 * heads)
+    if causal:
+        raise NotImplementedError("the attention gradient kernel takes "
+                                  "non-causal attention only")
+    if not 1 <= length <= BWD_MAX_L:
+        raise NotImplementedError(f"the attention gradient kernel takes "
+                                  f"L <= {BWD_MAX_L}, got {length}")
+    if qkv.dtype == torch.bfloat16 and hd != WGMMA_HD:
+        raise ValueError(f"the bf16 attention gradient kernel takes head_dim"
+                         f" {WGMMA_HD}, got {hd}")
+    if qkv.dtype == torch.float32 and not 1 <= hd <= BWD_MAX_HD_F32:
+        raise ValueError(f"the f32 attention gradient kernel takes head_dim "
+                         f"<= {BWD_MAX_HD_F32}, got {hd}")
+
+
+def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
+                           heads: int, scale: float, causal: bool = False,
+                           l_valid: Optional[int] = None) -> torch.Tensor:
+    """One launch of ``csrc/attention_bwd.cu`` (two kernels on the current
+    stream): the gradient [B, L, 3W] of :func:`qkv_attention` at ``qkv``
+    for the output gradient ``dout`` [B, L, W], in qkv's dtype.  Takes
+    what :func:`_check_bwd` lets through, on one CUDA device; counts each
+    launch in ``qkv_attention_bwd_cuda.launches``."""
+    if not (qkv.is_cuda and dout.device == qkv.device):
+        raise ValueError("qkv_attention_bwd_cuda takes CUDA tensors on one "
+                         "device")
+    _check_bwd(qkv, heads, causal)
+    b, length, w3 = qkv.shape
+    if tuple(dout.shape) != (b, length, w3 // 3):
+        raise ValueError(f"dout shape {tuple(dout.shape)} for qkv "
+                         f"{tuple(qkv.shape)}")
+    l_valid = length if l_valid is None else min(int(l_valid), length)
+    if l_valid < 1:
+        raise ValueError(f"l_valid must be >= 1, got {l_valid}")
+    hd = w3 // (3 * heads)
+    dout = dout.to(qkv.dtype).contiguous().view(b, length, heads, hd)
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    stats = torch.empty(3 * b * heads * length, dtype=torch.float32,
+                        device=qkv.device)
+    views = _heads(qkv, heads) + (dout,) + _heads(dqkv, heads)
+    strides = [s for t in views for s in _strides(t)]
+    fn = build.load("attention_bwd").attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                   + [ctypes.c_longlong] * 21 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        rc = fn(*(t.data_ptr() for t in views[:4]),
+                *(t.data_ptr() for t in views[4:]), stats.data_ptr(),
+                int(qkv.dtype == torch.bfloat16), *strides, b, heads, length,
+                hd, l_valid, int(bool(causal)), float(scale), stream)
+    build.check(rc, "attention_bwd")
+    qkv_attention_bwd_cuda.launches += 1
+    return dqkv
+
+
+qkv_attention_bwd_cuda.launches = 0
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

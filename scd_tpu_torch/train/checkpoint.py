@@ -1,0 +1,136 @@
+"""Checkpoint and resume for training loops.
+
+Port of ``scd_tpu/train/checkpoint.py`` (reference behaviour,
+``gcd/methods/metric_learn/learn_metric.py:320-338``: ``model.pt`` and the
+projection head every epoch, ``model_best.pt`` whenever old-class test ACC
+improves; like the JAX package, optimizer state and the step counter are
+kept too, so training resumes).
+
+Same retention (``keep`` newest steps, the best kept aside), best-metric
+tracking, JSON sidecars (``ckpt_<step>.json``: step and metrics) and
+``manifest.json`` (steps, best step and value) as the JAX package.  The
+blob differs: the JAX package writes one flax msgpack per step
+(``ckpt_<step>.msgpack``), which needs flax; the port writes
+``ckpt_<step>.pt``, a ``torch.save`` of the state it is given (a trainer's
+model, head and optimizer state dicts plus the step), with every tensor
+moved to the host.  The port does not read the JAX package's blobs, nor
+the JAX package the port's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+def _to_host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+class CheckpointManager:
+    """Per-step checkpoints with retention and best-metric tracking."""
+
+    def __init__(self, directory: str, keep: int = 3,
+                 best_metric: Optional[str] = None, mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        self.directory = directory
+        self.keep = keep
+        self.best_metric = best_metric
+        self.mode = mode
+        os.makedirs(directory, exist_ok=True)
+        self._manifest_path = os.path.join(directory, "manifest.json")
+        if os.path.exists(self._manifest_path):
+            with open(self._manifest_path) as f:
+                self._manifest = json.load(f)
+        else:
+            self._manifest = {"steps": [], "best_step": None,
+                              "best_value": None}
+
+    # ------------------------------------------------------------ paths
+    def _blob(self, step) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.pt")
+
+    def _meta(self, step) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.json")
+
+    # ------------------------------------------------------------- save
+    def save(self, step: int, state: Any,
+             metrics: Optional[Dict[str, float]] = None) -> str:
+        """Write checkpoint ``step``; update best; prune old non-best."""
+        path = self._blob(step)
+        torch.save(_to_host(state), path + ".tmp")
+        os.replace(path + ".tmp", path)  # atomic: no torn blob on a crash
+        with open(self._meta(step), "w") as f:
+            json.dump({"step": step, "metrics": metrics or {}}, f)
+
+        if step not in self._manifest["steps"]:
+            self._manifest["steps"].append(step)
+        if (self.best_metric and metrics
+                and self.best_metric in metrics):
+            v = float(metrics[self.best_metric])
+            best = self._manifest["best_value"]
+            improved = (best is None
+                        or (v > best if self.mode == "max" else v < best))
+            if improved:
+                self._manifest["best_step"] = step
+                self._manifest["best_value"] = v
+                shutil.copyfile(path, os.path.join(self.directory,
+                                                   "ckpt_best.pt"))
+                with open(os.path.join(self.directory, "ckpt_best.json"),
+                          "w") as f:
+                    json.dump({"step": step, "metrics": metrics}, f)
+        self._prune()
+        with open(self._manifest_path, "w") as f:
+            json.dump(self._manifest, f)
+        return path
+
+    def _prune(self):
+        steps = sorted(self._manifest["steps"])
+        excess = steps[:-self.keep] if self.keep else []
+        for s in excess:
+            for p in (self._blob(s), self._meta(s)):
+                if os.path.exists(p):
+                    os.remove(p)
+            self._manifest["steps"].remove(s)
+
+    # ---------------------------------------------------------- restore
+    def latest_step(self) -> Optional[int]:
+        return max(self._manifest["steps"]) if self._manifest["steps"] else None
+
+    def restore(self, step: Optional[int] = None) -> Tuple[int, Any]:
+        """(step, state) of checkpoint ``step``, default the latest; the
+        state's tensors on the host.  (The JAX package restores into a
+        target tree; a torch blob carries its own structure.)"""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        return step, torch.load(self._blob(step), map_location="cpu",
+                                weights_only=True)
+
+    def restore_best(self) -> Tuple[int, Any]:
+        path = os.path.join(self.directory, "ckpt_best.pt")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no best checkpoint in {self.directory}")
+        return int(self._manifest["best_step"]), torch.load(
+            path, map_location="cpu", weights_only=True)
+
+
+def strip_key_prefix(state_dict: Dict[str, Any],
+                     prefix: str = "module.") -> Dict[str, Any]:
+    """Drop a key prefix from a flat state dict (reference
+    ``strip_state_dict``, ``general_utils.py:47-58``: DataParallel-saved
+    checkpoints)."""
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v
+            for k, v in state_dict.items()}

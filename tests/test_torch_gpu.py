@@ -757,3 +757,120 @@ def test_fit_constrained_numpy_runs_on_the_card(cuda, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         C.fit_constrained(x[:500], x[500:], y[500:], cfg)
+
+
+@pytest.mark.parametrize("b,length,h,d,l_valid,dtype", [
+    (8, 197, 12, 64, 197, torch.bfloat16),
+    (8, 208, 12, 64, 197, torch.bfloat16),
+    (3, 256, 5, 64, 256, torch.bfloat16),
+    (7, 17, 3, 64, 9, torch.bfloat16),
+    (5, 1, 2, 64, 1, torch.bfloat16),
+    (4, 197, 12, 64, 197, torch.float32),
+    (3, 77, 2, 128, 70, torch.float32),
+    (2, 33, 3, 40, 33, torch.float32),
+])
+def test_attention_bwd_kernel_matches_plain(cuda, b, length, h, d, l_valid,
+                                            dtype):
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.attention_grad import grad_bound
+
+    g = torch.Generator(device=cuda).manual_seed(length * h + d)
+    qkv = torch.randn(b, length, 3 * h * d, generator=g, device=cuda
+                      ).to(dtype)
+    dout = torch.randn(b, length, h * d, generator=g, device=cuda).to(dtype)
+    before = A.qkv_attention_bwd_cuda.launches
+    got = A.qkv_attention_bwd_cuda(qkv, dout, h, d ** -0.5, False, l_valid)
+    again = A.qkv_attention_bwd_cuda(qkv, dout, h, d ** -0.5, False, l_valid)
+    assert A.qkv_attention_bwd_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    want = A.qkv_attention_bwd_plain(qkv, dout, h, d ** -0.5, False, l_valid)
+    bound = grad_bound(qkv, dout, h, d ** -0.5, l_valid, want)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+    dk_dv = got.view(b, length, 3, h, d)[:, l_valid:, 1:]
+    assert bool((dk_dv == 0).all())
+
+
+def test_attention_gradient_flows_through_the_function(cuda):
+    """qkv_attention under grad mode routes through AttentionFunction: the
+    forward kernel, then one launch of the gradient kernel."""
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.attention_grad import grad_bound
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(4, 208, 3 * 768, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_(True)
+    fwd, bwd = A.attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+    out = A.qkv_attention(qkv, 12, 0.125, l_valid=197)
+    out.float().square().sum().backward()
+    assert A.attention_cuda.launches == fwd + 1
+    assert A.qkv_attention_bwd_cuda.launches == bwd + 1
+    want = A.qkv_attention_bwd_plain(qkv.detach(), (2 * out.float()).to(
+        torch.bfloat16), 12, 0.125, False, 197)
+    bound = grad_bound(qkv.detach(), 2 * out.float(), 12, 0.125, 197,
+                       want)
+    assert bool(((qkv.grad.float() - want.float()).abs() <= bound).all())
+    with torch.no_grad():  # no graph: the forward alone, as serving runs
+        A.qkv_attention(qkv, 12, 0.125, l_valid=197)
+    assert A.qkv_attention_bwd_cuda.launches == bwd + 1
+
+
+def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from scd_tpu_torch.ops import attention as A
+
+    bf = torch.bfloat16
+    for qkv, heads, causal in (
+            (torch.zeros(2, 257, 192, device=cuda, dtype=bf), 1, False),
+            (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 1, True),
+            (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 2, False),
+            (torch.zeros(2, 16, 3 * 160, device=cuda), 1, False)):
+        dout = torch.zeros(*qkv.shape[:2], qkv.shape[2] // 3, device=cuda,
+                           dtype=qkv.dtype)
+        with pytest.raises((ValueError, NotImplementedError)):
+            A.qkv_attention_bwd_cuda(qkv, dout, heads, 0.125, causal)
+        with pytest.raises((ValueError, NotImplementedError)):
+            A.qkv_attention(qkv.requires_grad_(True), heads, 0.125, causal
+                            ).float().sum().backward()
+
+
+def test_gcd_step_card_matches_cpu(cuda):
+    """One GCD step of a small f32 ViT (L 65, the kernels' f32 paths) on
+    the card and on the CPU from the same parameters and batch: the loss
+    within 1e-4 relative, every trainable parameter's update within 1e-3
+    of its scale with a cosine of at least 0.9999 (f32 sums in other
+    orders), every frozen parameter bit-unchanged, and one launch of the
+    gradient kernel (one trainable block)."""
+    from scd_tpu_torch.core.config import TrainConfig
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    vit = ViTConfig(image_size=128, patch_size=16, width=256, depth=3,
+                    heads=4)
+    cfg = TrainConfig(grad_from_block=2, proj_dim=4_096, lr=0.1)
+    card = GCDTrainer(vit, cfg, seed=1, total_steps=10, device="cuda")
+    cpu = GCDTrainer(vit, cfg, seed=1, total_steps=10, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.standard_normal((16, 128, 128, 3)).astype(
+                 np.float32),
+             "labels": rng.integers(0, 3, 8), "mask_lab": rng.random(8) < .5}
+    before = {k: v.cpu().clone() for k, v in card.model.state_dict().items()}
+    trainable = {n for n, p in card.model.named_parameters()
+                 if p.requires_grad}
+    launches = A.qkv_attention_bwd_cuda.launches
+    m_card = card.step_fn(card.model, card.opt, card.to_device(batch))
+    assert A.qkv_attention_bwd_cuda.launches == launches + 1
+    m_cpu = cpu.step_fn(cpu.model, cpu.opt, cpu.to_device(batch))
+    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"],
+                               rtol=1e-4, atol=0)
+    after_cpu = cpu.model.state_dict()
+    for name, v in card.model.state_dict().items():
+        v = v.cpu()
+        if name not in trainable:
+            assert torch.equal(v, before[name]), name
+            continue
+        du, dw = (v - before[name]).double(), \
+            (after_cpu[name] - before[name]).double()
+        assert dw.norm() > 0, name
+        cos = (du * dw).sum() / (du.norm() * dw.norm())
+        assert cos >= 0.9999, (name, cos.item())
+        assert (du - dw).abs().max() <= 1e-3 * dw.abs().max(), name

@@ -3,8 +3,9 @@
 A fresh interpreter imports every ``scd_tpu_torch`` module (the towers,
 the tokenizer, the kernels' ops, the runners, the serving entry point, the
 ptsup entry point, the constrained and FINCH clusterers, the min-cost-flow
-bridge and the reference-cache importer among them) and ``chip_smoke``, then looks
-at ``sys.modules``.  ``scd_tpu_torch`` itself
+bridge, the reference-cache importer, and the training subpackages
+``train`` and ``utils`` among them) and ``chip_smoke``, then looks at
+``sys.modules``.  ``scd_tpu_torch`` itself
 starts with ``scd_tpu``, so the check matches the JAX package by exact name
 or the ``scd_tpu.`` prefix.
 """
@@ -26,7 +27,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "scd_tpu" or m.startswith("scd_tpu."))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
 
 
@@ -35,8 +36,12 @@ def test_port_imports_no_jax_and_no_scd_tpu():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
-    n_modules, bad = res.stdout.strip().split(" ", 1)
+    n_modules, bad, names = res.stdout.strip().split(" ", 2)
     # the towers, tokenizer, W8A8 and attention ops, runners, serving,
-    # ptsup, interop, constrained + sinkhorn + native, finch
-    assert int(n_modules) >= 56
+    # ptsup, interop, constrained + sinkhorn + native, finch, training
+    assert int(n_modules) >= 65
     assert bad == "[]", bad
+    assert {f"scd_tpu_torch.train.{m}" for m in (
+        "losses", "schedulers", "checkpoint", "gcd", "metric_learn")} | {
+        "scd_tpu_torch.utils.experiment", "scd_tpu_torch.data.augment",
+        "scd_tpu_torch.data.transforms"} <= set(names.split(","))

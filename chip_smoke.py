@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against-bwd SRC.cu]
 
 Phases, each printing its own lines and seconds:
 
@@ -16,9 +16,10 @@ Phases, each printing its own lines and seconds:
    raw logits at V 68,000 and V 100, ptsup's bound passes; the attention
    gradient, ``csrc/attention_bwd.cu``, against autograd of the plain
    attention at a training step's shape, B 256 x L 197 x H 12 x d 64 bf16,
-   at L 208 with l_valid 197, in f32, and at L 1, 17 and 256, and the
-   shapes it does not take raising), with the stated tolerances; every
-   kernel must also repeat its bits exactly;
+   at L 208 with l_valid 197, in f32, at L 1, 17 and 256, at L 257, 325
+   and 577 (B 32: image 256, 288, 384), and the shapes it does not take
+   raising), with the stated tolerances; every kernel must also repeat
+   its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
    ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
    nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
@@ -44,8 +45,12 @@ Phases, each printing its own lines and seconds:
    ``fused_em_step`` with both bf16 and f32 x (the ``kernels`` line takes
    the main path's); the attention long path at image 256, 288 and 384
    (L 257, 325, 577); ``topk_softmax`` at k 1 (ptsup's bound pass); the
-   attention gradient at a training step's shape (L 197, and L 208 with
-   l_valid 197) beside the backward of ``F.scaled_dot_product_attention``;
+   attention gradient at a training step's shapes (L 197, L 208 with
+   l_valid 197, L 257) beside the backward of
+   ``F.scaled_dot_product_attention``
+   (``scd_tpu_torch/testing/attention_bwd.py``) and, with
+   ``--against-bwd SRC.cu``, another build of ``csrc/attention_bwd.cu``
+   (e.g. the parent commit's) timed in turns on the same inputs;
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -117,13 +122,17 @@ Phases, each printing its own lines and seconds:
    evals; the losses finite, ``manifest.json`` with latest and best, and
    a fresh trainer restored from the last checkpoint must take one more
    step with the same bits as the trainer that was not restored; two
+   bf16 steps at image 256 (L 257: the forward's long path and the
+   gradient kernel past 256 keys) on a fixed device batch of 128 x 2
+   views, finite losses, the gradient kernel once a step; two
    steps under ``--int8_frozen 1`` (``w8a8_fusedq`` in the 11 frozen
    blocks, the gradient kernel at L 208 / l_valid 197) with losses within
    2% of bf16's from the same parameters, and the frozen blocks' summed
    residual updates and the first qkv update close to bf16's; and a bf16
    step's device time by kernel (``torch.profiler``), its peak memory and
-   the host's augmentation time.  The card step, ``metric_learn.main``
-   and the int8 steps each hold every kernel call they made
+   the host's augmentation time.  The card step, ``metric_learn.main``,
+   the image-256 steps and the int8 steps each hold every kernel call
+   they made
    (``attention``, its gradient, ``fused_em_step``, ``w8a8_fusedq``)
    against its plain version on the arguments the path passed it, once
    per shape (``path_inputs``).
@@ -239,6 +248,8 @@ ACC_FLOOR, IOU_FLOOR = 0.90, 0.80
 # the kernel sources under scd_tpu_torch/csrc, built together in phase 1
 SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep",
            "attention_bwd")
+# the attention gradient's bf16 kernels (wgmma fed by TMA)
+BWD_WGMMA_KERNELS = ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
 
 
 def fail(msg: str):
@@ -293,7 +304,7 @@ def phase_build():
             print(f"  {name}: {line}")
     sass = {name: sass_counts(build.library_path(name))
             for name in ("attention", "w8a8", "topk_softmax", "fused_em",
-                         "estep")}
+                         "estep", "attention_bwd")}
     for name, per_fn in sass.items():
         for fn, (hg, ig) in per_fn.items():
             print(f"  {name} SASS {fn}: HGMMA {hg}, IGMMA {ig}")
@@ -336,6 +347,17 @@ def phase_build():
     check(any(hg > 0 for fn, (hg, _) in sass["estep"].items()
               if fn.startswith("estep_kernel")),
           "estep: no HGMMA in the estep_kernel")
+    for kern in BWD_WGMMA_KERNELS:
+        check(any(hg > 0 for fn, (hg, _) in sass["attention_bwd"].items()
+                  if fn.startswith(kern)),
+              f"attention_bwd: no HGMMA in the {kern}")
+    if "attention_bwd" in reports:  # built now: its ptxas report is here
+        lines = ptxas_summary(reports["attention_bwd"])
+        for kern in BWD_WGMMA_KERNELS:
+            check(any(ln.startswith(f"{kern}:") and "spill 0 / 0 bytes" in ln
+                      for ln in lines), f"attention_bwd: the {kern} spills")
+            check(not any("wgmma" in ln and kern in ln for ln in lines),
+                  f"attention_bwd: ptxas serializes the {kern}'s wgmma")
     if "estep" in reports:  # built now: its ptxas report is here
         lines = ptxas_summary(reports["estep"])
         check(any(ln.startswith("estep_kernel:") and "spill 0 / 0 bytes" in ln
@@ -796,8 +818,9 @@ def attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=None, tag="",
 
 def parity_attention_bwd(seed: int):
     """The gradient kernel at the training shape, the int8-padded one,
-    f32, and the edges; returns the max abs error at the training shape.
-    Shapes it does not take must raise."""
+    f32, the edges and the long sequences of image 256, 288 and 384;
+    returns the max abs error at the training shape.  Shapes it does not
+    take must raise."""
     import torch
 
     from scd_tpu_torch.ops import attention as A
@@ -814,12 +837,15 @@ def parity_attention_bwd(seed: int):
     attention_bwd_parity(7, 17, 5, 64, bf16, gen, l_valid=9,
                          tag="edge-L17")
     attention_bwd_parity(3, 256, 7, 64, bf16, gen, tag="edge-L256")
+    for length in (L_257, 325, 577):  # image 256, 288, 384
+        attention_bwd_parity(32, length, 12, 64, bf16, gen,
+                             tag=f"long-L{length}")
     attention_bwd_parity(3, 256, 2, 128, f32, gen, l_valid=200,
                          tag="edge-f32-d128")
     attention_bwd_parity(4, 33, 3, 40, f32, gen, tag="edge-f32-d40")
     qkv = torch.zeros(2, 257, 3 * 64, device="cuda", dtype=bf16)
     dout = torch.zeros(2, 257, 64, device="cuda", dtype=bf16)
-    for args, what in (((qkv, dout, 1, 0.125), "L 257"),
+    for args, what in (((qkv.float(), dout.float(), 1, 0.125), "f32 L 257"),
                        ((qkv[:, :16], dout[:, :16], 1, 0.125, True),
                         "causal"),
                        ((qkv[:, :16], dout[:, :16], 2, 0.125),
@@ -1441,59 +1467,21 @@ def _attention_bound(b, length, h, d, causal, l_valid, elem_bytes=2):
                   4.0 * elem_bytes * b * length * h * d)
 
 
-def _attention_bwd_bound(b, length, h, d, l_valid, elem_bytes=2):
-    """q, k, v and dO read once, dq, dk, dv written once; the five
-    products a backward needs (s = q . k^T again, dP = dO . V^T,
-    dV = P^T . dO, dQ = dS . K, dK = dS^T . Q) over the score pairs this
-    input keeps (keys < l_valid), at the bf16 tensor-core peak."""
-    return _bound(10.0 * b * h * d * length * l_valid, PEAK_BF16_FLOPS,
-                  7.0 * elem_bytes * b * length * h * d)
+def time_attention_bwd(gen, against=None):
+    """The gradient kernel at a training step's shapes (B 256: L 197; L 208
+    with l_valid 197, under --int8_frozen; L 257, image 256): kernel, plain
+    version, the backward of ``F.scaled_dot_product_attention`` by autograd
+    (timed here, called nowhere in the port) and the bound
+    (``testing/attention_bwd.py::time_shapes``), with ``against`` (an
+    ``attention_bwd.cu``, e.g. the parent commit's) built and timed beside
+    in turns."""
+    from scd_tpu_torch.testing import attention_bwd as T
 
-
-def time_attention_bwd(gen):
-    """The gradient kernel at a training step's shape (B 256, L 197; and
-    L 208 with l_valid 197, under --int8_frozen): kernel, plain version
-    (autograd of ``attention_plain``), and as the yardstick the backward
-    of ``F.scaled_dot_product_attention`` by autograd (timed here, called
-    nowhere in the port), beside the bound."""
-    import torch
-    import torch.nn.functional as F
-
-    from scd_tpu_torch.ops import attention as A
-
-    out = {}
-    for tag, length, lv in (("train", L_VIT, L_VIT),
-                            ("train-int8-pad", L_PAD, L_VIT)):
-        qkv = torch.randn(TRAIN_B, length, 3 * 768, generator=gen,
-                          device="cuda").to(torch.bfloat16)
-        dout = torch.randn(TRAIN_B, length, 768, generator=gen,
-                           device="cuda").to(torch.bfloat16)
-
-        def kern():
-            return A.qkv_attention_bwd_cuda(qkv, dout, 12, 0.125, False, lv)
-
-        ms = cuda_ms(kern, reps=5, warmup=1)
-        ms_again = cuda_ms(kern, reps=5, warmup=1)
-        plain = cuda_ms(lambda: A.qkv_attention_bwd_plain(
-            qkv, dout, 12, 0.125, False, lv), reps=2)
-        q, k, v = (t.transpose(1, 2).detach().requires_grad_(True)
-                   for t in A._heads(qkv, 12))
-        mask = None
-        if lv < length:
-            mask = (torch.arange(length, device="cuda") < lv)[
-                None, None, None, :]
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-        go = dout.view(TRAIN_B, length, 12, 64).transpose(1, 2)
-        lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), go,
-                                                  retain_graph=True),
-                      reps=5, warmup=1)
-        bound, by = _attention_bwd_bound(TRAIN_B, length, 12, 64, lv)
-        print(f"  attention_bwd {tag} B={TRAIN_B} L={length} l_valid={lv} "
-              f"H=12 d=64 bf16: kernel {ms:.4f} ms (again {ms_again:.4f}), "
-              f"plain {plain:.4f} ms, library (SDPA backward) {lib:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}); {ms / bound:.1f} x the bound")
-        out[f"attention_bwd-{tag}"] = (ms, plain, lib, bound, by)
-        del qkv, dout, q, k, v, o, go
+    other = T.build_other(against) if against else None
+    if other is None:
+        print("  attention_bwd: no other build given (--against-bwd)")
+    times = T.time_shapes(gen, other)
+    out = {f"attention_bwd-{tag}": v[:5] for tag, v in times.items()}
     out["attention_bwd"] = out.pop("attention_bwd-train")
     return out
 
@@ -1579,7 +1567,7 @@ def time_attention_estep(gen):
     return out
 
 
-def phase_timing(seed: int, estep):
+def phase_timing(seed: int, estep, against_bwd=None):
     import torch
 
     from scd_tpu_torch.ops.em import em_iteration_plain, fused_em_step_cuda
@@ -1669,7 +1657,7 @@ def phase_timing(seed: int, estep):
         "fused_em_step": em_times[bool(estep[1])],
         **time_w8a8(gen),
         **time_attention_estep(gen),
-        **time_attention_bwd(gen),
+        **time_attention_bwd(gen, against_bwd),
     }
 
 
@@ -2652,14 +2640,14 @@ INT8_TRUNK_DEV, INT8_TRUNK_REL, INT8_QKV_DEV = 5e-4, 0.05, 5e-3
 
 
 def _train_configs(dtype, int8_frozen=False, total_steps=TRAIN_EPOCHS
-                   * TRAIN_STEPS):
+                   * TRAIN_STEPS, image_size=224):
     """metric_learn's ViT-B/16 and TrainConfig for ``--vit base
     --image_size 224 --grad_from_block 11 --proj_dim 65536`` (the CLI's
-    defaults otherwise)."""
+    defaults otherwise; ``image_size`` 256 for the long-sequence steps)."""
     from scd_tpu_torch.core.config import TrainConfig
     from scd_tpu_torch.models.vit import ViTConfig
 
-    vit = ViTConfig(image_size=224, patch_size=16, width=768, depth=12,
+    vit = ViTConfig(image_size=image_size, patch_size=16, width=768, depth=12,
                     heads=12, compute_dtype=dtype)
     cfg = TrainConfig(lr=0.1, sup_con_weight=0.35,
                       grad_from_block=GRAD_FROM_BLOCK, n_views=TRAIN_VIEWS,
@@ -2668,13 +2656,13 @@ def _train_configs(dtype, int8_frozen=False, total_steps=TRAIN_EPOCHS
     return vit, cfg, total_steps
 
 
-def _train_batch(seed, n_images):
+def _train_batch(seed, n_images, size=224):
     """A host batch of ``n_images`` x 2 views (normalized-scale noise)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return {"images": rng.standard_normal(
-                (TRAIN_VIEWS * n_images, 224, 224, 3)).astype(np.float32),
+                (TRAIN_VIEWS * n_images, size, size, 3)).astype(np.float32),
             "labels": rng.integers(0, 50, n_images),
             "mask_lab": rng.random(n_images) < 0.5}
 
@@ -2910,6 +2898,41 @@ def _cos_rel(a, b):
         ((a - b).norm() / b.norm()).item()
 
 
+def image256_steps(seed):
+    """Two bf16 GCD steps of ViT-B/16 at image 256 (L 257: the forward's
+    long path, the gradient kernel past 256 keys) on a fixed device batch
+    of 128 x 2 views; every kernel call of the steps is held against its
+    plain version on the arguments the steps passed it."""
+    import torch
+
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    vit, cfg, total = _train_configs(torch.bfloat16, image_size=IMAGE_LONG)
+    tr = GCDTrainer(vit, cfg, seed=seed, total_steps=total, device="cuda")
+    batch = tr.to_device(_train_batch(seed + 6, TRAIN_IMAGES, IMAGE_LONG))
+    _reset_counts()
+    t0 = time.perf_counter()
+    with path_inputs() as seen:
+        losses = [tr.step_fn(tr.model, tr.opt, batch)["loss"].item()
+                  for _ in range(2)]
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    print(f"  two bf16 steps at image {IMAGE_LONG} (L {L_257}) on a device "
+          f"batch of {TRAIN_VIEWS} x {TRAIN_IMAGES}: losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}, {wall:.2f} s with the "
+          f"first step's set-up; launches {counts}")
+    check(all(math.isfinite(v) for v in losses),
+          f"image {IMAGE_LONG}: a non-finite loss {losses}")
+    check(counts["attention_bwd"] == 2
+          and counts["attention_long_wgmma"] == counts["attention"] == 24,
+          f"image {IMAGE_LONG}: launches {counts}")
+    check(all(a["qkv"].shape[1] == L_257
+              for a in seen["attention_bwd"].values()),
+          f"image {IMAGE_LONG}: the gradient kernel saw another L")
+    hold_path_inputs(seen, f"image {IMAGE_LONG}")
+    del tr, batch
+
+
 def int8_frozen_steps(seed):
     """Two steps under --int8_frozen 1 and two in bf16, from the same
     parameters and batches.  What the frozen trunk computes is held int8
@@ -3093,6 +3116,9 @@ def phase_train(seed, workdir):
     del res
     print(f"metric_learn and restore {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    image256_steps(seed)
+    print(f"image {IMAGE_LONG} steps {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     int8_frozen_steps(seed)
     step_breakdown(seed)
     print(f"int8 steps and breakdown {time.perf_counter() - t0:.1f} s")
@@ -3131,6 +3157,9 @@ KERNELS = [
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--against-bwd", default=None,
+                   help="an attention_bwd.cu (e.g. the parent commit's) to "
+                        "build and time beside the gradient kernel in phase 5")
     args = p.parse_args(argv)
 
     import torch
@@ -3164,7 +3193,7 @@ def main(argv=None) -> int:
     print(f"phase 4 {time.perf_counter() - t0:.1f} s")
     section("phase 5: timing at the main paths' shapes")
     t0 = time.perf_counter()
-    times = phase_timing(args.seed, estep)
+    times = phase_timing(args.seed, estep, args.against_bwd)
     print(f"phase 5 {time.perf_counter() - t0:.1f} s")
     section("phase 6: serving (infer, CLIP ViT-B/16 bf16)")
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
-// The gradient of masked softmax attention (non-causal, L <= 256), on
-// [B, L, H, d] views with any batch, sequence and head strides (the last
-// dimension contiguous).
+// The gradient of masked softmax attention (non-causal), on [B, L, H, d]
+// views with any batch, sequence and head strides (the last dimension
+// contiguous).
 //
 // Replaces no TPU kernel: the JAX package differentiates its attention with
 // XLA autodiff and has no Pallas backward.  The port's forward is the
@@ -16,30 +16,67 @@
 //   D = rowsum(p * dP);  dS = p * (dP - D);
 //   dQ = scale * dS . K;  dK = scale * dS^T . Q,
 // all accumulated in f32 and stored once in T (bf16 or f32).  Keys at or past
-// l_valid get dK = dV = 0.
-//
-// Two kernels, both on one stream, neither with atomics: every output
-// element is summed by one thread in a fixed order, so a repeat gives the
-// same bits.
-//   1. attn_bwd_dq_kernel, one block per (batch, head, 32-query tile): the
-//      tile's score and dP rows against every key tile (K and V staged by
-//      32-key tiles), the row max, sum, p and D, dS, then dQ = dS . K with K
-//      staged again; it writes each row's max, sum and D to a scratch the
-//      caller allocates.
-//   2. attn_bwd_dkv_kernel, one block per (batch, head, 32-key tile): for
-//      each 32-query tile, the same scores and dP recomputed by the same
-//      instructions (so p and dS carry the same bits as in kernel 1), p and
-//      dS from the row statistics, then dV += T(p)^T . dO and dK += dS^T . Q.
-// Products are SIMT fmaf in f32 from inputs converted on load.
+// l_valid get dK = dV = 0.  No kernel uses atomics: every output element is
+// summed by one thread (or one warpgroup's tensor-core products) in a fixed
+// order, so a repeat gives the same bits.
 //
 // What bounds it on an H100: at the training shape (B 256, L 197, H 12,
-// d 64, bf16) the bytes (q, k, v, o and dO read, dq, dk, dv written) are
-// 0.19 ms at 3.35 TB/s and the products (s twice, dP twice, dV, dK, dQ:
-// 7 x 2 B H L^2 d = 1.1e11 FLOP as a tensor-core kernel would do them)
-// 0.11 ms at 989 TFLOP/s bf16.  This kernel does those products on the SIMT
-// units (67 TFLOP/s f32 peak), reading both operands from shared memory, so
-// it runs far from either bound; a wgmma design is later work.
+// d 64, bf16) the bytes (q, k, v and dO read, dq, dk, dv written once) are
+// 0.162 ms at 3.35 TB/s; the five products a gradient needs (s, dP, dV, dQ,
+// dK over the kept score pairs) 0.077 ms at 989 TFLOP/s bf16.  The design
+// below does nine products over 64 x 64 tiles (s and dP three times each,
+// dQ, dK, dV), 2.3e11 FLOP at L 197 padded to 256, 0.23 ms at the peak, and
+// three exps per score pair (6e8 at that shape); the softmax's instructions,
+// not the bytes, are what it spends most on.
+//
+// bf16 at head_dim 64 (every shipped tower), any L >= 1: two kernels on
+// wgmma fed by TMA, each block one warpgroup on one 64-row tile, the
+// forward's 4-D tensor maps over the strided views (dims d, H, L, B; box 64
+// x 1 x 64 x 1, 128-byte swizzle; rows past L arrive as zeros), its SS
+// wgmma m64n64k16 and its RS wgmma with an MN-major B (the transpose bit).
+//   1. attn_bwd_dq_kernel, one block per (batch, head, 64-query tile): the
+//      Q and dO tiles stay resident; the 64-key tiles of K and V stream
+//      through a ring of stages, twice.  Sweep 1: S = Q . K^T and
+//      dP = dO . V^T, then per row, online, the max, the sum of
+//      exp(s - max) and the sum of exp(s - max) * dP, both rescaled when the
+//      max moves, merged over the row's four threads at the end:
+//      D = that sum / the row sum.  Sweep 2: S and dP again,
+//      p = quot(exp(s - max), sum) (the correctly rounded quotient, as in
+//      the forward), dS = p * (dP - D) rounded to bf16 in its accumulator
+//      layout (a 16-key piece of it is a 16-deep A operand), then
+//      dQ += dS . K (K as an MN-major B).  Each row's max, sum, 1 / sum and
+//      D go to the caller's scratch, 64 rows of a tile together.  When a
+//      head's key tiles all fit in the ring (L <= 128) they stay for sweep 2.
+//   2. attn_bwd_dkv_kernel, one block per (batch, head, 64-key tile): the K
+//      and V tiles stay resident; the Q and dO tiles and their rows'
+//      statistics (one 1 KB bulk copy) stream through a ring.  Per half
+//      of 32 queries: S^T = K . Q^T and dP^T = V . dO^T (m64n32); P^T and
+//      dS^T from the statistics, each rounded to bf16 in registers;
+//      dV += P^T . dO and dK += dS^T . Q.  Halves keep the two 64 x 64
+//      accumulators and the scores within 128 registers (whole 64-query
+//      tiles spilled even at 168).
+// exp is __expf (ex2.approx of x log2 e): ~1e-6 relative where p matters,
+// far inside the tolerance below, and faster than expf.
+// The rounding of dS to bf16 for the dQ and dK products is one rounding the
+// contract above does not make: it moves each term by at most 2^-9 of
+// |dS| |K| (or |Q|), inside the bf16 tolerance (2^-7 |want| + 2^-6 M,
+// scd_tpu_torch/testing/attention_grad.py).  Kernel 2's S^T is another
+// instruction than kernel 1's S, so p and dS may differ there in their
+// last bits.  No wgmma sits under a runtime branch (ptxas would serialize
+// it): loop bounds are uniform in the warpgroup, the key mask is a select
+// in every tile (see scale_mask), and rows past L (zeros from TMA) get
+// finite statistics (max 0, sum l_valid, D 0), so their terms are exactly
+// 0.  A key tile wholly past l_valid visits no query tile and stores zeros.
+//
+// f32 (the --bf16 0 training path), L <= 256, head_dim <= 128: no
+// tensor-core path keeps f32 products exact (the forward's rule too), so
+// two SIMT kernels: attn_bwd_dq_simt_kernel, one block per 32-query tile
+// (score and dP rows against every key, row statistics, dS, dQ = dS . K),
+// and attn_bwd_dkv_simt_kernel, one block per 32-key tile (p and dS
+// recomputed by the same instructions, dV, dK), fmaf products in f32.
+// bf16 at another head_dim, and f32 past those limits, are refused.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,41 +84,643 @@
 
 namespace {
 
-constexpr int MAX_L = 256;         // the whole-row forward paths' limit
-constexpr int MAX_HD = 128;
-constexpr int TR = 32;             // queries (kernel 1) or keys (kernel 2) per block
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int RPW = TR / WARPS;    // rows of a tile per warp: 4
-constexpr int MAXC = MAX_HD / 32;  // output columns per lane
-
 struct Strides {
   long long b, l, h;  // element strides of batch, sequence and head
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-// x rounded to T's precision and back
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+// ---- the bf16 path: wgmma fed by TMA
+
+constexpr int HD = 64;                      // head dimension of the bf16 path
+constexpr int ROW_BYTES = HD * 2;           // one head row: 128 bytes, the swizzle span
+constexpr int TR = 64;                      // rows of a tile (the wgmma M)
+constexpr int TILE_BYTES = TR * ROW_BYTES;  // one tile of q, k, v or dO: 8 KB
+constexpr int STAT_BYTES = TR * 16;         // a tile's row statistics: 64 float4
+constexpr int THREADS = 128;                // one warpgroup
+
+// Shared memory, after a pad to a 1024-byte boundary: kernel 1 Q, dO, then
+// NS stages of (K, V); kernel 2 K, V, then NS stages of (Q, dO,
+// statistics); the mbarriers after them.  Four blocks an SM (<= 128
+// registers a thread, ~51 KB each) with two stages ran faster than three
+// blocks with three stages: other blocks' work hides a block's waits.
+constexpr int NS = 2, PER_SM = 4;
+constexpr int DQ_STAGE = 2 * TILE_BYTES;
+constexpr int DKV_STAGE = 2 * TILE_BYTES + 1024;  // statistics padded to keep 1024-byte alignment
+constexpr int DQ_SMEM = 1024 + 2 * TILE_BYTES + NS * DQ_STAGE + 64;
+constexpr int DKV_SMEM = 1024 + 2 * TILE_BYTES + NS * DKV_STAGE + 64;
+
+struct Shape {
+  int heads, L, lv, tiles;  // lv = min(l_valid, L); tiles = ceil(L / 64)
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Rows [row0, row0 + TR) of one (batch, head) of x into dst [TR][ld] as f32,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of `parity` to complete.  A wait past 10 s (a load
+// that never lands) traps: the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = global_ns();
+    else if (global_ns() - start > 10000000000ull) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// a plain bulk copy of `bytes` (a multiple of 16) from global memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register accesses across wgmma
+template <int N, typename T>
+__device__ __forceinline__ void reg_fence(T* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&r[i]))::"memory");
+}
+
+// Shared-memory operand descriptor of rows of 128 bytes with the 128-byte
+// swizzle (what TMA writes): start address >> 4, LBO 1 (unused), 8-row
+// groups 1024 bytes apart (SBO), layout type 1 (128B swizzle).  It serves a
+// K-major operand (d contiguous: Q, K, V, dO as the A or B of a product over
+// d) and an MN-major B (a product over the tile's rows); a 16-deep step
+// along d advances the start by 32 bytes (2 units), one along the rows by 16
+// rows (2048 bytes).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs_n64_tb(float* d, const uint32_t* a, uint64_t db,
+                                                     int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss_n32(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// X = A_x . B_x^T and Y = A_y . B_y^T over d (four 16-deep steps each), N
+// rows of B (32 or 64), both operands K-major in shared memory; one commit,
+// one wait
+template <int N>
+__device__ __forceinline__ void two_products(float* x, float* y, uint64_t ax, uint64_t bx,
+                                             uint64_t ay, uint64_t by) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (N == 64)
+      wgmma_bf16_ss_n64(x, ax + 2 * kk, bx + 2 * kk, kk);
+    else
+      wgmma_bf16_ss_n32(x, ax + 2 * kk, bx + 2 * kk, kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (N == 64)
+      wgmma_bf16_ss_n64(y, ay + 2 * kk, by + 2 * kk, kk);
+    else
+      wgmma_bf16_ss_n32(y, ay + 2 * kk, by + 2 * kk, kk);
+  }
+  wg_commit();
+  wg_wait_all();
+  reg_fence<N / 2>(x);
+  reg_fence<N / 2>(y);
+}
+
+// acc += A . B over the tile's 64 rows: A from registers (a[j] the j-th
+// 16-deep piece), B a [64 rows][64 d] tile as an MN-major operand; `first`
+// overwrites acc instead
+__device__ __forceinline__ void rs_product(float* acc, const uint32_t (&a)[4][4], uint32_t b_addr,
+                                           bool first) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_bf16_rs_n64_tb(acc, a[j], desc_sw128(b_addr + j * 16 * ROW_BYTES), !(first && j == 0));
+}
+
+// e / sum, correctly rounded, from inv = RN(1 / sum) (Markstein)
+__device__ __forceinline__ float quot(float e, float sum, float inv) {
+  const float q = __fmul_rn(e, inv);
+  return fmaf(fmaf(-sum, q, e), inv, q);
+}
+
+// p of an unscaled score from its row's (max, sum, 1 / sum, D)
+__device__ __forceinline__ float prob(float s, float4 row, float scale) {
+  return quot(__expf(__fsub_rn(__fmul_rn(s, scale), row.x)), row.y, row.z);
+}
+
+// (m, sum, wsum) of two partial softmax states, m the larger max; a state
+// with m = -inf (no key seen yet) has sums 0 and adds nothing
+__device__ __forceinline__ void merge_state(float& m, float& sum, float& wsum, float m2,
+                                            float sum2, float wsum2) {
+  const float mn = fmaxf(m, m2);
+  const float ms = mn == -INFINITY ? 0.f : mn;
+  const float c1 = __expf(m - ms), c2 = __expf(m2 - ms);
+  sum = sum * c1 + sum2 * c2;
+  wsum = wsum * c1 + wsum2 * c2;
+  m = mn;
+}
+
+// The scaled scores of one 64-key tile starting at key k0, keys >= lv at
+// -inf.  Thread (lane 4g + t) holds rows g (s[4c], s[4c + 1]) and g + 8
+// (s[4c + 2], s[4c + 3]) of its warp's 16 at keys k0 + 8c + 2t + {0, 1}.
+// A masked score is 1 * -inf: the mask picks the operands of the one
+// multiply (a select of the result, or a branch around the masking, has
+// ptxas serialize the wgmma that wrote s, C7514).
+__device__ __forceinline__ void scale_mask(float* s, int k0, int lv, int t, float scale) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool keep = k0 + c * 8 + 2 * t + e < lv;
+      const float m = keep ? scale : -INFINITY;
+      s[4 * c + e] = __fmul_rn(keep ? s[4 * c + e] : 1.f, m);
+      s[4 * c + 2 + e] = __fmul_rn(keep ? s[4 * c + 2 + e] : 1.f, m);
+    }
+}
+
+// the tiles of rows [row0, row0 + 64) of (b, h) from two maps into dst, dst
+// + TILE_BYTES, completing on bar with `extra` bytes more that the caller
+// loads (one thread: one arrival a phase)
+__device__ __forceinline__ void load_pair(const CUtensorMap* m1, const CUtensorMap* m2,
+                                          uint32_t dst, uint32_t bar, int row0, int b, int h,
+                                          uint32_t extra = 0) {
+  mbar_expect_tx(bar, 2 * TILE_BYTES + extra);
+  tma_load_4d(dst, m1, bar, 0, h, row0, b);
+  tma_load_4d(dst + TILE_BYTES, m2, bar, 0, h, row0, b);
+}
+
+// Kernel 1: dQ and the row statistics.  Load sequence: sweep 1's key tiles
+// 0 .. nkt - 1, then sweep 2's again (item nkt + j), unless nkt <= NS: then
+// sweep 2 reads the stages sweep 1 filled.  Item i lives in stage i % NS,
+// its load completing phase i / NS of that stage's mbarrier; a stage is
+// refilled with item i + NS once every thread is done with item i.
+__global__ void __launch_bounds__(THREADS, PER_SM)
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                   __nv_bfloat16* __restrict__ dq, float4* __restrict__ stats, Strides sdq,
+                   Shape sh) {
+  extern __shared__ unsigned char sm_raw[];
+  const uint32_t raw = smem_u32(sm_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t qbuf = base, obuf = base + TILE_BYTES, ring = base + 2 * TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm_raw + (base - raw) + 2 * TILE_BYTES +
+                                               NS * DQ_STAGE);  // [0] Q and dO, [1 + s] stage s
+
+  const int tile = blockIdx.x % sh.tiles;
+  const int bh = blockIdx.x / sh.tiles;
+  const int b = bh / sh.heads, h = bh % sh.heads;
+  const int q0 = tile * TR;
+  const int lv = sh.lv;
+  const int nkt = (lv + TR - 1) / TR;  // key tiles with a valid key
+  const bool resident = nkt <= NS;
+  const int items = resident ? nkt : 2 * nkt;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= NS; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_pair(&mq, &mo, qbuf, smem_u32(&bars[0]), q0, b, h);
+    for (int i = 0; i < NS && i < items; ++i)
+      load_pair(&mk, &mv, ring + i * DQ_STAGE, smem_u32(&bars[1 + i]), (i % nkt) * TR, b, h);
+  }
+  __syncthreads();
+  mbar_wait(smem_u32(&bars[0]), 0);
+  const uint64_t dq_a = desc_sw128(qbuf), do_a = desc_sw128(obuf);
+
+  // item i is read: wait for it, and once every thread is done, refill its
+  // stage with item i + NS
+  auto acquire = [&](int i) {
+    mbar_wait(smem_u32(&bars[1 + i % NS]), (i / NS) & 1);
+    return ring + (i % NS) * DQ_STAGE;
+  };
+  auto release = [&](int i) {
+    if (i + NS < items) {
+      __syncthreads();
+      if (threadIdx.x == 0)
+        load_pair(&mk, &mv, ring + (i % NS) * DQ_STAGE, smem_u32(&bars[1 + i % NS]),
+                  ((i + NS) % nkt) * TR, b, h);
+    }
+  };
+
+  // ---- sweep 1: per row (a: g, b: g + 8 of the warp's 16) the max, the sum
+  // of e = exp(s - max) and the sum of e * dP, online
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, ua = 0.f, ub = 0.f;
+  for (int j = 0; j < nkt; ++j) {
+    const uint32_t st = acquire(j);
+    float s[32], dp[32];
+    two_products<64>(s, dp, dq_a, desc_sw128(st), do_a, desc_sw128(st + TILE_BYTES));
+    release(j);
+    scale_mask(s, j * TR, lv, t, sh.scale);
+    float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      ta = fmaxf(ta, fmaxf(s[4 * c], s[4 * c + 1]));
+      tb = fmaxf(tb, fmaxf(s[4 * c + 2], s[4 * c + 3]));
+    }
+    const float na = fmaxf(ma, ta), nb = fmaxf(mb, tb);
+    const float za = na == -INFINITY ? 0.f : na, zb = nb == -INFINITY ? 0.f : nb;
+    float ea = 0.f, eb = 0.f, wa = 0.f, wb = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xa = __expf(s[4 * c + e] - za), xb = __expf(s[4 * c + 2 + e] - zb);
+        ea += xa;
+        eb += xb;
+        wa = fmaf(xa, round_bf16(dp[4 * c + e]), wa);
+        wb = fmaf(xb, round_bf16(dp[4 * c + 2 + e]), wb);
+      }
+    const float ca = __expf(ma - za), cb = __expf(mb - zb);
+    la = la * ca + ea;
+    ua = ua * ca + wa;
+    lb = lb * cb + eb;
+    ub = ub * cb + wb;
+    ma = na;
+    mb = nb;
+  }
+  // the row's four threads; every row sees key 0, so its max is finite (a
+  // row past L has q = 0: max 0, sum lv, D 0)
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    merge_state(ma, la, ua, __shfl_xor_sync(0xffffffffu, ma, off),
+                __shfl_xor_sync(0xffffffffu, la, off), __shfl_xor_sync(0xffffffffu, ua, off));
+    merge_state(mb, lb, ub, __shfl_xor_sync(0xffffffffu, mb, off),
+                __shfl_xor_sync(0xffffffffu, lb, off), __shfl_xor_sync(0xffffffffu, ub, off));
+  }
+  const float ia = __frcp_rn(la), ib = __frcp_rn(lb);
+  const float da = __fdiv_rn(ua, la), db = __fdiv_rn(ub, lb);
+  const int ra = 16 * warp + g, rb = ra + 8;  // rows in the tile
+  if (t == 0) {
+    float4* out = stats + ((long long)bh * sh.tiles + tile) * TR;
+    out[ra] = make_float4(ma, la, ia, da);
+    out[rb] = make_float4(mb, lb, ib, db);
+  }
+
+  // ---- sweep 2: p, dS = p * (dP - D) in bf16, dQ += dS . K
+  float acc[32];
+  for (int j = 0; j < nkt; ++j) {
+    const int item = resident ? j : nkt + j;
+    const uint32_t st = acquire(item);
+    float s[32], dp[32];
+    two_products<64>(s, dp, dq_a, desc_sw128(st), do_a, desc_sw128(st + TILE_BYTES));
+    scale_mask(s, j * TR, lv, t, sh.scale);
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool row_b = e & 2;  // elements 2, 3, 6, 7 are row g + 8
+        const float x = s[8 * jj + e];
+        const float p = row_b ? quot(__expf(__fsub_rn(x, mb)), lb, ib)
+                              : quot(__expf(__fsub_rn(x, ma)), la, ia);
+        v[e] = __fmul_rn(p, __fsub_rn(round_bf16(dp[8 * jj + e]), row_b ? db : da));
+      }
+      ds[jj][0] = pack_bf16(v[0], v[1]);
+      ds[jj][1] = pack_bf16(v[2], v[3]);
+      ds[jj][2] = pack_bf16(v[4], v[5]);
+      ds[jj][3] = pack_bf16(v[6], v[7]);
+    }
+    reg_fence<16>(&ds[0][0]);
+    wg_fence();
+    rs_product(acc, ds, st, j == 0);
+    wg_commit();
+    wg_wait_all();
+    reg_fence<32>(acc);
+    release(item);
+  }
+
+  // ---- store the rows that exist: chunk c holds columns 8c + 2t, + 1
+  __nv_bfloat16* out = dq + b * sdq.b + h * sdq.h;
+  const int qa = q0 + ra, qb = q0 + rb;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    if (qa < sh.L)
+      *reinterpret_cast<uint32_t*>(out + qa * sdq.l + c * 8 + 2 * t) =
+          pack_bf16(__fmul_rn(acc[4 * c], sh.scale), __fmul_rn(acc[4 * c + 1], sh.scale));
+    if (qb < sh.L)
+      *reinterpret_cast<uint32_t*>(out + qb * sdq.l + c * 8 + 2 * t) =
+          pack_bf16(__fmul_rn(acc[4 * c + 2], sh.scale), __fmul_rn(acc[4 * c + 3], sh.scale));
+  }
+}
+
+// Kernel 2: dK and dV of one 64-key tile.  Query tile i lives in stage
+// i % NS (Q, dO, then its 64 rows' statistics), its loads completing phase
+// i / NS of that stage's mbarrier; the stage is refilled with tile i + NS
+// once every thread is done with tile i.  A thread holds keys k0 + 16 warp
+// + g (a) and + 8 (b) against queries q0 + 8c + 2t + {0, 1}.
+__global__ void __launch_bounds__(THREADS, PER_SM)
+attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                    const float4* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, Strides sdk, Strides sdv, Shape sh) {
+  extern __shared__ unsigned char sm_raw[];
+  const uint32_t raw = smem_u32(sm_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t kbuf = base, vbuf = base + TILE_BYTES, ring = base + 2 * TILE_BYTES;
+  unsigned char* ring_ptr = sm_raw + (base - raw) + 2 * TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_ptr + NS * DKV_STAGE);
+
+  const int tile = blockIdx.x % sh.tiles;
+  const int bh = blockIdx.x / sh.tiles;
+  const int b = bh / sh.heads, h = bh % sh.heads;
+  const int k0 = tile * TR;
+  const int lv = sh.lv;
+  const int nqt = k0 < lv ? sh.tiles : 0;  // a tile of masked keys visits none
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float4* stats_bh = stats + (long long)bh * sh.tiles * TR;
+
+  auto load_q = [&](int i) {
+    const uint32_t st = ring + (i % NS) * DKV_STAGE, bar = smem_u32(&bars[1 + i % NS]);
+    load_pair(&mq, &mo, st, bar, i * TR, b, h, STAT_BYTES);
+    bulk_load(st + 2 * TILE_BYTES, stats_bh + i * TR, STAT_BYTES, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= NS; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (nqt > 0) load_pair(&mk, &mv, kbuf, smem_u32(&bars[0]), k0, b, h);
+    for (int i = 0; i < NS && i < nqt; ++i) load_q(i);
+  }
+  __syncthreads();
+  if (nqt > 0) mbar_wait(smem_u32(&bars[0]), 0);
+  const uint64_t k_a = desc_sw128(kbuf), v_a = desc_sw128(vbuf);
+  const int ra = 16 * warp + g, rb = ra + 8;  // keys in the tile
+  const bool keep_a = k0 + ra < lv, keep_b = k0 + rb < lv;
+
+  float adk[32], adv[32];
+  for (int i = 0; i < nqt; ++i) {
+    mbar_wait(smem_u32(&bars[1 + i % NS]), (i / NS) & 1);
+    const uint32_t st = ring + (i % NS) * DKV_STAGE;
+    const float4* rs = reinterpret_cast<const float4*>(ring_ptr + (i % NS) * DKV_STAGE +
+                                                       2 * TILE_BYTES);
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {  // queries 32 hq .. 32 hq + 31 of the tile
+      const uint32_t qo = hq * 32 * ROW_BYTES;
+      float s[16], dp[16];
+      two_products<32>(s, dp, k_a, desc_sw128(st + qo), v_a, desc_sw128(st + TILE_BYTES + qo));
+      uint32_t pf[2][4], df[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        float pv[8], dsv[8];
+#pragma unroll
+        for (int cb = 0; cb < 2; ++cb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // query 32 hq + 16 jj + 8 cb + 2t + e: (max, sum, 1 / sum, D)
+            const float4 r = rs[32 * hq + 16 * jj + 8 * cb + 2 * t + e];
+            const int ia = 8 * jj + 4 * cb + e, ib = ia + 2;  // keys a, b
+            const float pa = keep_a ? prob(s[ia], r, sh.scale) : 0.f;
+            const float pb = keep_b ? prob(s[ib], r, sh.scale) : 0.f;
+            pv[4 * cb + e] = pa;
+            pv[4 * cb + 2 + e] = pb;
+            dsv[4 * cb + e] = __fmul_rn(pa, __fsub_rn(round_bf16(dp[ia]), r.w));
+            dsv[4 * cb + 2 + e] = __fmul_rn(pb, __fsub_rn(round_bf16(dp[ib]), r.w));
+          }
+        pf[jj][0] = pack_bf16(pv[0], pv[1]);
+        pf[jj][1] = pack_bf16(pv[2], pv[3]);
+        pf[jj][2] = pack_bf16(pv[4], pv[5]);
+        pf[jj][3] = pack_bf16(pv[6], pv[7]);
+        df[jj][0] = pack_bf16(dsv[0], dsv[1]);
+        df[jj][1] = pack_bf16(dsv[2], dsv[3]);
+        df[jj][2] = pack_bf16(dsv[4], dsv[5]);
+        df[jj][3] = pack_bf16(dsv[6], dsv[7]);
+      }
+      reg_fence<8>(&pf[0][0]);
+      reg_fence<8>(&df[0][0]);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wgmma_bf16_rs_n64_tb(adv, pf[j], desc_sw128(st + TILE_BYTES + qo + j * 16 * ROW_BYTES),
+                             (i | hq | j) != 0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wgmma_bf16_rs_n64_tb(adk, df[j], desc_sw128(st + qo + j * 16 * ROW_BYTES),
+                             (i | hq | j) != 0);
+      wg_commit();
+      wg_wait_all();
+      reg_fence<32>(adv);
+      reg_fence<32>(adk);
+    }
+    if (i + NS < nqt) {
+      __syncthreads();
+      if (threadIdx.x == 0) load_q(i + NS);
+    }
+  }
+
+  // ---- store the keys that exist; keys past l_valid get zeros
+  __nv_bfloat16* ok = dk + b * sdk.b + h * sdk.h;
+  __nv_bfloat16* ov = dv + b * sdv.b + h * sdv.h;
+  const int ka = k0 + ra, kb = k0 + rb;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    if (ka < sh.L) {
+      *reinterpret_cast<uint32_t*>(ok + ka * sdk.l + c * 8 + 2 * t) =
+          keep_a ? pack_bf16(__fmul_rn(adk[4 * c], sh.scale), __fmul_rn(adk[4 * c + 1], sh.scale))
+                 : 0u;
+      *reinterpret_cast<uint32_t*>(ov + ka * sdv.l + c * 8 + 2 * t) =
+          keep_a ? pack_bf16(adv[4 * c], adv[4 * c + 1]) : 0u;
+    }
+    if (kb < sh.L) {
+      *reinterpret_cast<uint32_t*>(ok + kb * sdk.l + c * 8 + 2 * t) =
+          keep_b ? pack_bf16(__fmul_rn(adk[4 * c + 2], sh.scale),
+                             __fmul_rn(adk[4 * c + 3], sh.scale))
+                 : 0u;
+      *reinterpret_cast<uint32_t*>(ov + kb * sdv.l + c * 8 + 2 * t) =
+          keep_b ? pack_bf16(adv[4 * c + 2], adv[4 * c + 3]) : 0u;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded, so the library needs no -lcuda at link time.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a strided bf16 [B, L, H, 64] view: dims (d, H, L, B),
+// innermost first, byte strides of H, L and B (a size-1 dimension gets the
+// stride it would have in a contiguous layout), box 64 x 1 x 64 x 1 with the
+// 128-byte swizzle; rows past L read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, Strides st, int batch, int L, int heads) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const long long sh = heads > 1 ? st.h : HD;
+  const long long sl = L > 1 ? st.l : sh * heads;
+  const long long sb = batch > 1 ? st.b : sl * L;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)L,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)HD, 1u, (cuuint32_t)TR, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+                void* dv, float* stats, Strides sq, Strides sk, Strides sv, Strides so,
+                Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L, int lv,
+                float scale, cudaStream_t stream) {
+  Shape sh{heads, L, lv, (L + TR - 1) / TR, scale};
+  const long long blocks = (long long)batch * heads * sh.tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, q, sq, batch, L, heads) || !make_map(&mk, k, sk, batch, L, heads) ||
+      !make_map(&mv, v, sv, batch, L, heads) || !make_map(&mo, dout, so, batch, L, heads))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  float4* st4 = reinterpret_cast<float4*>(stats);
+  attn_bwd_dq_kernel<<<(unsigned)blocks, THREADS, DQ_SMEM, stream>>>(
+      mq, mk, mv, mo, static_cast<__nv_bfloat16*>(dq), st4, sdq, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkv_kernel<<<(unsigned)blocks, THREADS, DKV_SMEM, stream>>>(
+      mq, mk, mv, mo, st4, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sdk,
+      sdv, sh);
+  return (int)cudaGetLastError();
+}
+
+// ---- the f32 path: SIMT, L <= 256, head_dim <= 128
+
+constexpr int MAX_L_F32 = 256;
+constexpr int MAX_HD_F32 = 128;
+constexpr int FTR = 32;             // queries (kernel 1) or keys (kernel 2) per block
+constexpr int FWARPS = 8;
+constexpr int FTHREADS = 32 * FWARPS;
+constexpr int RPW = FTR / FWARPS;   // rows of a tile per warp: 4
+constexpr int MAXC = MAX_HD_F32 / 32;  // output columns per lane
+
+// Rows [row0, row0 + FTR) of one (batch, head) of x into dst [FTR][ld],
 // zeros past L.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* base, long long sl,
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* base, long long sl,
                                            int row0, int L, int hd) {
-  for (int i = threadIdx.x; i < TR * hd; i += THREADS) {
+  for (int i = threadIdx.x; i < FTR * hd; i += FTHREADS) {
     const int r = i / hd, c = i % hd;
-    dst[r * ld + c] = row0 + r < L ? to_f32(base[(long long)(row0 + r) * sl + c]) : 0.f;
+    dst[r * ld + c] = row0 + r < L ? base[(long long)(row0 + r) * sl + c] : 0.f;
   }
 }
 
 // The dot products of this warp's RPW rows of A ([.][hd], rows arow0..) with
-// row `lane` of B ([TR][hd + 1]), fmaf in d order.  Both kernels form every
+// row `lane` of B ([FTR][hd + 1]), fmaf in d order.  Both kernels form every
 // score and every dP through this one function, so they agree bit for bit.
 __device__ __forceinline__ void row_dots(float (&out)[RPW], const float* A, int arow0,
                                          const float* Bt, int hd, int lane) {
@@ -108,52 +747,52 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // p of one score from its row's max and sum, as both kernels form it
-__device__ __forceinline__ float prob(float s, float m, float sum) {
+__device__ __forceinline__ float prob_f32(float s, float m, float sum) {
   return __fdiv_rn(expf(__fsub_rn(s, m)), sum);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
-                   Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int heads,
-                   int L, int hd, int lv, float scale, int qtiles, int lp, long long bhl) {
+__global__ void __launch_bounds__(FTHREADS)
+attn_bwd_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        float* __restrict__ dq, float* __restrict__ stats, Strides sq, Strides sk,
+                        Strides sv, Strides sdo, Strides sdq, int heads, int L, int hd, int lv,
+                        float scale, int qtiles, int lp, long long bhl) {
   extern __shared__ float smem[];
-  float* Qs = smem;                // [TR][hd]
-  float* dOs = Qs + TR * hd;       // [TR][hd]
-  float* Ks = dOs + TR * hd;       // [TR][hd + 1]
-  float* Vs = Ks + TR * (hd + 1);  // [TR][hd + 1]
-  float* S = Vs + TR * (hd + 1);   // [TR][lp]: scores, then p
-  float* G = S + TR * lp;          // [TR][lp]: dP, then dS
+  float* Qs = smem;                 // [FTR][hd]
+  float* dOs = Qs + FTR * hd;       // [FTR][hd]
+  float* Ks = dOs + FTR * hd;       // [FTR][hd + 1]
+  float* Vs = Ks + FTR * (hd + 1);  // [FTR][hd + 1]
+  float* S = Vs + FTR * (hd + 1);   // [FTR][lp]: scores, then p
+  float* G = S + FTR * lp;          // [FTR][lp]: dP, then dS
 
   const int tile = blockIdx.x % qtiles;
   const int bh = blockIdx.x / qtiles;
   const int b = bh / heads, h = bh % heads;
-  const int q0 = tile * TR;
+  const int q0 = tile * FTR;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = warp * RPW;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const T* ob = dout + b * sdo.b + h * sdo.h;
-  const int ntiles = (lv + TR - 1) / TR;  // key tiles with a valid key
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* ob = dout + b * sdo.b + h * sdo.h;
+  const int ntiles = (lv + FTR - 1) / FTR;  // key tiles with a valid key
 
   stage_rows(Qs, hd, qb, sq.l, q0, L, hd);
   stage_rows(dOs, hd, ob, sdo.l, q0, L, hd);
   // scores and dP against every key tile with a valid key
   for (int t = 0; t < ntiles; ++t) {
     __syncthreads();  // the last tile's readers are done
-    stage_rows(Ks, hd + 1, kb, sk.l, t * TR, L, hd);
-    stage_rows(Vs, hd + 1, vb, sv.l, t * TR, L, hd);
+    stage_rows(Ks, hd + 1, kb, sk.l, t * FTR, L, hd);
+    stage_rows(Vs, hd + 1, vb, sv.l, t * FTR, L, hd);
     __syncthreads();
     float s[RPW], dp[RPW];
     row_dots(s, Qs, r0, Ks, hd, lane);
     row_dots(dp, dOs, r0, Vs, hd, lane);
-    const int key = t * TR + lane;
+    const int key = t * FTR + lane;
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       S[(r0 + r) * lp + key] = key < lv ? __fmul_rn(s[r], scale) : -INFINITY;
-      G[(r0 + r) * lp + key] = round_to(dp[r], q);
+      G[(r0 + r) * lp + key] = dp[r];
     }
   }
   __syncthreads();
@@ -170,7 +809,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     sum = warp_sum(sum);
     float dsum = 0.f;
     for (int c = lane; c < lv; c += 32) {
-      const float p = prob(srow[c], m, sum);
+      const float p = prob_f32(srow[c], m, sum);
       srow[c] = p;
       dsum = fmaf(p, grow[c], dsum);
     }
@@ -192,14 +831,14 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int c = 0; c < MAXC; ++c) acc[r][c] = 0.f;
   for (int t = 0; t < ntiles; ++t) {
     __syncthreads();
-    stage_rows(Ks, hd + 1, kb, sk.l, t * TR, L, hd);
+    stage_rows(Ks, hd + 1, kb, sk.l, t * FTR, L, hd);
     __syncthreads();
-    const int nk = min(TR, lv - t * TR);
+    const int nk = min(FTR, lv - t * FTR);
     for (int j = 0; j < nk; ++j) {
       const float* krow = Ks + j * (hd + 1);
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
-        const float ds = G[(r0 + r) * lp + t * TR + j];
+        const float ds = G[(r0 + r) * lp + t * FTR + j];
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
           if (lane + 32 * c < hd) acc[r][c] = fmaf(ds, krow[lane + 32 * c], acc[r][c]);
@@ -209,41 +848,41 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     if (q0 + r0 + r >= L) continue;
-    T* orow = dq + b * sdq.b + (long long)(q0 + r0 + r) * sdq.l + h * sdq.h;
+    float* orow = dq + b * sdq.b + (long long)(q0 + r0 + r) * sdq.l + h * sdq.h;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
-      if (lane + 32 * c < hd) from_f32(orow + lane + 32 * c, __fmul_rn(acc[r][c], scale));
+      if (lane + 32 * c < hd) orow[lane + 32 * c] = __fmul_rn(acc[r][c], scale);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
-                    const float* __restrict__ stats, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, Strides sdk, Strides sdv, int heads, int L, int hd, int lv,
-                    float scale, int ktiles, long long bhl) {
+__global__ void __launch_bounds__(FTHREADS)
+attn_bwd_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         const float* __restrict__ stats, Strides sq, Strides sk, Strides sv,
+                         Strides sdo, Strides sdk, Strides sdv, int heads, int L, int hd, int lv,
+                         float scale, int ktiles, long long bhl) {
   extern __shared__ float smem[];
-  float* Ks = smem;                 // [TR][hd + 1]
-  float* Vs = Ks + TR * (hd + 1);   // [TR][hd + 1]
-  float* Qs = Vs + TR * (hd + 1);   // [TR][hd]
-  float* dOs = Qs + TR * hd;        // [TR][hd]
-  float* Ps = dOs + TR * hd;        // [TR queries][TR + 1 keys]: T(p)
-  float* Gs = Ps + TR * (TR + 1);   // [TR][TR + 1]: dS
-  float* rm = Gs + TR * (TR + 1);   // [TR] row max, sum and D of the query tile
-  float* rs = rm + TR;
-  float* rd = rs + TR;
+  float* Ks = smem;                  // [FTR][hd + 1]
+  float* Vs = Ks + FTR * (hd + 1);   // [FTR][hd + 1]
+  float* Qs = Vs + FTR * (hd + 1);   // [FTR][hd]
+  float* dOs = Qs + FTR * hd;        // [FTR][hd]
+  float* Ps = dOs + FTR * hd;        // [FTR queries][FTR + 1 keys]: p
+  float* Gs = Ps + FTR * (FTR + 1);  // [FTR][FTR + 1]: dS
+  float* rm = Gs + FTR * (FTR + 1);  // [FTR] row max, sum and D of the query tile
+  float* rs = rm + FTR;
+  float* rd = rs + FTR;
 
   const int tile = blockIdx.x % ktiles;
   const int bh = blockIdx.x / ktiles;
   const int b = bh / heads, h = bh % heads;
-  const int k0 = tile * TR;
+  const int k0 = tile * FTR;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j0 = warp * RPW;  // this warp's keys in the tile, for the sums
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const T* ob = dout + b * sdo.b + h * sdo.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* ob = dout + b * sdo.b + h * sdo.h;
 
   float adk[RPW][MAXC], adv[RPW][MAXC];
 #pragma unroll
@@ -256,11 +895,11 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     stage_rows(Vs, hd + 1, vb, sv.l, k0, L, hd);
     const int key = k0 + lane;
     const bool keep = key < lv;
-    for (int i0 = 0; i0 < L; i0 += TR) {
+    for (int i0 = 0; i0 < L; i0 += FTR) {
       __syncthreads();  // the last query tile's readers are done
       stage_rows(Qs, hd, qb, sq.l, i0, L, hd);
       stage_rows(dOs, hd, ob, sdo.l, i0, L, hd);
-      for (int i = threadIdx.x; i < TR; i += THREADS) {
+      for (int i = threadIdx.x; i < FTR; i += FTHREADS) {
         const long long row = (long long)bh * L + i0 + i;
         const bool in = i0 + i < L;
         rm[i] = in ? stats[row] : 0.f;
@@ -275,19 +914,19 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const int i = warp * RPW + r;
-        const float p = keep ? prob(__fmul_rn(s[r], scale), rm[i], rs[i]) : 0.f;
-        Ps[i * (TR + 1) + lane] = round_to(p, q);
-        Gs[i * (TR + 1) + lane] = __fmul_rn(p, __fsub_rn(round_to(dp[r], q), rd[i]));
+        const float p = keep ? prob_f32(__fmul_rn(s[r], scale), rm[i], rs[i]) : 0.f;
+        Ps[i * (FTR + 1) + lane] = p;
+        Gs[i * (FTR + 1) + lane] = __fmul_rn(p, __fsub_rn(dp[r], rd[i]));
       }
       __syncthreads();
-      const int ni = min(TR, L - i0);
+      const int ni = min(FTR, L - i0);
       for (int i = 0; i < ni; ++i) {
         const float* qrow = Qs + i * hd;
         const float* orow = dOs + i * hd;
 #pragma unroll
         for (int r = 0; r < RPW; ++r) {
-          const float p = Ps[i * (TR + 1) + j0 + r];
-          const float ds = Gs[i * (TR + 1) + j0 + r];
+          const float p = Ps[i * (FTR + 1) + j0 + r];
+          const float ds = Gs[i * (FTR + 1) + j0 + r];
 #pragma unroll
           for (int c = 0; c < MAXC; ++c) {
             if (lane + 32 * c < hd) {
@@ -304,48 +943,47 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int key = k0 + j0 + r;
     if (key >= L) continue;
     const bool keep = key < lv;
-    T* krow = dk + b * sdk.b + (long long)key * sdk.l + h * sdk.h;
-    T* vrow = dv + b * sdv.b + (long long)key * sdv.l + h * sdv.h;
+    float* krow = dk + b * sdk.b + (long long)key * sdk.l + h * sdk.h;
+    float* vrow = dv + b * sdv.b + (long long)key * sdv.l + h * sdv.h;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       if (lane + 32 * c < hd) {
-        from_f32(krow + lane + 32 * c, keep ? __fmul_rn(adk[r][c], scale) : 0.f);
-        from_f32(vrow + lane + 32 * c, keep ? adv[r][c] : 0.f);
+        krow[lane + 32 * c] = keep ? __fmul_rn(adk[r][c], scale) : 0.f;
+        vrow[lane + 32 * c] = keep ? adv[r][c] : 0.f;
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-           void* dv, float* stats, Strides sq, Strides sk, Strides sv, Strides sdo,
-           Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L, int hd,
-           int l_valid, float scale, cudaStream_t stream) {
-  const int lp = (L + TR - 1) / TR * TR;
-  const int tiles = lp / TR;
+int launch_f32(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+               void* dv, float* stats, Strides sq, Strides sk, Strides sv, Strides sdo,
+               Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L, int hd, int lv,
+               float scale, cudaStream_t stream) {
+  const int lp = (L + FTR - 1) / FTR * FTR;
+  const int tiles = lp / FTR;
   const long long bhl = (long long)batch * heads * L;
   const long long blocks = (long long)batch * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int smem1 = 4 * (2 * TR * hd + 2 * TR * (hd + 1) + 2 * TR * lp);
-  const int smem2 = 4 * (2 * TR * (hd + 1) + 2 * TR * hd + 2 * TR * (TR + 1) + 3 * TR);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T>,
+  const int smem1 = 4 * (2 * FTR * hd + 2 * FTR * (hd + 1) + 2 * FTR * lp);
+  const int smem2 = 4 * (2 * FTR * (hd + 1) + 2 * FTR * hd + 2 * FTR * (FTR + 1) + 3 * FTR);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_simt_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<T>,
+  err = cudaFuncSetAttribute(attn_bwd_dkv_simt_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return (int)err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(dout);
-  attn_bwd_dq_kernel<T><<<(unsigned)blocks, THREADS, (size_t)smem1, stream>>>(
-      qt, kt, vt, ot, static_cast<T*>(dq), stats, sq, sk, sv, sdo, sdq, heads, L, hd, l_valid,
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* ot = static_cast<const float*>(dout);
+  attn_bwd_dq_simt_kernel<<<(unsigned)blocks, FTHREADS, (size_t)smem1, stream>>>(
+      qt, kt, vt, ot, static_cast<float*>(dq), stats, sq, sk, sv, sdo, sdq, heads, L, hd, lv,
       scale, tiles, lp, bhl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkv_kernel<T><<<(unsigned)blocks, THREADS, (size_t)smem2, stream>>>(
-      qt, kt, vt, ot, static_cast<T*>(dk), static_cast<T*>(dv), stats, sq, sk, sv, sdo, sdk,
-      sdv, heads, L, hd, l_valid, scale, tiles, bhl);
+  attn_bwd_dkv_simt_kernel<<<(unsigned)blocks, FTHREADS, (size_t)smem2, stream>>>(
+      qt, kt, vt, ot, static_cast<float*>(dk), static_cast<float*>(dv), stats, sq, sk, sv, sdo,
+      sdk, sdv, heads, L, hd, lv, scale, tiles, bhl);
   return (int)cudaGetLastError();
 }
 
@@ -354,9 +992,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
 // q, k, v (the forward's inputs), dout (the gradient of its output) and dq,
 // dk, dv (written): [batch, L, heads, hd] views with element strides (b, l, h)
 // each and the last dimension contiguous, all bf16 or all f32 (is_bf16).
-// stats: 3 * batch * heads * L floats of scratch.  Takes 1 <= L <= 256,
-// 1 <= hd <= 128, 1 <= l_valid, causal 0; returns cudaErrorInvalidValue for
-// anything else.  Launches both kernels on `stream` and returns the CUDA
+// bf16 takes hd == 64, any L >= 1, every base and stride 16-byte aligned;
+// stats: 4 * batch * heads * ceil(L / 64) * 64 floats of scratch, 16-byte
+// aligned.  f32 takes 1 <= L <= 256, 1 <= hd <= 128; stats: 3 * batch *
+// heads * L floats.  1 <= l_valid, causal 0; cudaErrorInvalidValue for
+// anything else.  Launches two kernels on `stream` and returns the CUDA
 // error code.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                              void* dq, void* dk, void* dv, float* stats, int is_bf16,
@@ -367,15 +1007,17 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
                              long long dksl, long long dksh, long long dvsb, long long dvsl,
                              long long dvsh, int batch, int heads, int L, int hd, int l_valid,
                              int causal, float scale, cudaStream_t stream) {
-  if (batch < 1 || heads < 1 || L < 1 || L > MAX_L || hd < 1 || hd > MAX_HD || l_valid < 1 ||
-      causal != 0)
+  if (batch < 1 || heads < 1 || L < 1 || l_valid < 1 || causal != 0)
     return (int)cudaErrorInvalidValue;
   const int lv = l_valid < L ? l_valid : L;
   const Strides sq{qsb, qsl, qsh}, sk{ksb, ksl, ksh}, sv{vsb, vsl, vsh}, so{osb, osl, osh};
   const Strides sdq{dqsb, dqsl, dqsh}, sdk{dksb, dksl, dksh}, sdv{dvsb, dvsl, dvsh};
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk,
-                                 sdv, batch, heads, L, hd, lv, scale, stream);
-  return launch<float>(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch,
-                       heads, L, hd, lv, scale, stream);
+  if (is_bf16) {
+    if (hd != HD) return (int)cudaErrorInvalidValue;
+    return launch_bf16(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch,
+                       heads, L, lv, scale, stream);
+  }
+  if (L > MAX_L_F32 || hd < 1 || hd > MAX_HD_F32) return (int)cudaErrorInvalidValue;
+  return launch_f32(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch, heads,
+                    L, hd, lv, scale, stream);
 }

@@ -28,8 +28,9 @@ requires a gradient (the trainable blocks of a training step); otherwise
 it launches as above, so serving and the pipelines are unchanged.  The
 Function's forward is the dispatch above; its backward is the
 hand-written ``csrc/attention_bwd.cu`` on a CUDA tensor
-(:func:`qkv_attention_bwd_cuda`: L <= 256, non-causal, bf16 at head_dim 64
-or f32 at head_dim <= 128; anything else raises) and autograd through
+(:func:`qkv_attention_bwd_cuda`, non-causal: bf16 at head_dim 64 and any
+L on ``wgmma`` fed by TMA, 16-byte-aligned views; f32 at head_dim <= 128
+and L <= 256 on SIMT; anything else raises) and autograd through
 :func:`attention_plain` on a CPU tensor (:func:`qkv_attention_bwd_plain`,
 also the card's reference).  The JAX package differentiates its attention
 with XLA autodiff, so the kernel replaces no Pallas kernel.  The gradient
@@ -51,7 +52,7 @@ LONG_MAX_HD = 256  # head_dim the SIMT long path takes
 WGMMA_HD = 64  # head_dim of the bf16 wgmma paths, short and long
 
 
-BWD_MAX_L = 256  # the gradient kernel's sequences (the whole-row paths')
+BWD_MAX_L_F32 = 256  # sequences of the gradient's f32 path; bf16 takes any L
 BWD_MAX_HD_F32 = 128  # head_dim of its f32 path; bf16 takes WGMMA_HD only
 
 
@@ -124,7 +125,9 @@ def qkv_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
 
 
 def _check_bwd(qkv: torch.Tensor, heads: int, causal: bool) -> None:
-    """Raise for what the gradient kernel does not take."""
+    """Raise for what the gradient kernel does not take: causal attention;
+    bf16 at a head_dim other than 64 or a view whose base or strides are
+    not 16-byte multiples; f32 at L > 256 or head_dim > 128."""
     if qkv.dim() != 3 or qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the attention gradient kernel takes a bf16 or f32 "
                         f"[B, L, 3W] qkv, got {qkv.dtype} "
@@ -133,13 +136,22 @@ def _check_bwd(qkv: torch.Tensor, heads: int, causal: bool) -> None:
     if causal:
         raise NotImplementedError("the attention gradient kernel takes "
                                   "non-causal attention only")
-    if not 1 <= length <= BWD_MAX_L:
-        raise NotImplementedError(f"the attention gradient kernel takes "
-                                  f"L <= {BWD_MAX_L}, got {length}")
-    if qkv.dtype == torch.bfloat16 and hd != WGMMA_HD:
-        raise ValueError(f"the bf16 attention gradient kernel takes head_dim"
-                         f" {WGMMA_HD}, got {hd}")
-    if qkv.dtype == torch.float32 and not 1 <= hd <= BWD_MAX_HD_F32:
+    if length < 1:
+        raise ValueError(f"the attention gradient kernel takes L >= 1, got "
+                         f"{length}")
+    if qkv.dtype == torch.bfloat16:
+        if hd != WGMMA_HD:
+            raise ValueError(f"the bf16 attention gradient kernel takes "
+                             f"head_dim {WGMMA_HD}, got {hd}")
+        if any(t.data_ptr() % 16 or any(s % 8 for s in _strides(t))
+               for t in _heads(qkv, heads)):
+            raise ValueError("the bf16 attention gradient kernel takes "
+                             "16-byte-aligned bases and strides")
+        return
+    if length > BWD_MAX_L_F32:
+        raise NotImplementedError(f"the f32 attention gradient kernel takes "
+                                  f"L <= {BWD_MAX_L_F32}, got {length}")
+    if not 1 <= hd <= BWD_MAX_HD_F32:
         raise ValueError(f"the f32 attention gradient kernel takes head_dim "
                          f"<= {BWD_MAX_HD_F32}, got {hd}")
 
@@ -163,14 +175,31 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
     l_valid = length if l_valid is None else min(int(l_valid), length)
     if l_valid < 1:
         raise ValueError(f"l_valid must be >= 1, got {l_valid}")
+    dqkv = attention_bwd(build.load("attention_bwd"), qkv, dout, heads,
+                         scale, l_valid)
+    qkv_attention_bwd_cuda.launches += 1
+    return dqkv
+
+
+def attention_bwd(lib: ctypes.CDLL, qkv: torch.Tensor, dout: torch.Tensor,
+                  heads: int, scale: float, l_valid: int) -> torch.Tensor:
+    """One launch of ``lib``'s C entry point ``attention_bwd`` (non-causal)
+    on a checked CUDA qkv and its output gradient; raises on a CUDA error.
+    Counts nothing."""
+    b, length, w3 = qkv.shape
     hd = w3 // (3 * heads)
     dout = dout.to(qkv.dtype).contiguous().view(b, length, heads, hd)
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-    stats = torch.empty(3 * b * heads * length, dtype=torch.float32,
+    # row statistics: (max, sum, 1 / sum, D) a row in 64-row tiles for
+    # bf16, (max, sum, D) planes for f32
+    tiles = -(-length // 64)
+    stats = torch.empty(4 * b * heads * tiles * 64
+                        if qkv.dtype == torch.bfloat16
+                        else 3 * b * heads * length, dtype=torch.float32,
                         device=qkv.device)
     views = _heads(qkv, heads) + (dout,) + _heads(dqkv, heads)
     strides = [s for t in views for s in _strides(t)]
-    fn = build.load("attention_bwd").attention_bwd
+    fn = lib.attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
                    + [ctypes.c_longlong] * 21 + [ctypes.c_int] * 6
@@ -180,9 +209,8 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
         rc = fn(*(t.data_ptr() for t in views[:4]),
                 *(t.data_ptr() for t in views[4:]), stats.data_ptr(),
                 int(qkv.dtype == torch.bfloat16), *strides, b, heads, length,
-                hd, l_valid, int(bool(causal)), float(scale), stream)
+                hd, l_valid, 0, float(scale), stream)
     build.check(rc, "attention_bwd")
-    qkv_attention_bwd_cuda.launches += 1
     return dqkv
 
 

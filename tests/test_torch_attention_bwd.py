@@ -1,0 +1,83 @@
+"""The port's attention gradient against the JAX package's, on the CPU.
+
+- ``qkv_attention_bwd_plain`` (autograd of the plain attention, the
+  gradient kernel's plain version) against ``jax.vjp`` of the attention
+  the JAX ``Attention`` runs off the TPU (``jax.nn.dot_product_attention``
+  with the key mask, ``scd_tpu/models/vit.py``), f32 inputs made with numpy
+  from a seed, B 2 · H 2 · d 16: at L 197 (image 224), at L 257 (image
+  256, past the old 256-key limit) and at L 300 with l_valid 289.  Every
+  element within the f32 bound of ``testing/attention_grad.py`` (1e-4 of
+  the sum of the absolute values of its terms).
+- ``_check_bwd`` on CPU tensors: bf16 at head_dim 64 passes at any L; f32
+  past L 256, causal attention and bf16 at another head_dim raise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scd_tpu_torch.ops import attention as A
+from scd_tpu_torch.testing.attention_grad import grad_bound
+
+B, H, D = 2, 2, 16
+
+
+def _jax_grad(qkv, dout, l_valid):
+    """The gradient of the packed qkv through the JAX towers' off-TPU
+    attention: split, heads, dot_product_attention with the key mask."""
+    b, length, w3 = qkv.shape
+    mask = None
+    if l_valid < length:
+        mask = (jnp.arange(length) < l_valid)[None, None, None, :]
+
+    def attend(x):
+        q, k, v = (t.reshape(b, length, H, D)
+                   for t in jnp.split(x, 3, axis=-1))
+        return jax.nn.dot_product_attention(q, k, v, mask=mask).reshape(
+            b, length, w3 // 3)
+
+    @jax.jit
+    def grad(x, g):
+        return jax.vjp(attend, x)[1](g)[0]
+
+    return np.asarray(grad(jnp.asarray(qkv), jnp.asarray(dout)))
+
+
+@pytest.mark.parametrize("length,l_valid", [(197, 197), (257, 257),
+                                            (300, 289)])
+def test_plain_gradient_matches_jax_vjp(length, l_valid):
+    rng = np.random.default_rng(length)
+    qkv = rng.standard_normal((B, length, 3 * H * D)).astype(np.float32)
+    dout = rng.standard_normal((B, length, H * D)).astype(np.float32)
+    want = _jax_grad(qkv, dout, l_valid)
+    qkv_t, dout_t = torch.from_numpy(qkv), torch.from_numpy(dout)
+    got = A.qkv_attention_bwd_plain(qkv_t, dout_t, H, D ** -0.5, False,
+                                    l_valid)
+    assert got.shape == qkv_t.shape and got.dtype == torch.float32
+    bound = grad_bound(qkv_t, dout_t, H, D ** -0.5, l_valid, got).numpy()
+    err = np.abs(got.numpy() - want)
+    assert (err <= bound).all(), float((err / bound).max())
+    # keys past l_valid get no gradient in dK and dV
+    dkv = got.view(B, length, 3, H, D)[:, l_valid:, 1:]
+    assert bool((dkv == 0).all())
+
+
+@pytest.mark.parametrize("length", [257, 1_025])
+def test_check_bwd_takes_bf16_head_dim_64_at_any_length(length):
+    qkv = torch.zeros(2, length, 3 * 64, dtype=torch.bfloat16)
+    A._check_bwd(qkv, 1, False)
+
+
+@pytest.mark.parametrize("qkv,heads,causal,raises", [
+    (torch.zeros(2, 257, 3 * 64), 1, False, NotImplementedError),
+    (torch.zeros(2, 16, 3 * 64, dtype=torch.bfloat16), 1, True,
+     NotImplementedError),
+    (torch.zeros(2, 16, 3 * 64, dtype=torch.bfloat16), 2, False,
+     ValueError),
+], ids=["f32-L257", "causal", "bf16-head_dim-32"])
+def test_check_bwd_refuses_what_the_kernel_does_not_take(qkv, heads, causal,
+                                                         raises):
+    with pytest.raises(raises):
+        A._check_bwd(qkv, heads, causal)

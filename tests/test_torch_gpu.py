@@ -765,6 +765,9 @@ def test_fit_constrained_numpy_runs_on_the_card(cuda, monkeypatch):
     (3, 256, 5, 64, 256, torch.bfloat16),
     (7, 17, 3, 64, 9, torch.bfloat16),
     (5, 1, 2, 64, 1, torch.bfloat16),
+    (2, 257, 12, 64, 257, torch.bfloat16),
+    (2, 577, 12, 64, 577, torch.bfloat16),
+    (3, 300, 2, 64, 289, torch.bfloat16),
     (4, 197, 12, 64, 197, torch.float32),
     (3, 77, 2, 128, 70, torch.float32),
     (2, 33, 3, 40, 33, torch.float32),
@@ -819,7 +822,7 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
 
     bf = torch.bfloat16
     for qkv, heads, causal in (
-            (torch.zeros(2, 257, 192, device=cuda, dtype=bf), 1, False),
+            (torch.zeros(2, 257, 192, device=cuda), 1, False),
             (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 1, True),
             (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 2, False),
             (torch.zeros(2, 16, 3 * 160, device=cuda), 1, False)):

@@ -32,7 +32,7 @@ Phases, each printing its own lines and seconds:
    and text) weights and a BPE merges file fabricated from the seed;
    ``run_unsup`` with empty caches extracts features through both image
    towers, builds the vocabulary through the text tower, then clusters,
-   names and votes.  8 images' features and 64 names' columns are held
+   names and votes.  8 images' features and 16 names' columns are held
    against the same computed on the CPU (plain versions, f32), one DINO
    pass with ``pad_seq_to=0`` over 256 images drives ``w8a8_prequant``
    and is held against the CPU too, and the int8 features' cosine to the
@@ -50,7 +50,10 @@ Phases, each printing its own lines and seconds:
    ``F.scaled_dot_product_attention``
    (``scd_tpu_torch/testing/attention_bwd.py``) and, with
    ``--against-bwd SRC.cu``, another build of ``csrc/attention_bwd.cu``
-   (e.g. the parent commit's) timed in turns on the same inputs;
+   (e.g. the parent commit's) timed in turns on the same inputs; and the
+   end-to-end baselines' f32 attention forward and gradient at B 128 x L
+   197 x H 12 x d 64 (the SIMT paths) beside their plain versions, SDPA
+   and the bound at 4-byte elements;
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -136,6 +139,30 @@ Phases, each printing its own lines and seconds:
    (``attention``, its gradient, ``fused_em_step``, ``w8a8_fusedq``)
    against its plain version on the arguments the path passed it, once
    per shape (``path_inputs``).
+11. the NCD baselines (``scd_tpu_torch.train``'s ``run_baseline_e2e``,
+   ``run_baseline``) and the ResNet towers: ``run_baseline_e2e.main
+   --method uno`` and ``--method autonovel`` at ViT-B/16 full width (224
+   px, patch 16), f32 through all 12 blocks, 64 images x 2 views,
+   ``--overcluster_factor 3``, with ``--ckpt_dir``, cut to 2 epochs of 3
+   steps, on a fabricated ImageNet-100 tree of 3,000 train images (256
+   px arrays made at load time), each epoch evaluated over the tree's
+   unlabelled images: the epoch and eval lines, ms a step, images/s,
+   eval seconds, peak memory; the attention forward and its f32
+   gradient must launch 12 times a backbone pass (UNO one pass a step,
+   AutoNovel two), the manifest must hold both epochs and a best; one
+   f32 step of each trainer card against CPU from the same parameters
+   (phase 10's gates, every block trainable); each trainer's own step on
+   a fixed device batch of 64 x 2 views (CUDA events, peak memory, time
+   by kernel); ``run_baseline.main`` for uno, autonovel and supervised
+   (the SSKM combine on ``fused_em_step``, K 100) over phase 7's kind of
+   store (130,048 x 768, --n_labeled 50, cut to 1 epoch), then each
+   frozen-feature trainer card against CPU on the store's first 8,192
+   rows from one init (losses, prediction agreement); the ResNet-50
+   tower at bf16 (folded weights from a fabricated torchvision state
+   dict) on 128 images at 224, ms a batch, against the CPU's f32 on 8
+   of them, and the two-head ResNet-18 (f32) card against CPU.  The
+   mains, the card steps and the frozen CLI hold every kernel call
+   against its plain version on the path's arguments (``path_inputs``).
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -149,9 +176,11 @@ phase 4's ``pad_seq_to=0`` pass, ``vit_attention`` and ``qkv_attention``
 last row, ``attention_bwd`` (no TPU kernel: the JAX package takes its
 attention gradient from XLA autodiff), with phase 10's training steps.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
-in its ``run_ptsup``) and prints them on a line of their own; so does
+in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 10 (the attention forward, its gradient and ``fused_em_step`` in
-``metric_learn``'s steps and evals).
+``metric_learn``'s steps and evals) and phase 11 (the attention forward
+and its f32 gradient in each end-to-end main, ``fused_em_step`` in the
+frozen-feature CLI).
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -183,6 +212,10 @@ N_IMAGES, D_FEAT, D_CLIP, VOCAB, K = 130_048, 768, 512, 68_000, 100
 TOPK = 5
 # the cold path: images, vocabulary, extraction batch, padded ViT sequence
 COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
+# the zero-shot columns the cold path holds against the CPU's text tower
+# (80 prompts each through f32 CLIP on the CPU): 16, cut from 64, whose
+# 5,120 prompts took ~240 s of a ~880 s smoke on an H100's host
+COLD_CPU_COLUMNS = 16
 # a ViT-B/16 tower at image 256: 16 x 16 patches + class token
 IMAGE_LONG, L_257 = 256, 257
 # a GCD training step's batch: 2 views x 128 images
@@ -224,7 +257,7 @@ W8A8_F32_RTOL = 2e-6
 #   (f32 activations, the plain int8 chain): bf16 rounding through 12
 #   blocks of random weights, and the int8 rounding flips it causes.  Read
 #   on an H100 at this seed: min 0.999866 (DINO), 0.999959 (CLIP image),
-#   0.999979 (zero-shot columns).  The whole int8-vs-bf16 gap of the DINO
+#   0.999979 (64 zero-shot columns).  The int8-vs-bf16 gap of the DINO
 #   tower reads 0.999785 mean, 0.999730 min, so the limit lies between the
 #   two: a card path that skipped the quantization fails it
 TOWER_COS_TOL = 0.9998
@@ -1276,7 +1309,8 @@ def phase_cold(seed: int, workdir: str):
     tok = CLIPTokenizer(os.path.join(cfg.data.corpus_dir,
                                      "bpe_simple_vocab_16e6.txt.gz"))
     nouns = info["nouns"]
-    cols = np.linspace(0, len(nouns) - 1, 64).round().astype(int)
+    cols = np.linspace(0, len(nouns) - 1, COLD_CPU_COLUMNS).round().astype(
+        int)
 
     def cpu_text(texts):
         toks = truncate_to_eot_bucket(np.asarray(tok(texts), np.int32))
@@ -1287,8 +1321,9 @@ def phase_cold(seed: int, workdir: str):
                                     IMAGENET_TEMPLATES)
     cos_zw = _row_cos(zw["weights"][:, cols].T, ref_zw.T).min().item()
     print(f"card vs CPU (f32, plain int8 chain), min cosine: 8 DINO "
-          f"features {cos_feat:.6f}, 8 CLIP features {cos_clip:.6f}, 64 "
-          f"zero-shot columns {cos_zw:.6f} (tolerance {TOWER_COS_TOL}; "
+          f"features {cos_feat:.6f}, 8 CLIP features {cos_clip:.6f}, "
+          f"{COLD_CPU_COLUMNS} zero-shot columns {cos_zw:.6f} (tolerance "
+          f"{TOWER_COS_TOL}; "
           f"{time.perf_counter() - t0:.1f} s on the CPU)")
     check(min(cos_feat, cos_clip, cos_zw) >= TOWER_COS_TOL,
           "cold path: the card disagrees with the CPU")
@@ -1457,13 +1492,15 @@ def _bound(ops, peak, nbytes):
                                        else "bytes")
 
 
-def _attention_bound(b, length, h, d, causal, l_valid, elem_bytes=2):
+def _attention_bound(b, length, h, d, causal, l_valid, elem_bytes=2,
+                     passes=1):
     """q, k, v read once and the output written once; the products of
     the score pairs this input keeps (causal: key <= query; keys < l_valid)
-    in q.k and p.v, at the bf16 tensor-core peak."""
+    in q.k and p.v, at the bf16 tensor-core peak, ``passes`` times (f32:
+    4-byte elements and three passes, as ``_f32_product_bound``)."""
     rows = range(length)
     pairs = sum(min(r + 1, l_valid) if causal else l_valid for r in rows)
-    return _bound(4.0 * b * h * d * pairs, PEAK_BF16_FLOPS,
+    return _bound(passes * 4.0 * b * h * d * pairs, PEAK_BF16_FLOPS,
                   4.0 * elem_bytes * b * length * h * d)
 
 
@@ -1483,6 +1520,49 @@ def time_attention_bwd(gen, against=None):
     times = T.time_shapes(gen, other)
     out = {f"attention_bwd-{tag}": v[:5] for tag, v in times.items()}
     out["attention_bwd"] = out.pop("attention_bwd-train")
+    return out
+
+
+def time_attention_f32(gen):
+    """The end-to-end baselines' f32 attention at B 128 · L 197 · H 12 · d
+    64 (ViT-B/16 at 224, 64 images x 2 views, every block trainable): the
+    forward kernel through the packed entry, as a trunk block calls it,
+    and the gradient kernel (``testing/attention_bwd.py::time_shapes``),
+    each beside its plain version, SDPA (a yardstick, used nowhere in the
+    port) and the bound at 4-byte elements and three bf16 passes, with
+    the f32 SIMT bound beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing import attention_bwd as T
+
+    b, h, f32 = E2E_TRAIN_B, 12, torch.float32
+    qkv, (q, k, v) = _attn_inputs(b, L_VIT, h, 64, f32, True, gen)
+    attention_parity(b, L_VIT, h, 64, f32, gen, packed=True,
+                     tag="f32 timed inputs", inputs=(qkv, (q, k, v)))
+
+    def kern():
+        return A.qkv_attention(qkv, h, 0.125)
+
+    ms = cuda_ms(kern, reps=10, warmup=2)
+    again = cuda_ms(kern, reps=10, warmup=2)
+    plain = cuda_ms(lambda: A.attention_plain(q, k, v, 0.125), reps=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                  reps=10, warmup=2)
+    bound, by = _attention_bound(b, L_VIT, h, 64, False, L_VIT, 4, 3)
+    simt = max(4.0 * b * h * 64 * L_VIT * L_VIT / PEAK_F32_FLOPS,
+               16.0 * b * L_VIT * h * 64 / PEAK_HBM_BYTES) * 1e3
+    print(f"  attention f32 (the e2e baselines) B={b} L={L_VIT} H={h} d=64: "
+          f"kernel {ms:.4f} ms (again {again:.4f}), plain {plain:.4f} ms, "
+          f"library (SDPA) {lib:.4f} ms, bound {bound:.4f} ms ({by}; f32 "
+          f"SIMT bound {simt:.4f} ms); {ms / bound:.1f} x the bound")
+    del qkv, q, k, v, qt, kt, vt
+    out = {"attention-f32": (ms, plain, lib, bound, by)}
+    times = T.time_shapes(gen, None, (("train-f32", L_VIT, L_VIT),),
+                          b=b, dtype=f32)
+    out["attention_bwd-f32"] = times["train-f32"][:5]
     return out
 
 
@@ -1658,6 +1738,7 @@ def phase_timing(seed: int, estep, against_bwd=None):
         **time_w8a8(gen),
         **time_attention_estep(gen),
         **time_attention_bwd(gen, against_bwd),
+        **time_attention_f32(gen),
     }
 
 
@@ -3017,6 +3098,51 @@ def int8_frozen_steps(seed):
     return launches
 
 
+def profile_by_kernel(step, top=14):
+    """One call of ``step`` under ``torch.profiler``: device time by
+    kernel (the kernels' own events; an operator's device time repeats
+    theirs), then by part (attention forward, attention gradient, matrix
+    products, other)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # the kernels' own events (an operator's device time repeats theirs)
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    total_ms = sum(r[1] for r in rows)
+    if not rows:
+        print("  the profiler shows no device time; CUDA-event times above")
+    else:
+        print(f"  device time by kernel in one profiled step "
+              f"({total_ms:.2f} ms in all):")
+        for key, ms, n in rows[:top]:
+            print(f"    {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{n:<4d} "
+                  f"{key[:90]}")
+        groups = {"attention forward": 0.0, "attention gradient": 0.0,
+                  "matrix products": 0.0, "other": 0.0}
+        for key, ms, _n in rows:
+            name = key.lower()
+            if "attn_bwd" in name:
+                groups["attention gradient"] += ms
+            elif "attn_" in name:
+                groups["attention forward"] += ms
+            elif any(t in name for t in ("gemm", "xmma", "cutlass",
+                                         "matmul", "nvjet", "sm90_")):
+                groups["matrix products"] += ms
+            else:
+                groups["other"] += ms
+        print("  by part: " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / total_ms:.1f}%)"
+            for k, v in groups.items()))
+
+
 def step_breakdown(seed):
     """Where a bf16 training step's device time goes (one step of 128 x 2
     views under ``torch.profiler``: time by kernel), its CUDA-event time,
@@ -3063,43 +3189,7 @@ def step_breakdown(seed):
           f"memory of a step {peak / 2**30:.2f} GiB "
           f"({(peak - base) / 2**30:.2f} GiB above the resident "
           f"{base / 2**30:.2f} GiB)")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    # the kernels' own events (an operator's device time repeats theirs)
-    rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    total_ms = sum(r[1] for r in rows)
-    if not rows:
-        print("  the profiler shows no device time; CUDA-event times above")
-    else:
-        print(f"  device time by kernel in one profiled step "
-              f"({total_ms:.2f} ms in all):")
-        for key, ms, n in rows[:14]:
-            print(f"    {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{n:<4d} "
-                  f"{key[:90]}")
-        groups = {"attention forward": 0.0, "attention gradient": 0.0,
-                  "matrix products": 0.0, "other": 0.0}
-        for key, ms, _n in rows:
-            name = key.lower()
-            if "attn_bwd" in name:
-                groups["attention gradient"] += ms
-            elif "attn_" in name:
-                groups["attention forward"] += ms
-            elif any(t in name for t in ("gemm", "xmma", "cutlass",
-                                         "matmul", "nvjet", "sm90_")):
-                groups["matrix products"] += ms
-            else:
-                groups["other"] += ms
-        print("  by part: " + ", ".join(
-            f"{k} {v:.3f} ms ({100 * v / total_ms:.1f}%)"
-            for k, v in groups.items()))
+    profile_by_kernel(step)
     del tr, batch
     return ms_step, peak
 
@@ -3123,6 +3213,465 @@ def phase_train(seed, workdir):
     step_breakdown(seed)
     print(f"int8 steps and breakdown {time.perf_counter() - t0:.1f} s")
     return step_launch
+
+
+# ------------------------------------------------------------- phase 11
+
+# the NCD baselines.  End to end (run_baseline_e2e): ViT-B/16 at 224, f32,
+# 64 images x 2 views (so B 128 through the trunk a step), the reference's
+# --overcluster_factor 3, cut to 2 epochs of 3 steps on a fabricated
+# ImageNet-100 tree like phase 10's; the card-against-CPU steps' batch (4
+# images x 2 views).  Frozen features (run_baseline): phase 7's store,
+# --n_labeled 50, cut to 1 epoch; the card-against-CPU subset of its first
+# 8,192 rows.  The ResNet-50 tower's batch.
+E2E_BATCH, E2E_TRAIN_B, E2E_EPOCHS, E2E_STEPS = 64, 128, 2, 3
+E2E_CPU_IMAGES, BASELINE_LABELED, BASELINE_SUBSET = 4, 50, 8_192
+R50_BATCH, R50_CPU_IMAGES = 128, 8
+# tolerances, with their reasons:
+# - one f32 step of each end-to-end trainer card against CPU: phase 10's
+#   gates (STEP_LOSS_RTOL, STEP_UPDATE_TOL, STEP_COS_MIN), now through all
+#   12 blocks' forward and gradient kernels;
+# - the frozen-feature trainers on the subset, card against CPU, one epoch
+#   of 32 SGD steps whose f32 sums run in other orders: each epoch's loss
+#   within FROZEN_LOSS_RTOL, and the predictions equal on at least
+#   FROZEN_AGREE of the rows.  Read on an H100 at this seed: losses 0,
+#   1.1e-7 and 1.2e-7 relative apart, predictions equal on every row;
+# - the ResNet-50 tower bf16 on the card against f32 on the CPU: bf16
+#   activations through 16 bottlenecks, every row's cosine >= R50_COS
+#   (read: min 0.999989); the two-head ResNet f32 on both (TF32 off):
+#   RESNET_F32_COS (read: 1.0000000)
+FROZEN_LOSS_RTOL, FROZEN_AGREE = 1e-5, 0.999
+R50_COS, RESNET_F32_COS = 0.9999, 0.99999
+
+
+class _EpochProbe:
+    """For the length of a ``with`` block, the seconds and launch counts of
+    each epoch and each eval of ``baselines_e2e._run_epochs`` (the device
+    synchronised at both ends)."""
+
+    def __enter__(self):
+        import torch
+
+        from scd_tpu_torch.train import baselines_e2e as E
+
+        self.epochs, self.evals = [], []
+        self._mod, self._real = E, E._run_epochs
+
+        def timed(fn, out):
+            def wrapped(epoch):
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), _counts()
+                res = fn(epoch)
+                torch.cuda.synchronize()
+                c1 = _counts()
+                out.append((time.perf_counter() - t0,
+                            {k: c1[k] - c0[k] for k in c1}))
+                return res
+            return wrapped
+
+        def run(epochs, epoch_fn, eval_fn, *a, **kw):
+            return self._real(epochs, timed(epoch_fn, self.epochs),
+                              timed(eval_fn, self.evals) if eval_fn else None,
+                              *a, **kw)
+
+        E._run_epochs = run
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._run_epochs = self._real
+
+
+def _vit_b16_f32():
+    from scd_tpu_torch.models.vit import ViTConfig
+
+    return ViTConfig(image_size=224, patch_size=16, width=768, depth=12,
+                     heads=12)
+
+
+def baseline_e2e_main(method, seed, root, workdir):
+    """``run_baseline_e2e.main`` at ViT-B/16 full width, f32, on the
+    fabricated root ``root``: its lines, ms a step, images/s, eval seconds,
+    launches; every kernel call held against its plain version.  Returns
+    the launches in the steps and in the evals."""
+    import torch
+
+    from scd_tpu_torch.testing.fabricate import fabricated_images
+    from scd_tpu_torch.train import run_baseline_e2e
+
+    ckpt_dir = os.path.join(workdir, f"ckpt_{method}")
+    argv = ["--method", method, "--dataset_name", "imagenet_100",
+            "--root_dir", root, "--vit", "base", "--patch_size", "16",
+            "--image_size", "224", "--batch_size", str(E2E_BATCH),
+            "--epochs", str(E2E_EPOCHS), "--steps_per_epoch",
+            str(E2E_STEPS), "--overcluster_factor", "3", "--ckpt_dir",
+            ckpt_dir, "--seed", str(seed)]
+    print("  python -m scd_tpu_torch.train.run_baseline_e2e " + " ".join(
+        "<root>" if a == root else "<dir>" if a == ckpt_dir else a
+        for a in argv))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    # 256 px images: the imagenet transforms' resize to 256 is the identity
+    with fabricated_images(seed, size=256), _EpochProbe() as probe, \
+            path_inputs() as seen, contextlib.redirect_stdout(buf):
+        state, history = run_baseline_e2e.main(argv)
+    wall = time.perf_counter() - t0
+    for ln in buf.getvalue().splitlines():
+        print("    " + ln)
+    passes = 1 if method == "uno" else 2  # backbone passes a step
+    steps = E2E_EPOCHS * E2E_STEPS
+    step_launch = {k: sum(e[1][k] for e in probe.epochs)
+                   for k in ("attention", "attention_bwd", "fused_em_step")}
+    eval_launch = {k: sum(e[1][k] for e in probe.evals)
+                   for k in ("attention", "attention_bwd")}
+    epoch_s = [e[0] for e in probe.epochs]
+    ms_step = 1e3 * sum(epoch_s) / steps
+    print(f"  {method}: {steps} steps, {ms_step:.1f} ms a step (host clock; "
+          f"augmentation of {E2E_BATCH} x 2 views included), "
+          f"{E2E_BATCH * 1e3 / ms_step:.1f} images/s; epochs "
+          f"{', '.join(f'{t:.2f}' for t in epoch_s)} s; evals "
+          f"{', '.join(f'{e[0]:.2f}' for e in probe.evals)} s; main "
+          f"{wall:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  {method}: launches in the steps {step_launch}, in the evals "
+          f"{eval_launch}")
+    check(step_launch["attention"] == 12 * passes * steps
+          and step_launch["attention_bwd"] == 12 * passes * steps,
+          f"{method}_e2e: launches in the steps {step_launch}")
+    check(eval_launch["attention"] > 0 and eval_launch["attention_bwd"] == 0,
+          f"{method}_e2e: launches in the evals {eval_launch}")
+    check(len(history) == E2E_EPOCHS and all(
+        math.isfinite(h["loss"]) and 0.0 <= h["acc"] <= 1.0
+        for h in history), f"{method}_e2e: history {history}")
+    with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    check(manifest["steps"] == list(range(E2E_EPOCHS))
+          and manifest["best_step"] is not None
+          and os.path.exists(os.path.join(ckpt_dir, "ckpt_best.pt")),
+          f"{method}_e2e: manifest {manifest}")
+    if method == "uno":
+        check(0 <= state["best_head"] < 4, f"best head {state['best_head']}")
+    hold_path_inputs(seen, f"{method}_e2e")
+    del state
+    return step_launch, eval_launch
+
+
+def _e2e_batch(seed, n):
+    """``n`` images x 2 views at 224 (normalized-scale noise), labels in
+    [0, 100), the labelled rows among the first 50 classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    views = rng.standard_normal((2, n, 224, 224, 3)).astype(np.float32)
+    labels = rng.integers(0, 2 * BASELINE_LABELED, n)
+    mask = (labels < BASELINE_LABELED) & (rng.random(n) < 0.5)
+    mask[0], labels[0] = True, 3  # one labelled row at least
+    return views, labels, mask
+
+
+def _e2e_trainer(method):
+    """(the model of ``train_{method}_e2e`` at ViT-B/16 f32 with 50 + 50
+    classes, a function running the trainer on an in-memory batch)."""
+    from scd_tpu_torch.train import baselines_e2e as E
+
+    nl = BASELINE_LABELED
+    if method == "uno":
+        def model(seed):
+            return E.UNOModel(_vit_b16_f32(), 4, 2 * nl, nl + nl * 3)
+
+        def run(seed, views, labels, mask, device, **kw):
+            return E.train_uno_e2e(
+                seed, views, labels, mask, nl, nl, _vit_b16_f32(),
+                num_heads=4, batch_size=len(labels), overcluster_factor=3,
+                device=device, **kw)
+    else:
+        def model(seed):
+            return E.AutoNovelModel(_vit_b16_f32(), nl, nl)
+
+        def run(seed, views, labels, mask, device, **kw):
+            return E.train_autonovel_e2e(
+                seed, views[0], views[1], labels, mask, nl, nl,
+                _vit_b16_f32(), batch_size=len(labels), device=device, **kw)
+    return model, run
+
+
+def e2e_step_card_against_cpu(method, seed):
+    """One f32 step of ``train_{method}_e2e`` at ViT-B/16 full width on
+    the card and on the CPU from the same parameters (the port's seeded
+    init, carried to both) and one batch of 4 images x 2 views: phase 10's
+    gates on the loss and on every update; the card's kernel calls held
+    against their plain versions."""
+    import torch
+
+    from scd_tpu_torch.models.params import flax_init_
+    from scd_tpu_torch.train import baselines as B
+
+    make, run = _e2e_trainer(method)
+    init = flax_init_(make(seed), seed).state_dict()
+    views, labels, mask = _e2e_batch(seed + 7, E2E_CPU_IMAGES)
+    real, out = B._init_params, {}
+    t0 = time.perf_counter()
+    try:
+        B._init_params = lambda model, _seed: (model.load_state_dict(init),
+                                               model)[1]
+        for dev in ("cuda", "cpu"):
+            _reset_counts()
+            with contextlib.ExitStack() as stack:
+                seen = (stack.enter_context(path_inputs())
+                        if dev == "cuda" else None)
+                state, _p, hist = run(seed, views, labels, mask, dev,
+                                      epochs=1, lr=0.1)
+            out[dev] = (state["model"].state_dict(), hist[0]["loss"],
+                        _counts())
+            if dev == "cuda":
+                hold_path_inputs(seen, f"{method} f32 step")
+            del state
+    finally:
+        B._init_params = real
+    (card, loss_card, counts), (cpu, loss_cpu, _c) = out["cuda"], out["cpu"]
+    passes = 1 if method == "uno" else 2
+    check(counts["attention_bwd"] == 12 * passes
+          and counts["attention"] == 12 * passes,
+          f"{method} card step: launches {counts}")
+    check(abs(loss_card - loss_cpu) <= STEP_LOSS_RTOL * abs(loss_cpu),
+          f"{method} card step loss {loss_card} vs CPU {loss_cpu}")
+    worst_cos, worst_err = 1.0, 0.0
+    for name, w in cpu.items():
+        du = (card[name].cpu() - init[name]).double()
+        dw = (w - init[name]).double()
+        if dw.norm().item() == 0:  # a zero leaf no loss reaches (head2.bias)
+            check(du.norm().item() == 0, f"{method} {name}: moved on the "
+                  f"card only")
+            continue
+        cos = ((du * dw).sum() / (du.norm() * dw.norm())).item()
+        err = ((du - dw).abs().max() / dw.abs().max()).item()
+        worst_cos, worst_err = min(worst_cos, cos), max(worst_err, err)
+        check(cos >= STEP_COS_MIN and err <= STEP_UPDATE_TOL,
+              f"{method} {name}: update cosine {cos:.6f}, error {err:.2e} "
+              f"of its largest element")
+    print(f"  {method}: one f32 step, 2 x {E2E_CPU_IMAGES} images, every "
+          f"block trainable: loss card {loss_card:.6f} CPU {loss_cpu:.6f}; "
+          f"{len(cpu)} updates: min cosine {worst_cos:.7f}, max error "
+          f"{worst_err:.2e} of the largest element; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def e2e_device_step(method, seed):
+    """A step of ``train_{method}_e2e`` (the trainer's own ``step``) on a
+    fixed device batch of 64 x 2 views: CUDA-event ms, peak memory above
+    the resident model, and one profiled step by kernel.  Returns the
+    ms."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.train import baselines_e2e as E
+
+    views, labels, mask = _e2e_batch(seed + 8, E2E_BATCH)
+    nl = BASELINE_LABELED
+    if method == "uno":
+        state, _p, _h = E.train_uno_e2e(
+            seed, lambda _e, _r: iter([(views, labels, mask)]),
+            n_labeled=nl, n_unlabeled=nl, vit_cfg=_vit_b16_f32(),
+            num_heads=4, epochs=1, batch_size=E2E_BATCH,
+            overcluster_factor=3, steps_per_epoch=1, device="cuda")
+    else:
+        state, _p, _h = E.train_autonovel_e2e(
+            seed, lambda _e, _r: iter([(views[0], views[1], labels, mask)]),
+            n_labeled=nl, n_unlabeled=nl, vit_cfg=_vit_b16_f32(), epochs=1,
+            batch_size=E2E_BATCH, device="cuda")
+    v = torch.as_tensor(views).cuda()
+    lab = torch.as_tensor(labels).cuda()
+    m = torch.as_tensor(mask).cuda()
+    step = state["step"]
+    if method == "uno":
+        def one():
+            return step(v, lab, m)
+    else:
+        def one():
+            return step(v[0], v[1], lab, m, np.float32(0.3369))
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = cuda_ms(one, reps=3, warmup=1)
+    print(f"  {method}: a device step on a fixed batch of {E2E_BATCH} x 2 "
+          f"views (f32, all 12 blocks): {ms:.2f} ms (CUDA events), "
+          f"{E2E_BATCH * 1e3 / ms:.1f} images/s; peak memory of a step "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above "
+          f"the resident {base / 2**30:.2f} GiB)")
+    profile_by_kernel(one, top=10)
+    del state, v
+    return ms
+
+
+def baselines_frozen(seed, workdir):
+    """``run_baseline.main`` for uno, autonovel and supervised over phase
+    7's ImageNet-100-scale store on the card (1 epoch); then each trainer
+    card against CPU on the store's first BASELINE_SUBSET rows from one
+    init.  Returns the launches of the three mains."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.train import baselines as B
+    from scd_tpu_torch.train import run_baseline
+
+    path = write_features_packed(seed, os.path.join(workdir,
+                                                    "features_packed.npz"))
+    launches = {"fused_em_step": 0}
+    for method in ("uno", "autonovel", "supervised"):
+        argv = ["--method", method, "--features", path, "--n_labeled",
+                str(BASELINE_LABELED), "--epochs", "1", "--seed", str(seed)]
+        _reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with path_inputs() as seen, contextlib.redirect_stdout(buf):
+            _accs, history = run_baseline.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        for ln in buf.getvalue().splitlines():
+            print("    " + ln)
+        print(f"  run_baseline --method {method} (N {RUNNER_N}, 1 epoch): "
+              f"{wall:.2f} s; launches {counts}")
+        check(all(math.isfinite(h) for h in history),
+              f"run_baseline {method}: history {history}")
+        if method == "supervised":
+            check(counts["fused_em_step"] > 0,
+                  "run_baseline supervised: fused_em_step never launched")
+        launches["fused_em_step"] += counts["fused_em_step"]
+        hold_path_inputs(seen, f"run_baseline {method}")
+
+    with np.load(path) as z:
+        x = np.asarray(z["features"], np.float32)[:BASELINE_SUBSET]
+        y = np.asarray(z["targets"], np.int64)[:BASELINE_SUBSET]
+        m = np.asarray(z["mask_lab"], bool)[:BASELINE_SUBSET]
+    x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+    views = run_baseline._views(x, 0.05, seed)
+    nl, nu = BASELINE_LABELED, int(y.max()) + 1 - BASELINE_LABELED
+    runs = {
+        "uno": lambda dev: B.train_uno(seed, views, y, m, nl, nu, epochs=1,
+                                       seed=seed, device=dev),
+        "autonovel": lambda dev: B.train_autonovel(
+            seed, views[0], views[1], y, m, nl, nu, epochs=1, seed=seed,
+            device=dev),
+        "supervised": lambda dev: B.train_supervised(
+            seed, x[m], y[m], nl, epochs=1, seed=seed, device=dev)}
+    for method, fn in runs.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            _model, pred, hist = fn(dev)
+            res = pred(x)
+            if method == "supervised":
+                res = B.osr_threshold_preds(res, 0.5)
+            out[dev] = (hist, res.cpu().numpy(), time.perf_counter() - t0)
+        (hc, pc, tc), (hp, pp, tp) = out["cuda"], out["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(hc, hp))
+        agree = float((pc == pp).mean())
+        print(f"  {method} on {BASELINE_SUBSET} rows, card vs CPU: losses "
+              f"{hc} vs {hp} ({rel:.2e} relative), predictions equal on "
+              f"{agree:.5f} of the rows; {tc:.2f} s vs {tp:.2f} s")
+        check(rel <= FROZEN_LOSS_RTOL and agree >= FROZEN_AGREE,
+              f"{method} frozen trainer card vs CPU: {rel}, {agree}")
+    return launches
+
+
+def resnet_towers(seed):
+    """The ResNet-50 tower at bf16 (the ``resnet50`` branch of
+    ``build_encoders``: folded weights from a fabricated torchvision state
+    dict, ImageNet normalisation on the device) on a batch of 128 images
+    at 224, card vs CPU (f32) on 8 of them, ms a batch; the two-head
+    ResNet-18 (f32, 32 px) the same way."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.data.transforms import device_normalize_imagenet
+    from scd_tpu_torch.models import (ResNet50, ResNet50Config,
+                                      ResNetTwoHead, load_resnet50_weights,
+                                      params_from_flax)
+    from scd_tpu_torch.models.params import flax_init_
+    from scd_tpu_torch.testing.fabricate import resnet50_state_dict
+
+    sd = resnet50_state_dict(ResNet50Config(), seed)
+    towers = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        cfg = ResNet50Config(compute_dtype=dt)
+        towers[dev] = ResNet50(cfg, device=dev).eval()
+        towers[dev].load_state_dict(params_from_flax(
+            load_resnet50_weights(sd, cfg)))
+    images = np.random.default_rng(seed).integers(
+        0, 256, (R50_BATCH, 224, 224, 3), dtype=np.uint8)
+    x = torch.as_tensor(images).cuda()
+    with torch.inference_mode():
+        def card():
+            return towers["cuda"](device_normalize_imagenet(x))
+
+        got = card()
+        ms = cuda_ms(card, reps=10, warmup=2)
+        want = towers["cpu"](device_normalize_imagenet(
+            torch.as_tensor(images[:R50_CPU_IMAGES])))
+    cos = _row_cos(got[:R50_CPU_IMAGES].cpu(), want)
+    print(f"  ResNet-50 bf16, batch {R50_BATCH} at 224: {ms:.3f} ms a batch "
+          f"({R50_BATCH * 1e3 / ms:.1f} images/s); features [{got.shape[0]}, "
+          f"{got.shape[1]}], cosine to the CPU's f32 on {R50_CPU_IMAGES}: min "
+          f"{cos.min().item():.6f}")
+    check(bool(torch.isfinite(got).all()) and got.shape == (R50_BATCH, 2048)
+          and cos.min().item() >= R50_COS, "ResNet-50 card vs CPU")
+    del towers, x, got
+
+    two = flax_init_(ResNetTwoHead(50, 50), seed)
+    card_m = ResNetTwoHead(50, 50, device="cuda").eval()
+    card_m.load_state_dict(two.state_dict())
+    xs = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(
+        (R50_BATCH, 32, 32, 3)).astype(np.float32))
+    xc = xs.cuda()
+    with torch.inference_mode():
+        out = card_m(xc)
+        ms2 = cuda_ms(lambda: card_m(xc), reps=10, warmup=2)
+        ref = two(xs[:R50_CPU_IMAGES])
+    coss = [_row_cos(a[:R50_CPU_IMAGES].cpu(), b).min().item()
+            for a, b in zip(out, ref)]
+    print(f"  ResNetTwoHead (ResNet-18, f32), batch {R50_BATCH} at 32: "
+          f"{ms2:.3f} ms a batch; cosine to the CPU (head1, head2, feats): "
+          + ", ".join(f"{c:.7f}" for c in coss))
+    check(all(c >= RESNET_F32_COS for c in coss),
+          "ResNetTwoHead card vs CPU")
+
+
+def phase_baselines(seed, workdir):
+    """Phase 11 (see the module docstring); returns the launches of its
+    main paths."""
+    from scd_tpu_torch.testing.fabricate import (fabricate_imagenet_tree,
+                                                 imagenet100_config)
+
+    t0 = time.perf_counter()
+    cfg = imagenet100_config(os.path.join(workdir, "in100"))
+    fabricate_imagenet_tree(cfg, TRAIN_ROOT_IMAGES, TRAIN_ROOT_VOCAB, 20)
+    launches = {}
+    for method in ("uno", "autonovel"):
+        steps, evals = baseline_e2e_main(method, seed, cfg.data.root_dir,
+                                         workdir)
+        launches[f"{method}_e2e"] = {
+            "attention": steps["attention"] + evals["attention"],
+            "attention_bwd": steps["attention_bwd"]}
+    print(f"end-to-end mains {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for method in ("uno", "autonovel"):
+        e2e_step_card_against_cpu(method, seed)
+        e2e_device_step(method, seed)
+    print(f"card against CPU and device steps "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["run_baseline"] = baselines_frozen(seed, workdir)
+    print(f"frozen-feature baselines {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resnet_towers(seed)
+    print(f"ResNet towers {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # (kernels line name, source, the TPU kernel it replaces, key of the
@@ -3231,7 +3780,15 @@ def main(argv=None) -> int:
     launches["attention_bwd"] = train_launches["attention_bwd"]
     print(f"launches in phase 10's training steps: "
           f"{json.dumps(train_launches)}")
-    print(f"phase 10 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 10 {time.perf_counter() - t0:.1f} s")
+    section("phase 11: the NCD baselines (UNO, AutoNovel, supervised; "
+            "ResNet towers)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        baseline_launches = phase_baselines(args.seed, workdir)
+    print(f"launches in phase 11's main paths: "
+          f"{json.dumps(baseline_launches)}")
+    print(f"phase 11 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

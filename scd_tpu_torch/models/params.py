@@ -58,18 +58,26 @@ def flax_init_(module: nn.Module, seed: int = 0) -> nn.Module:
     - ``kernel`` (Dense ``[in, out]``, Conv ``[kh, kw, in, out]``):
       ``lecun_normal``, a normal truncated at +-2 sigma whose samples have
       variance 1 / fan_in (fan_in: every axis but the last);
-    - ``bias``, ``cls_token``: zeros; a LayerNorm's ``scale``: ones;
-    - ``pos_embed``, ``last_layer``: normal(0.02); a CLIP tower's ``proj``
-      [width, out]: normal(width ** -0.5).
+    - ``bias``, ``cls_token``: zeros; a LayerNorm's or GroupNorm's
+      ``scale``: ones;
+    - ``pos_embed``, ``last_layer``, ``prototypes``: normal(0.02); a CLIP
+      tower's ``proj`` [width, out]: normal(width ** -0.5).
+
+    A parameter under a module named ``Vmap_*`` (``nn.vmap``'s name, as in
+    the UNO heads) is a stack over its leading axis of per-member
+    parameters, each drawn as above: a kernel ``[H, in, out]`` has fan_in
+    ``in``.
 
     Returns ``module``."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            path = name.split(".")
+            leaf = path[-1]
+            stacked = any(k.startswith("Vmap_") for k in path[:-1])
             v = torch.empty(p.shape, dtype=torch.float32)
             if leaf == "kernel":
-                fan_in = math.prod(p.shape[:-1])
+                fan_in = math.prod(p.shape[1 if stacked else 0:-1])
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                 nn.init.trunc_normal_(v, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=gen)
@@ -77,7 +85,7 @@ def flax_init_(module: nn.Module, seed: int = 0) -> nn.Module:
                 v.zero_()
             elif leaf == "scale":
                 v.fill_(1.0)
-            elif leaf in ("pos_embed", "last_layer"):
+            elif leaf in ("pos_embed", "last_layer", "prototypes"):
                 v.normal_(0.0, 0.02, generator=gen)
             elif leaf == "proj":
                 v.normal_(0.0, p.shape[0] ** -0.5, generator=gen)

@@ -433,3 +433,26 @@ class VisionTransformer(nn.Module):
         if self.proj is not None:
             x = torch.matmul(x.float(), self.proj)
         return x.float()
+
+
+class VisionTransformerWithLinear(nn.Module):
+    """ViT trunk + linear classifier on the CLS feature (reference
+    ``vision_transformer.py:301-322``), under the Flax names ``base_vit``
+    and ``linear``: images -> (logits [B, num_classes], the L2-normalised
+    features [B, D]).  The features are normalised before the head and
+    returned normalised (reference :316-319): raw-scale logits would shift
+    the max-softmax OSR thresholding downstream."""
+
+    def __init__(self, cfg: ViTConfig, num_classes: int = 1000,
+                 device=None):
+        super().__init__()
+        self.base_vit = VisionTransformer(cfg, device=device)
+        self.linear = Dense(cfg.output_proj or cfg.width, num_classes,
+                            torch.float32, device=device)
+
+    def forward(self, images: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats = self.base_vit(images).float()
+        feats = feats / torch.clamp_min(
+            torch.linalg.norm(feats, dim=-1, keepdim=True), 1e-12)
+        return self.linear(feats), feats

@@ -11,8 +11,8 @@ tower (its attention through the ``csrc/attention.cu`` kernel on a CUDA
 device), then the head — L2-normalize, ``[B, D] @ [D, K]``, softmax and
 top-k in plain PyTorch, as the JAX package leaves them to XLA.  One
 device: ``cuda`` unless the caller passes ``--device cpu``;
-``--mesh_data`` above 1 raises (multi-device is ROADMAP queue 1,
-item 6).
+``--mesh_data`` above 1 raises (multi-device is ROADMAP queue 1's
+multi-device item).
 
 Run (asset-free smoke):
   python -m scd_tpu_torch.pipelines.infer --dataset_name synthetic --topk 3
@@ -237,8 +237,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.mesh_data > 1:
         raise NotImplementedError(
-            "multi-device serving is not ported yet (ROADMAP queue 1, "
-            "item 6); pass --mesh_data 0 or 1")
+            "multi-device serving is not ported yet (ROADMAP queue 1: "
+            "multi-device); pass --mesh_data 0 or 1")
     dev = resolve_device(args.device)
 
     if args.dataset_name == "synthetic":

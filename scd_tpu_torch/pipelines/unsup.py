@@ -131,12 +131,8 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
 
         clip = SyntheticCLIP(extras["class_colors"], device=dev)
         return clip.encode_image, clip.encode_image, clip.encode_text
-    if name == "resnet50":
-        raise NotImplementedError(
-            "the resnet50 backbone is not ported yet (ROADMAP queue 1, "
-            "item 5: training, models/resnet50.py)")
     vit_feat_cfgs = vit_feature_backbones()
-    if name != "clip" and name not in vit_feat_cfgs:
+    if name not in ("clip", "resnet50") and name not in vit_feat_cfgs:
         raise ValueError(f"unknown feat_model {name!r}")
     if not cfg.data.clip_weights:
         raise FileNotFoundError(
@@ -171,6 +167,18 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
 
     if name == "clip":
         return clip_encode_image, clip_encode_image, encode_text
+    if name == "resnet50":
+        from scd_tpu_torch.data.transforms import device_normalize_imagenet
+        from scd_tpu_torch.models import (ResNet50, ResNet50Config,
+                                          load_resnet50_weights)
+
+        r50_cfg = ResNet50Config(compute_dtype=torch.bfloat16)
+        r50 = ResNet50(r50_cfg, device=dev).eval()
+        r50.load_state_dict(params_from_flax(load_resnet50_weights(
+            torch.load(cfg.data.dino_weights, map_location="cpu"),
+            r50_cfg)))
+        return _image_encoder(r50, device_normalize_imagenet, dev), \
+            clip_encode_image, encode_text
     path = (f"{cfg.data.gcd_weights_dir}/"
             f"{cfg.data.dataset_name}_model_best.pt"
             if name == "gcd" else cfg.data.dino_weights)

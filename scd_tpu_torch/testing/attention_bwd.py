@@ -16,7 +16,9 @@ flags (for example the parent commit's ``csrc/attention_bwd.cu``) is
 timed in turns, other, this, this, other, on the same inputs, with the
 max abs difference of the two gradients.  Times with CUDA events; prints
 the card's name and power limit first.  ``chip_smoke.py`` phase 5 runs
-:func:`time_shapes`.
+:func:`time_shapes`, also in f32 at B 128 · L 197 (the end-to-end
+baselines' shape: the SIMT kernels, bounded at 4-byte elements and
+three bf16 passes).
 """
 
 from __future__ import annotations
@@ -27,19 +29,22 @@ import os
 import subprocess
 import tempfile
 
-PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES = 989e12, 67e12, 3.35e12
 B, H, D = 256, 12, 64
 SHAPES = (("train", 197, 197), ("train-int8-pad", 208, 197),
           ("image-256", 257, 257))  # (tag, L, l_valid)
 
 
 def bound_ms(b: int, length: int, h: int, d: int, l_valid: int,
-             elem_bytes: int = 2) -> tuple:
+             elem_bytes: int = 2, passes: int = 1) -> tuple:
     """(least ms, what bounds it): q, k, v and dO read once, dq, dk, dv
     written once; the five products a gradient needs (s = q . k^T again,
     dP = dO . V^T, dV = P^T . dO, dQ = dS . K, dK = dS^T . Q) over the
-    score pairs this input keeps (keys < l_valid), at the bf16 peak."""
-    t_ops = 10.0 * b * h * d * length * l_valid / PEAK_BF16_FLOPS
+    score pairs this input keeps (keys < l_valid), at the bf16 peak,
+    ``passes`` times (f32 inputs: 4-byte elements and three bf16 passes,
+    the split that keeps f32-class products, as the repo's other f32
+    bounds count them)."""
+    t_ops = passes * 10.0 * b * h * d * length * l_valid / PEAK_BF16_FLOPS
     t_bytes = 7.0 * elem_bytes * b * length * h * d / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -74,28 +79,32 @@ def build_other(src: str) -> ctypes.CDLL:
     return ctypes.CDLL(out)
 
 
-def time_shapes(gen, other=None, shapes=SHAPES, reps: int = 10) -> dict:
+def time_shapes(gen, other=None, shapes=SHAPES, reps: int = 10,
+                b: int = B, dtype=None) -> dict:
     """{tag: (kernel ms, plain ms, SDPA backward ms, bound ms, bound by,
-    other ms or None)} at ``shapes``, one line printed per shape; ``other``
-    a library from :func:`build_other`."""
+    other ms or None)} at ``shapes``, batch ``b``, ``dtype`` (default
+    bf16; f32 takes the SIMT kernels), one line printed per shape;
+    ``other`` a library from :func:`build_other`."""
     import torch
     import torch.nn.functional as F
 
     from scd_tpu_torch.ops import attention as A
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
     out = {}
     for tag, length, lv in shapes:
-        qkv = torch.randn(B, length, 3 * H * D, generator=gen,
-                          device="cuda").to(torch.bfloat16)
-        dout = torch.randn(B, length, H * D, generator=gen,
-                           device="cuda").to(torch.bfloat16)
+        qkv = torch.randn(b, length, 3 * H * D, generator=gen,
+                          device="cuda").to(dtype)
+        dout = torch.randn(b, length, H * D, generator=gen,
+                           device="cuda").to(dtype)
         scale = D ** -0.5
 
         def kern():
             return A.qkv_attention_bwd_cuda(qkv, dout, H, scale, False, lv)
 
-        line = (f"  attention_bwd {tag} B={B} L={length} l_valid={lv} H={H} "
-                f"d={D} bf16:")
+        line = (f"  attention_bwd {tag} B={b} L={length} l_valid={lv} H={H} "
+                f"d={D} {'f32' if f32 else 'bf16'}:")
         t_other = None
         if other is not None:
             def then():
@@ -128,13 +137,20 @@ def time_shapes(gen, other=None, shapes=SHAPES, reps: int = 10) -> dict:
             mask = (torch.arange(length, device="cuda") < lv)[
                 None, None, None, :]
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-        go = dout.view(B, length, H, D).transpose(1, 2)
+        go = dout.view(b, length, H, D).transpose(1, 2)
         lib = _ms(lambda: torch.autograd.grad(o, (q, k, v), go,
                                               retain_graph=True), reps)
-        bound, by = bound_ms(B, length, H, D, lv)
+        bound, by = bound_ms(b, length, H, D, lv, 4 if f32 else 2,
+                             3 if f32 else 1)
+        simt = ""
+        if f32:  # the same products at the f32 rate outside the tensor cores
+            t_simt = max(10.0 * b * H * D * length * lv / PEAK_F32_FLOPS,
+                         28.0 * b * length * H * D / PEAK_HBM_BYTES)
+            simt = f"; f32 SIMT bound {t_simt * 1e3:.4f} ms"
         print(f"{line} plain {plain:.4f} ms, library (SDPA backward) "
-              f"{lib:.4f} ms, bound {bound:.4f} ms ({by}); {ms / bound:.1f} "
-              f"x the bound, {ms / lib:.2f} x SDPA's backward", flush=True)
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({by}{simt}); "
+              f"{ms / bound:.1f} x the bound, {ms / lib:.2f} x SDPA's "
+              f"backward", flush=True)
         out[tag] = (ms, plain, lib, bound, by, t_other)
         del qkv, dout, q, k, v, o, go
     return out

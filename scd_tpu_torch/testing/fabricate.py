@@ -31,7 +31,8 @@ taxonomy whose leaves include every class name, and the same caches.
 Cold root (:func:`fabricate_cold_root`): the same tree and taxonomy, no
 caches, and the assets the encoders need instead: an OpenAI-layout CLIP
 state dict and a DINO-layout ViT state dict (random weights at any width
-and depth, :func:`clip_state_dict`, :func:`dino_state_dict`) and a CLIP
+and depth, :func:`clip_state_dict`, :func:`dino_state_dict`; a
+torchvision-layout ResNet-50, :func:`resnet50_state_dict`) and a CLIP
 BPE merges file (:func:`write_bpe_merges`).  With empty ``.jpg`` files,
 :func:`fabricated_images` supplies each image from ``(seed, path)`` at
 load time, already at the size ``clip_preprocess`` emits, so no decoder is
@@ -554,6 +555,45 @@ def dino_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
             f"{b}.mlp.fc1.weight": r(hidden, w), f"{b}.mlp.fc1.bias": r(hidden),
             f"{b}.mlp.fc2.weight": r(w, hidden), f"{b}.mlp.fc2.bias": r(w),
         })
+    return sd
+
+
+def resnet50_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random weights in the torchvision ResNet-50 layout (``conv1``,
+    ``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``, ``fc``, ...)
+    for a ``models.resnet50.ResNet50Config``: He-scaled convolutions,
+    BatchNorm gains near 1 with small shifts and running statistics, a
+    ``fc`` head the loader ignores."""
+    r = _randn(torch.Generator().manual_seed(seed))
+
+    def conv(name, c_out, c_in, k):
+        return {f"{name}.weight": r(c_out, c_in, k, k,
+                                    scale=(2.0 / (c_in * k * k)) ** 0.5)}
+
+    def bn(name, c):
+        return {f"{name}.weight": 1.0 + r(c, scale=0.1),
+                f"{name}.bias": r(c, scale=0.1),
+                f"{name}.running_mean": r(c, scale=0.1),
+                f"{name}.running_var": 1.0 + r(c, scale=0.1).abs(),
+                f"{name}.num_batches_tracked": torch.tensor(100)}
+
+    sd = {**conv("conv1", cfg.width, 3, 7), **bn("bn1", cfg.width)}
+    in_ch = cfg.width
+    for i, n_blocks in enumerate(cfg.layers):
+        planes = cfg.stage_width(i)
+        for j in range(n_blocks):
+            p = f"layer{i + 1}.{j}"
+            sd.update({**conv(f"{p}.conv1", planes, in_ch, 1),
+                       **bn(f"{p}.bn1", planes),
+                       **conv(f"{p}.conv2", planes, planes, 3),
+                       **bn(f"{p}.bn2", planes),
+                       **conv(f"{p}.conv3", 4 * planes, planes, 1),
+                       **bn(f"{p}.bn3", 4 * planes)})
+            if j == 0:
+                sd.update({**conv(f"{p}.downsample.0", 4 * planes, in_ch, 1),
+                           **bn(f"{p}.downsample.1", 4 * planes)})
+            in_ch = 4 * planes
+    sd.update({"fc.weight": r(1000, in_ch), "fc.bias": r(1000)})
     return sd
 
 

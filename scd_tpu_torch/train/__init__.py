@@ -1,11 +1,8 @@
-"""GCD contrastive training (port of ``scd_tpu/train``).
-
-Ported: the losses, the schedules, the checkpoint manager, the GCD
-trainer and its ``metric_learn`` entry point.  The baselines (UNO v2,
-AutoNovel, the supervised classifier: ``baselines``, ``baselines_e2e``,
-``run_baseline``, ``run_baseline_e2e``) come with the next slice, so the
-JAX package's ``train_autonovel_e2e`` / ``train_uno_e2e`` exports are not
-here yet.
+"""Training (port of ``scd_tpu/train``): the losses, the schedules, the
+checkpoint manager, the GCD trainer and its ``metric_learn`` entry point,
+and the NCD baselines (UNO v2, AutoNovel, the supervised classifier +
+combine): over frozen features (``baselines``, ``run_baseline``) and end
+to end through a ViT (``baselines_e2e``, ``run_baseline_e2e``).
 """
 
 from scd_tpu_torch.train.losses import (  # noqa: F401
@@ -22,3 +19,7 @@ from scd_tpu_torch.train.schedulers import (  # noqa: F401
     sigmoid_rampup,
 )
 from scd_tpu_torch.train.checkpoint import CheckpointManager, strip_key_prefix  # noqa: F401
+from scd_tpu_torch.train.baselines_e2e import (  # noqa: F401
+    train_autonovel_e2e,
+    train_uno_e2e,
+)

@@ -877,3 +877,76 @@ def test_gcd_step_card_matches_cpu(cuda):
         cos = (du * dw).sum() / (du.norm() * dw.norm())
         assert cos >= 0.9999, (name, cos.item())
         assert (du - dw).abs().max() <= 1e-3 * dw.abs().max(), name
+
+
+def test_attention_f32_at_the_baselines_shape_matches_plain(cuda):
+    """The end-to-end baselines' f32 attention at B 128 · L 197 · H 12 · d
+    64 (ViT-B/16 at 224, 64 images x 2 views): the forward kernel within
+    ``_attention_within`` and the gradient kernel within ``grad_bound`` of
+    their plain versions, each launched once."""
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.attention_grad import grad_bound
+
+    g = torch.Generator(device=cuda).manual_seed(128)
+    b, length, h, d = 128, 197, 12, 64
+    qkv = torch.randn(b, length, 3 * h * d, generator=g, device=cuda)
+    dout = torch.randn(b, length, h * d, generator=g, device=cuda)
+    fwd, bwd = A.attention_cuda.launches, A.qkv_attention_bwd_cuda.launches
+    got = A.qkv_attention(qkv, h, d ** -0.5)
+    assert A.attention_cuda.launches == fwd + 1
+    q, k, v = A._heads(qkv, h)
+    want = A.attention_plain(q, k, v, d ** -0.5)
+    assert _attention_within(got.view(b, length, h, d), want, v)
+    dq = A.qkv_attention_bwd_cuda(qkv, dout, h, d ** -0.5)
+    assert A.qkv_attention_bwd_cuda.launches == bwd + 1
+    want = A.qkv_attention_bwd_plain(qkv, dout, h, d ** -0.5)
+    bound = grad_bound(qkv, dout, h, d ** -0.5, None, want)
+    assert bool(((dq - want).abs() <= bound).all())
+
+
+def test_uno_e2e_step_card_matches_cpu(cuda):
+    """One end-to-end UNO step (every block trainable, f32, overclustering
+    heads) of a small ViT on the card and on the CPU from the same
+    parameters and batch: the loss within 1e-4 relative, every update
+    within 1e-3 of its largest element with a cosine >= 0.999, and one
+    launch of the gradient kernel per block."""
+    from scd_tpu_torch.models.params import flax_init_
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.train import baselines as B
+    from scd_tpu_torch.train.baselines_e2e import UNOModel, train_uno_e2e
+
+    vit = ViTConfig(image_size=64, patch_size=16, width=128, depth=3,
+                    heads=2)
+    rng = np.random.default_rng(0)
+    views = rng.standard_normal((2, 8, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 6, 8)
+    mask = (labels < 3) & (rng.random(8) < 0.5)
+    init = flax_init_(UNOModel(vit, 2, 6, 3 + 3 * 3), 4).state_dict()
+    runs = {}
+    real = B._init_params
+    try:
+        B._init_params = lambda model, seed: (model.load_state_dict(init),
+                                              model)[1]
+        for dev in ("cuda", "cpu"):
+            bwd = A.qkv_attention_bwd_cuda.launches
+            state, _predict, hist = train_uno_e2e(
+                0, views, labels, mask, 3, 3, vit, num_heads=2, epochs=1,
+                batch_size=8, lr=0.1, overcluster_factor=3, device=dev)
+            runs[dev] = (state["model"].state_dict(), hist[0]["loss"],
+                         A.qkv_attention_bwd_cuda.launches - bwd)
+    finally:
+        B._init_params = real
+    (card, loss_card, n_card), (cpu, loss_cpu, n_cpu) = runs["cuda"], \
+        runs["cpu"]
+    assert n_card == vit.depth and n_cpu == 0
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for name, w in cpu.items():
+        du = (card[name].cpu() - init[name]).double()
+        dw = (w - init[name]).double()
+        if dw.norm() == 0:
+            assert du.norm() == 0, name
+            continue
+        cos = (du * dw).sum() / (du.norm() * dw.norm())
+        assert cos >= 0.999, (name, cos.item())
+        assert (du - dw).abs().max() <= 1e-3 * dw.abs().max(), name

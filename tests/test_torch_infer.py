@@ -188,5 +188,6 @@ def test_main_returns_the_image_count_as_jax(tiny, tmp_path, monkeypatch):
 def test_mesh_request_raises():
     from scd_tpu_torch.pipelines.infer import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: multi-device"):
         main(["--mesh_data", "2", "--device", "cpu"])

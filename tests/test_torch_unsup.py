@@ -206,8 +206,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 def test_cache_miss_names_the_encoder_slice(tmp_path):
     """A features cache miss builds the encoders (lazily, on first use);
-    a backbone the port does not have yet raises and names its ROADMAP
-    item, and nothing is written."""
+    the ``resnet50`` backbone's build without the weights it needs raises
+    and names the missing file's setting, and nothing is written."""
     from scd_tpu_torch.core.config import (DataConfig, FeatureConfig,
                                            PipelineConfig)
     from scd_tpu_torch.pipelines.common import (lazy_encoders,
@@ -223,7 +223,7 @@ def test_cache_miss_names_the_encoder_slice(tmp_path):
     feat, clip, _txt = lazy_encoders(
         lambda: built.append(1) or build_encoders(cfg, {}, device="cpu"))
     assert not built  # nothing is built until an encoder is used
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+    with pytest.raises(FileNotFoundError, match="clip_weights"):
         load_shared_features(cfg, stage_cache(cfg), feat, clip,
                              [(np.zeros((4, 4, 3), np.uint8), 0, 0)], [0])
     assert built == [1]

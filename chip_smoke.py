@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--against-bwd SRC.cu]
+    python3 chip_smoke.py [--against-bwd SRC.cu] [--against-fwd SRC.cu]
 
 Phases, each printing its own lines and seconds:
 
@@ -11,13 +11,16 @@ Phases, each printing its own lines and seconds:
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge shapes (attention at L 257,
    325, 577, 785 and 1,025 through its long paths: bf16 on ``wgmma``,
-   resident to L 832 and streamed past it, f32 on SIMT; ``classify_topk``
+   resident to L 832 and streamed past it; f32 at head_dim 64 on three
+   TF32 passes at L 1 to 785 (B 4 at L 197, 257, 325, 577), f32 at head_dim
+   32 and 128 on SIMT, a misaligned f32 view raising; ``classify_topk``
    at k 17 and 32 through the matmul route; ``topk_softmax`` at k 1 over
    raw logits at V 68,000 and V 100, ptsup's bound passes; the attention
    gradient, ``csrc/attention_bwd.cu``, against autograd of the plain
    attention at a training step's shape, B 256 x L 197 x H 12 x d 64 bf16,
-   at L 208 with l_valid 197, in f32, at L 1, 17 and 256, at L 257, 325
-   and 577 (B 32: image 256, 288, 384), and the shapes it does not take
+   at L 208 with l_valid 197, in f32 at head_dim 64 (L 1, 65, 197, 257,
+   577) and at head_dim 128 and 40 (SIMT), at L 1, 17 and 256, at L 257,
+   325 and 577 (B 32: image 256, 288, 384), and the shapes it does not take
    raising), with the stated tolerances; every kernel must also repeat
    its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
@@ -51,9 +54,12 @@ Phases, each printing its own lines and seconds:
    (``scd_tpu_torch/testing/attention_bwd.py``) and, with
    ``--against-bwd SRC.cu``, another build of ``csrc/attention_bwd.cu``
    (e.g. the parent commit's) timed in turns on the same inputs; and the
-   end-to-end baselines' f32 attention forward and gradient at B 128 x L
-   197 x H 12 x d 64 (the SIMT paths) beside their plain versions, SDPA
-   and the bound at 4-byte elements;
+   end-to-end baselines' f32 attention forward and gradient (three TF32
+   passes) at B 128 and 64 x L 197 and B 128 x L 257 x H 12 x d 64 beside
+   their plain versions, SDPA, the bound at 4-byte elements and three TF32
+   passes and, with ``--against-fwd SRC.cu`` / ``--against-bwd SRC.cu``,
+   another build of each source (e.g. the parent commit's SIMT kernels)
+   timed in turns;
 6. serving: ``scd_tpu_torch.pipelines.infer.main`` with a CLIP ViT-B/16
    tower (bf16, seeded random weights) naming 5,000 224 px uint8 images
    (ImageNet-100's validation size) in batches of 128 from 100 names'
@@ -149,11 +155,14 @@ Phases, each printing its own lines and seconds:
    unlabelled images: the epoch and eval lines, ms a step, images/s,
    eval seconds, peak memory; the attention forward and its f32
    gradient must launch 12 times a backbone pass (UNO one pass a step,
-   AutoNovel two), the manifest must hold both epochs and a best; one
+   AutoNovel two), every launch on the f32 kernels at head_dim 64, the
+   manifest must hold both epochs and a best; one
    f32 step of each trainer card against CPU from the same parameters
    (phase 10's gates, every block trainable); each trainer's own step on
    a fixed device batch of 64 x 2 views (CUDA events, peak memory, time
-   by kernel); ``run_baseline.main`` for uno, autonovel and supervised
+   by kernel); one UNO step at image 256 (L 257: the f32 gradient past
+   256 keys) on a fixed device batch, its kernel calls held;
+   ``run_baseline.main`` for uno, autonovel and supervised
    (the SSKM combine on ``fused_em_step``, K 100) over phase 7's kind of
    store (130,048 x 768, --n_labeled 50, cut to 1 epoch), then each
    frozen-feature trainer card against CPU on the store's first 8,192
@@ -173,8 +182,11 @@ first run on each fine-grained root), ``w8a8_fusedq`` with phase 4's ``run_unsup
 ``dense_w8a8`` and ``dense_w8a8_3d`` (one kernel, ``w8a8_prequant``) with
 phase 4's ``pad_seq_to=0`` pass, ``vit_attention`` and ``qkv_attention``
 (one kernel) with phase 6's, and ``estep_assign`` with phase 7's; a
-last row, ``attention_bwd`` (no TPU kernel: the JAX package takes its
-attention gradient from XLA autodiff), with phase 10's training steps.
+row, ``attention_bwd`` (no TPU kernel: the JAX package takes its
+attention gradient from XLA autodiff), with phase 10's training steps;
+and the f32 kernels at head_dim 64 of the attention
+(``qkv_attention_f32``) and its gradient (``attention_bwd_f32``), with
+phase 11's end-to-end mains and phase 5's times at B 128 x L 197.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 10 (the attention forward, its gradient and ``fused_em_step`` in
@@ -205,6 +217,7 @@ import time
 # published H100 SXM peaks (NVIDIA data sheet), used for the bound only
 PEAK_F32_FLOPS = 67e12     # f32 FMA outside the tensor cores
 PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor-core rate
+PEAK_TF32_FLOPS = 495e12   # dense TF32 tensor-core rate
 PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12   # HBM3
 
@@ -283,6 +296,11 @@ SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep",
            "attention_bwd")
 # the attention gradient's bf16 kernels (wgmma fed by TMA)
 BWD_WGMMA_KERNELS = ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+# the f32 attention kernels at head_dim 64 (three TF32 passes on wgmma fed
+# by TMA), by source
+F32_WGMMA_KERNELS = {"attention": ("attn_f32_wgmma_kernel",),
+                     "attention_bwd": ("attn_bwd_dq_f32_kernel",
+                                       "attn_bwd_dkv_f32_kernel")}
 
 
 def fail(msg: str):
@@ -384,6 +402,19 @@ def phase_build():
         check(any(hg > 0 for fn, (hg, _) in sass["attention_bwd"].items()
                   if fn.startswith(kern)),
               f"attention_bwd: no HGMMA in the {kern}")
+    for src, kerns in F32_WGMMA_KERNELS.items():
+        for kern in kerns:
+            check(any(hg > 0 for fn, (hg, _) in sass[src].items()
+                      if fn.startswith(kern)),
+                  f"{src}: no HGMMA in the {kern}")
+            if src in reports:  # built now: its ptxas report is here
+                lines = ptxas_summary(reports[src])
+                check(any(ln.startswith(f"{kern}:")
+                          and "spill 0 / 0 bytes" in ln for ln in lines),
+                      f"{src}: the {kern} spills")
+                check(not any("serialized" in ln and kern in ln
+                              for ln in lines),
+                      f"{src}: ptxas serializes the {kern}'s wgmma")
     if "attention_bwd" in reports:  # built now: its ptxas report is here
         lines = ptxas_summary(reports["attention_bwd"])
         for kern in BWD_WGMMA_KERNELS:
@@ -851,9 +882,10 @@ def attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=None, tag="",
 
 def parity_attention_bwd(seed: int):
     """The gradient kernel at the training shape, the int8-padded one,
-    f32, the edges and the long sequences of image 256, 288 and 384;
-    returns the max abs error at the training shape.  Shapes it does not
-    take must raise."""
+    f32 (head_dim 64 at L 197, 257 and 577, and the SIMT head_dims), the
+    edges and the long sequences of image 256, 288 and 384; returns the
+    max abs errors at the training shape and of the f32 kernels at
+    head_dim 64.  Shapes it does not take must raise."""
     import torch
 
     from scd_tpu_torch.ops import attention as A
@@ -865,7 +897,18 @@ def parity_attention_bwd(seed: int):
                              tag="train"),
         attention_bwd_parity(TRAIN_B, L_PAD, 12, 64, bf16, gen,
                              l_valid=L_VIT, tag="train-int8-pad"))
-    attention_bwd_parity(16, L_VIT, 12, 64, f32, gen, tag="f32-train")
+    before = _counts()["attention_bwd_f32"]
+    err_f32 = max(
+        attention_bwd_parity(16, L_VIT, 12, 64, f32, gen, tag="f32-train"),
+        attention_bwd_parity(4, L_257, 12, 64, f32, gen, l_valid=250,
+                             tag="f32-L257"),
+        attention_bwd_parity(2, 577, 12, 64, f32, gen, tag="f32-L577"))
+    attention_bwd_parity(5, 1, 3, 64, f32, gen, tag="edge-f32-L1")
+    attention_bwd_parity(7, 65, 3, 64, f32, gen, l_valid=33,
+                         tag="edge-f32-L65")
+    n = _counts()["attention_bwd_f32"] - before
+    check(n == 2 * 5, f"attention_bwd: {n} launches of the f32 kernels at "
+          f"head_dim 64 for 5 shapes x 2")
     attention_bwd_parity(5, 1, 3, 64, bf16, gen, tag="edge-L1")
     attention_bwd_parity(7, 17, 5, 64, bf16, gen, l_valid=9,
                          tag="edge-L17")
@@ -876,19 +919,26 @@ def parity_attention_bwd(seed: int):
     attention_bwd_parity(3, 256, 2, 128, f32, gen, l_valid=200,
                          tag="edge-f32-d128")
     attention_bwd_parity(4, 33, 3, 40, f32, gen, tag="edge-f32-d40")
+    check(_counts()["attention_bwd_f32"] - before == n,
+          "attention_bwd: an f32 shape at another head_dim took the f32 "
+          "kernels at head_dim 64")
     qkv = torch.zeros(2, 257, 3 * 64, device="cuda", dtype=bf16)
     dout = torch.zeros(2, 257, 64, device="cuda", dtype=bf16)
-    for args, what in (((qkv.float(), dout.float(), 1, 0.125), "f32 L 257"),
+    off = torch.zeros(2 * 16 * 3 * 64 + 1, device="cuda")[1:].view(2, 16, 192)
+    for args, what in (((qkv[..., :96].float(), dout[..., :32].float(), 1,
+                         0.125), "f32 L 257 head_dim 32"),
                        ((qkv[:, :16], dout[:, :16], 1, 0.125, True),
                         "causal"),
                        ((qkv[:, :16], dout[:, :16], 2, 0.125),
-                        "bf16 head_dim 32")):
+                        "bf16 head_dim 32"),
+                       ((off, dout[:, :16].float(), 1, 0.125),
+                        "a misaligned f32 head_dim-64 view")):
         try:
             A.qkv_attention_bwd_cuda(*args)
         except (NotImplementedError, ValueError):
             continue
         fail(f"attention_bwd: {what} did not raise")
-    return err
+    return err, err_f32
 
 
 def estep_parity(n, d, k, gen, dup=False, view=False, tag=""):
@@ -937,6 +987,8 @@ def parity_attention_estep(seed: int):
     """Parity of the attention and estep kernels; returns the max abs
     errors at the main paths' shapes."""
     import torch
+
+    from scd_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     errs = {}
@@ -997,10 +1049,45 @@ def parity_attention_estep(seed: int):
     check(after["attention_long_wgmma"] - before["attention_long_wgmma"]
           == 2 * n_bf16, "attention: the bf16 long edges did not all take "
           "the wgmma long path, or an f32 one did")
-    attention_parity(4, L_VIT, 12, 64, f32, gen, tag="f32-image")
+    check(after["attention_f32"] - before["attention_f32"]
+          == 2 * (len(long_edges) - n_bf16), "attention: the f32 long "
+          "edges did not all take the f32 kernel at head_dim 64")
+    # f32 at head_dim 64 (three TF32 passes on wgmma, any L): the
+    # baselines' shape, image 256 / 288 / 384 (l_valid < L at 325), the
+    # causal text shape, the edges; then the SIMT routes at other
+    # head_dims (d 32 short and long, d 128), which it must not take
+    before = _counts()
+    errs["qkv_attention_f32"] = max(
+        attention_parity(4, length, 12, 64, f32, gen, l_valid=lv,
+                         tag=f"f32-L{length}")
+        for length, lv in ((L_VIT, None), (L_257, None), (325, 300),
+                           (577, None)))
     attention_parity(3, 77, 8, 64, f32, gen, causal=True, packed=False,
                      tag="f32-text")
+    attention_parity(7, 1, 3, 64, f32, gen, causal=True, packed=False,
+                     tag="f32-edge-L1")
+    attention_parity(5, 65, 3, 64, f32, gen, l_valid=33, tag="f32-edge-L65")
+    attention_parity(2, 785, 3, 64, f32, gen, causal=True, l_valid=700,
+                     tag="f32-edge-L785-causal")
+    f32_tc = _counts()["attention_f32"] - before["attention_f32"]
+    check(f32_tc == 2 * 8, f"attention: {f32_tc} launches of the f32 "
+          f"kernel at head_dim 64 for 8 shapes x 2")
     attention_parity(3, 5, 2, 32, f32, gen, l_valid=4, tag="f32-d32")
+    attention_parity(3, 325, 2, 32, f32, gen, causal=True,
+                     tag="f32-d32-long")
+    attention_parity(2, 100, 3, 128, f32, gen, l_valid=90, tag="f32-d128")
+    check(_counts()["attention_f32"] - before["attention_f32"] == f32_tc,
+          "attention: an f32 shape at another head_dim took the f32 kernel "
+          "at head_dim 64")
+    # an f32 head_dim-64 view off the 16-byte grid raises: no other route
+    x = torch.zeros(4 * L_VIT * 12 * 64 + 1, device="cuda")[1:].view(
+        4, L_VIT, 12, 64)
+    try:
+        A.vit_attention(x, x, x, 0.125)
+    except ValueError:
+        pass
+    else:
+        fail("attention: a misaligned f32 head_dim-64 view did not raise")
     errs["estep_assign"] = estep_parity(RUNNER_N, D_FEAT, K, gen,
                                         tag="runner")
     estep_parity(1_001, 768, 100, gen, tag="edge-ragged")
@@ -1076,7 +1163,8 @@ def phase_parity(seed: int):
     em_parity(37, 768, 7, gen, x_bf16=True, masked=True, tag="edge-N37-bf16")
     em_parity(20_000, 768, 683, gen, x_bf16=True, tag="edge-K683-bf16")
     errs.update(parity_attention_estep(seed))
-    errs["attention_bwd"] = parity_attention_bwd(seed)
+    errs["attention_bwd"], errs["attention_bwd_f32"] = parity_attention_bwd(
+        seed)
     return errs
 
 
@@ -1164,8 +1252,10 @@ def phase_main_path(seed: int, workdir: str):
 def _counters():
     """{name: (function, attribute)} of every count: each kernel wrapper's
     ``launches``, the attention long paths' launches (also in
-    ``attention``) and of those the bf16 ``wgmma`` long path's, and the
-    top-k route past the kernel (k > 16)."""
+    ``attention``) and of those the bf16 ``wgmma`` long path's, the f32
+    attention forward's and gradient's launches at head_dim 64 (three TF32
+    passes on ``wgmma``; also in ``attention`` and ``attention_bwd``), and
+    the top-k route past the kernel (k > 16)."""
     from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
     return {"topk_softmax": (topk.topk_softmax_cuda, "launches"),
@@ -1176,10 +1266,14 @@ def _counters():
             "attention_long": (attention.attention_cuda, "long_launches"),
             "attention_long_wgmma": (attention.attention_cuda,
                                      "long_wgmma_launches"),
+            "attention_f32": (attention.attention_cuda,
+                              "f32_wgmma_launches"),
             "estep_assign": (distance.estep_assign_cuda, "launches"),
             "topk_matmul_route": (topk.classify_topk, "matmul_calls"),
             "attention_bwd": (attention.qkv_attention_bwd_cuda,
-                              "launches")}
+                              "launches"),
+            "attention_bwd_f32": (attention.qkv_attention_bwd_cuda,
+                                  "f32_wgmma_launches")}
 
 
 def _reset_counts():
@@ -1492,16 +1586,18 @@ def _bound(ops, peak, nbytes):
                                        else "bytes")
 
 
-def _attention_bound(b, length, h, d, causal, l_valid, elem_bytes=2,
-                     passes=1):
+def _attention_bound(b, length, h, d, causal, l_valid, f32=False):
     """q, k, v read once and the output written once; the products of
     the score pairs this input keeps (causal: key <= query; keys < l_valid)
-    in q.k and p.v, at the bf16 tensor-core peak, ``passes`` times (f32:
-    4-byte elements and three passes, as ``_f32_product_bound``)."""
+    in q.k and p.v: bf16 at the bf16 tensor-core peak; f32 (4-byte
+    elements) as three TF32 passes at the TF32 peak, the route the f32
+    kernel at head_dim 64 takes."""
     rows = range(length)
     pairs = sum(min(r + 1, l_valid) if causal else l_valid for r in rows)
-    return _bound(passes * 4.0 * b * h * d * pairs, PEAK_BF16_FLOPS,
-                  4.0 * elem_bytes * b * length * h * d)
+    ops = 4.0 * b * h * d * pairs
+    if f32:
+        return _bound(3 * ops, PEAK_TF32_FLOPS, 16.0 * b * length * h * d)
+    return _bound(ops, PEAK_BF16_FLOPS, 8.0 * b * length * h * d)
 
 
 def time_attention_bwd(gen, against=None):
@@ -1523,46 +1619,76 @@ def time_attention_bwd(gen, against=None):
     return out
 
 
-def time_attention_f32(gen):
-    """The end-to-end baselines' f32 attention at B 128 · L 197 · H 12 · d
-    64 (ViT-B/16 at 224, 64 images x 2 views, every block trainable): the
-    forward kernel through the packed entry, as a trunk block calls it,
-    and the gradient kernel (``testing/attention_bwd.py::time_shapes``),
+# the f32 attention's timed shapes (ViT-B/16, H 12, d 64, every block
+# trainable): (batch, L, tag): UNO's 64 images x 2 views, AutoNovel's
+# passes of 64, UNO at image 256
+F32_TIMED = ((128, 197, "uno"), (64, 197, "autonovel"),
+             (128, 257, "image-256"))
+
+
+def time_attention_f32(gen, against_fwd=None, against_bwd=None):
+    """The end-to-end baselines' f32 attention on the f32 kernels at
+    head_dim 64 (three TF32 passes on ``wgmma`` fed by TMA), at
+    F32_TIMED: the forward through the packed entry, as a trunk block
+    calls it, and the gradient (``testing/attention_bwd.py::time_shapes``),
     each beside its plain version, SDPA (a yardstick, used nowhere in the
-    port) and the bound at 4-byte elements and three bf16 passes, with
-    the f32 SIMT bound beside."""
+    port), the bound (4-byte elements, three TF32 passes at the TF32 peak)
+    and, with ``against_fwd`` / ``against_bwd`` (an ``attention.cu`` /
+    ``attention_bwd.cu``, e.g. the parent commit's SIMT build), that build
+    timed in turns, other, this, this, other, on the same inputs.  Returns
+    the rows of the kernels line (UNO's shape) and the other shapes'."""
     import torch
     import torch.nn.functional as F
 
     from scd_tpu_torch.ops import attention as A
     from scd_tpu_torch.testing import attention_bwd as T
+    from scd_tpu_torch.testing.attention_long import build_other
 
-    b, h, f32 = E2E_TRAIN_B, 12, torch.float32
-    qkv, (q, k, v) = _attn_inputs(b, L_VIT, h, 64, f32, True, gen)
-    attention_parity(b, L_VIT, h, 64, f32, gen, packed=True,
-                     tag="f32 timed inputs", inputs=(qkv, (q, k, v)))
+    h, f32, out = 12, torch.float32, {}
+    other_fwd = build_other(against_fwd) if against_fwd else None
+    other_bwd = T.build_other(against_bwd) if against_bwd else None
+    for b, length, tag in F32_TIMED:
+        qkv, (q, k, v) = _attn_inputs(b, length, h, 64, f32, True, gen)
+        attention_parity(b, length, h, 64, f32, gen, packed=True,
+                         tag=f"f32 {tag} timed inputs",
+                         inputs=(qkv, (q, k, v)))
 
-    def kern():
-        return A.qkv_attention(qkv, h, 0.125)
+        def kern():
+            return A.qkv_attention(qkv, h, 0.125)
 
-    ms = cuda_ms(kern, reps=10, warmup=2)
-    again = cuda_ms(kern, reps=10, warmup=2)
-    plain = cuda_ms(lambda: A.attention_plain(q, k, v, 0.125), reps=3)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                  reps=10, warmup=2)
-    bound, by = _attention_bound(b, L_VIT, h, 64, False, L_VIT, 4, 3)
-    simt = max(4.0 * b * h * 64 * L_VIT * L_VIT / PEAK_F32_FLOPS,
-               16.0 * b * L_VIT * h * 64 / PEAK_HBM_BYTES) * 1e3
-    print(f"  attention f32 (the e2e baselines) B={b} L={L_VIT} H={h} d=64: "
-          f"kernel {ms:.4f} ms (again {again:.4f}), plain {plain:.4f} ms, "
-          f"library (SDPA) {lib:.4f} ms, bound {bound:.4f} ms ({by}; f32 "
-          f"SIMT bound {simt:.4f} ms); {ms / bound:.1f} x the bound")
-    del qkv, q, k, v, qt, kt, vt
-    out = {"attention-f32": (ms, plain, lib, bound, by)}
-    times = T.time_shapes(gen, None, (("train-f32", L_VIT, L_VIT),),
-                          b=b, dtype=f32)
-    out["attention_bwd-f32"] = times["train-f32"][:5]
+        line = f"  attention f32 ({tag}) B={b} L={length} H={h} d=64:"
+        if other_fwd is not None:
+            def then():
+                return A.attention_fwd(other_fwd, q, k, v, 0.125, False,
+                                       length)
+
+            diff = (then() - kern().view(b, length, h, 64)).abs().max()
+            t_other = cuda_ms(then, reps=10, warmup=2)
+            ms = cuda_ms(kern, reps=10, warmup=2)
+            again = cuda_ms(kern, reps=10, warmup=2)
+            t_other2 = cuda_ms(then, reps=10, warmup=2)
+            line += (f" kernel {ms:.4f} ms (again {again:.4f}), other build "
+                     f"{t_other:.4f} ms (again {t_other2:.4f}), max |kernel"
+                     f" - other| {diff.item():.3e};")
+        else:
+            ms = cuda_ms(kern, reps=10, warmup=2)
+            again = cuda_ms(kern, reps=10, warmup=2)
+            line += f" kernel {ms:.4f} ms (again {again:.4f});"
+        plain = cuda_ms(lambda: A.attention_plain(q, k, v, 0.125), reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                      reps=10, warmup=2)
+        bound, by = _attention_bound(b, length, h, 64, False, length, True)
+        print(f"{line} plain {plain:.4f} ms, library (SDPA) {lib:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}); {ms / bound:.1f} x the bound, "
+              f"{ms / lib:.2f} x SDPA", flush=True)
+        del qkv, q, k, v, qt, kt, vt
+        out[f"qkv_attention_f32-{tag}"] = (ms, plain, lib, bound, by)
+        times = T.time_shapes(gen, other_bwd, ((f"f32-{tag}", length,
+                                                length),), b=b, dtype=f32)
+        out[f"attention_bwd_f32-{tag}"] = times[f"f32-{tag}"][:5]
+    out["qkv_attention_f32"] = out["qkv_attention_f32-uno"]
+    out["attention_bwd_f32"] = out["attention_bwd_f32-uno"]
     return out
 
 
@@ -1647,7 +1773,7 @@ def time_attention_estep(gen):
     return out
 
 
-def phase_timing(seed: int, estep, against_bwd=None):
+def phase_timing(seed: int, estep, against_bwd=None, against_fwd=None):
     import torch
 
     from scd_tpu_torch.ops.em import em_iteration_plain, fused_em_step_cuda
@@ -1738,7 +1864,7 @@ def phase_timing(seed: int, estep, against_bwd=None):
         **time_w8a8(gen),
         **time_attention_estep(gen),
         **time_attention_bwd(gen, against_bwd),
-        **time_attention_f32(gen),
+        **time_attention_f32(gen, against_fwd, against_bwd),
     }
 
 
@@ -3224,7 +3350,7 @@ def phase_train(seed, workdir):
 # images x 2 views).  Frozen features (run_baseline): phase 7's store,
 # --n_labeled 50, cut to 1 epoch; the card-against-CPU subset of its first
 # 8,192 rows.  The ResNet-50 tower's batch.
-E2E_BATCH, E2E_TRAIN_B, E2E_EPOCHS, E2E_STEPS = 64, 128, 2, 3
+E2E_BATCH, E2E_EPOCHS, E2E_STEPS = 64, 2, 3
 E2E_CPU_IMAGES, BASELINE_LABELED, BASELINE_SUBSET = 4, 50, 8_192
 R50_BATCH, R50_CPU_IMAGES = 128, 8
 # tolerances, with their reasons:
@@ -3322,9 +3448,10 @@ def baseline_e2e_main(method, seed, root, workdir):
     passes = 1 if method == "uno" else 2  # backbone passes a step
     steps = E2E_EPOCHS * E2E_STEPS
     step_launch = {k: sum(e[1][k] for e in probe.epochs)
-                   for k in ("attention", "attention_bwd", "fused_em_step")}
+                   for k in ("attention", "attention_bwd", "fused_em_step",
+                             "attention_f32", "attention_bwd_f32")}
     eval_launch = {k: sum(e[1][k] for e in probe.evals)
-                   for k in ("attention", "attention_bwd")}
+                   for k in ("attention", "attention_bwd", "attention_f32")}
     epoch_s = [e[0] for e in probe.epochs]
     ms_step = 1e3 * sum(epoch_s) / steps
     print(f"  {method}: {steps} steps, {ms_step:.1f} ms a step (host clock; "
@@ -3339,6 +3466,10 @@ def baseline_e2e_main(method, seed, root, workdir):
     check(step_launch["attention"] == 12 * passes * steps
           and step_launch["attention_bwd"] == 12 * passes * steps,
           f"{method}_e2e: launches in the steps {step_launch}")
+    check(step_launch["attention_f32"] == step_launch["attention"]
+          and step_launch["attention_bwd_f32"] == step_launch["attention_bwd"],
+          f"{method}_e2e: not every f32 launch took the kernels at head_dim "
+          f"64: {step_launch}")
     check(eval_launch["attention"] > 0 and eval_launch["attention_bwd"] == 0,
           f"{method}_e2e: launches in the evals {eval_launch}")
     check(len(history) == E2E_EPOCHS and all(
@@ -3508,6 +3639,53 @@ def e2e_device_step(method, seed):
     return ms
 
 
+def e2e_step_image256(seed):
+    """One UNO step at image 256 (ViT-B/16 f32, L 257: the f32 forward
+    and gradient kernels past 256 keys, where the SIMT gradient raised) on
+    a fixed device batch of 64 x 2 views: a finite loss, both f32 kernels
+    launched 12 times in the step, its CUDA-event ms, and every kernel
+    call of the step held against its plain version on the step's
+    arguments (``path_inputs``)."""
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.train import baselines_e2e as E
+
+    px, nl = 256, BASELINE_LABELED
+    vit = ViTConfig(image_size=px, patch_size=16, width=768, depth=12,
+                    heads=12)
+    rng = np.random.default_rng(seed + 9)
+    views = rng.standard_normal((2, E2E_BATCH, px, px, 3)).astype(np.float32)
+    labels = rng.integers(0, 2 * nl, E2E_BATCH)
+    mask = labels < nl
+    state, _p, _h = E.train_uno_e2e(
+        seed, lambda _e, _r: iter([(views, labels, mask)]), n_labeled=nl,
+        n_unlabeled=nl, vit_cfg=vit, num_heads=4, epochs=1,
+        batch_size=E2E_BATCH, overcluster_factor=3, steps_per_epoch=1,
+        device="cuda")
+    v = torch.as_tensor(views).cuda()
+    lab = torch.as_tensor(labels).cuda()
+    m = torch.as_tensor(mask).cuda()
+    step = state["step"]
+    _reset_counts()
+    with path_inputs() as seen:
+        loss, _per_head = step(v, lab, m)
+        torch.cuda.synchronize()
+    counts = _counts()
+    check(math.isfinite(loss.item()), f"uno image-256 step: loss {loss}")
+    check(counts["attention_f32"] == 12 and counts["attention_bwd_f32"] == 12,
+          f"uno image-256 step: launches {counts}")
+    ms = cuda_ms(lambda: step(v, lab, m), reps=2, warmup=0)
+    print(f"  uno: a device step at image {px} (L 257) on a fixed batch of "
+          f"{E2E_BATCH} x 2 views (f32, all 12 blocks): loss "
+          f"{loss.item():.6f}, {ms:.2f} ms (CUDA events); the f32 forward "
+          f"and gradient kernels {counts['attention_f32']} and "
+          f"{counts['attention_bwd_f32']} launches")
+    hold_path_inputs(seen, "uno image-256 step")
+    del state, v
+
+
 def baselines_frozen(seed, workdir):
     """``run_baseline.main`` for uno, autonovel and supervised over phase
     7's ImageNet-100-scale store on the card (1 epoch); then each trainer
@@ -3657,12 +3835,15 @@ def phase_baselines(seed, workdir):
                                          workdir)
         launches[f"{method}_e2e"] = {
             "attention": steps["attention"] + evals["attention"],
-            "attention_bwd": steps["attention_bwd"]}
+            "attention_bwd": steps["attention_bwd"],
+            "attention_f32": steps["attention_f32"] + evals["attention_f32"],
+            "attention_bwd_f32": steps["attention_bwd_f32"]}
     print(f"end-to-end mains {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for method in ("uno", "autonovel"):
         e2e_step_card_against_cpu(method, seed)
         e2e_device_step(method, seed)
+    e2e_step_image256(seed)
     print(f"card against CPU and device steps "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3700,6 +3881,13 @@ KERNELS = [
     ("attention_bwd", "scd_tpu_torch/csrc/attention_bwd.cu",
      "none: XLA autodiff of scd_tpu/models/vit.py:338",
      "attention_bwd"),
+    # the f32 kernels at head_dim 64 (three TF32 passes on wgmma) of the
+    # attention and its gradient; launches from phase 11's end-to-end mains
+    ("qkv_attention_f32", "scd_tpu_torch/csrc/attention.cu",
+     "scd_tpu/ops/pallas_kernels.py:392", "attention_f32"),
+    ("attention_bwd_f32", "scd_tpu_torch/csrc/attention_bwd.cu",
+     "none: XLA autodiff of scd_tpu/models/vit.py:338",
+     "attention_bwd_f32"),
 ]
 
 
@@ -3709,6 +3897,9 @@ def main(argv=None) -> int:
     p.add_argument("--against-bwd", default=None,
                    help="an attention_bwd.cu (e.g. the parent commit's) to "
                         "build and time beside the gradient kernel in phase 5")
+    p.add_argument("--against-fwd", default=None,
+                   help="an attention.cu (e.g. the parent commit's) to build "
+                        "and time beside the f32 forward kernel in phase 5")
     args = p.parse_args(argv)
 
     import torch
@@ -3742,7 +3933,8 @@ def main(argv=None) -> int:
     print(f"phase 4 {time.perf_counter() - t0:.1f} s")
     section("phase 5: timing at the main paths' shapes")
     t0 = time.perf_counter()
-    times = phase_timing(args.seed, estep, args.against_bwd)
+    times = phase_timing(args.seed, estep, args.against_bwd,
+                         args.against_fwd)
     print(f"phase 5 {time.perf_counter() - t0:.1f} s")
     section("phase 6: serving (infer, CLIP ViT-B/16 bf16)")
     t0 = time.perf_counter()
@@ -3788,6 +3980,9 @@ def main(argv=None) -> int:
         baseline_launches = phase_baselines(args.seed, workdir)
     print(f"launches in phase 11's main paths: "
           f"{json.dumps(baseline_launches)}")
+    for key in ("attention_f32", "attention_bwd_f32"):
+        launches[key] = sum(baseline_launches[f"{m}_e2e"][key]
+                            for m in ("uno", "autonovel"))
     print(f"phase 11 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 

@@ -56,9 +56,11 @@
 // the host builds three per call (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint: the library links no -lcuda).
 //
-// f32 inputs (no tensor-core path keeps f32 products exact) take a plain
-// SIMT kernel with the same contract: 32 queries per block, scores staged
-// in shared memory, fmaf dot products.
+// f32 at head_dim 64, any L (the end-to-end NCD baselines train ViT-B/16
+// in f32): attn_f32_wgmma_kernel, below, on three TF32 passes.  f32 at
+// another head_dim takes a plain SIMT kernel with the same contract at
+// L <= 256 (32 queries per block, scores staged in shared memory, fmaf
+// dot products) and the key-tiled SIMT kernel past it.
 //
 // Long sequences (L > 256: a tower at image 256, 288, 384 or 448 gives
 // L 257, 325, 577 or 785) take one of two long paths, chosen by shape in
@@ -80,14 +82,52 @@
 // heads stream their key tiles through the same buffers in chunks of 13,
 // reloaded per sweep.
 //
-// f32 at L > 256 (no tensor-core path keeps f32 products exact), and bf16
-// at another head_dim (no shipped config), take a key-tiled SIMT kernel: a
-// block owns 32 queries of one (batch, head) (4 per warp) and sweeps the
-// keys in tiles of 32 (one per lane) three times, recomputing the same
-// scores in each: first the row max, then the row sum of exp(s - max), then
-// p = e / sum (IEEE division), rounded to v's type, accumulated as p . v
-// in f32 in key order.  That is the short paths' order of operations, so
-// one tolerance serves all of them.
+// f32 at L > 256 and another head_dim, and bf16 at another head_dim (no
+// shipped config), take a key-tiled SIMT kernel: a block owns 32 queries
+// of one (batch, head) (4 per warp) and sweeps the keys in tiles of 32
+// (one per lane) three times, recomputing the same scores in each: first
+// the row max, then the row sum of exp(s - max), then p = e / sum (IEEE
+// division), rounded to v's type, accumulated as p . v in f32 in key
+// order.  That is the short paths' order of operations, so one tolerance
+// serves all of them.
+//
+// The f32 kernel at head_dim 64 (attn_f32_wgmma_kernel).  Contract: the
+// one above, with each f32 product three TF32 products of hi / lo halves,
+// summed in f32: hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and
+// a . b = a_lo . b_hi + a_hi . b_lo (issued first) + a_hi . b_hi; lo . lo
+// (~2^-22 of |a||b|) is dropped.  Why three TF32 passes: one pass keeps
+// ~3 digits, which the repo's parity rule refuses; the split-bf16
+// products of estep.cu, topk_softmax.cu and fused_em.cu (~2^-16) cost
+// attention 3.5e-5 of max|v| on inputs of amplitude 3, past the f32
+// tolerance of 1e-5 (chip_smoke.py ATTN_F32_VREL), where the TF32 split
+// costs 4.5e-7, and 1.6e-6 at amplitude 6 (tests/test_torch_attention.py,
+// on the CPU against float64).  The softmax runs online in one sweep:
+// O accumulates e . v and is rescaled when the row max moves, then each
+// row is divided once by its sum (IEEE division); p's rounding to v's
+// type is the identity in f32, so this differs from the order above by
+// f32 rounding alone.  Masking, every sum in f32 and the repeat of bits
+// are as above.
+//   What bounds it: at B 128, L 197, H 12 the bytes (q, k, v read, out
+// written, 4-byte elements) are 310 MB, 0.092 ms at 3.35 TB/s, and the
+// products three passes of q . k and p . v, 45.8 GFLOP, 0.093 ms at 495
+// TFLOP/s TF32: both, so the design keeps the tensor cores fed and reads
+// each byte once from device memory.
+//   Design: one block per (batch, head) pair, four warpgroups (the four
+// 64-query tiles of L 197; longer heads in rounds of four).  K and V
+// stream in 64-key tiles by TMA (the bf16 paths' 4-D tensor maps at 4-byte
+// elements: a 128-byte swizzle row holds 32 f32, so a tile lands as two
+// atom columns of 32) into one landing buffer.  `.tf32` wgmma has no
+// transpose bit, so both operands are K-major: K as it lands (d
+// contiguous), V only through a transpose.  Per key tile the block splits
+// K into hi and lo and V into the hi and lo of V^T (keys contiguous, and
+// permuted inside each 8 to the order in which the score accumulator hands
+// a thread its keys: 2t, 2t + 1 where a k8 A fragment takes t, t + 4), and
+// the landing buffer takes the next tile at once; the split is paid once
+// per key tile for every query tile of the round.  Each warpgroup splits
+// its Q tile in place once per round; S = Q . K^T is wgmma m64n64k8 with
+// both operands from shared memory, O += E . V takes E's hi and lo from
+// registers.  Shared memory: 4 x 32 KB of Q, 64 KB of split tile, 32 KB of
+// landing buffer: 224 KB, one block an SM.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -173,6 +213,15 @@ template <int N, typename T>
 __device__ __forceinline__ void reg_fence(T* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&r[i]))::"memory");
+}
+
+// the same for f32 accumulators, bound as floats: a "+r" binding moves
+// each value through an integer register, and ptxas counts those moves as
+// reads of the accumulator inside the pipeline and serializes the wgmma
+template <int N>
+__device__ __forceinline__ void acc_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // Shared-memory operand descriptor of rows of 128 bytes with the 128-byte
@@ -841,6 +890,384 @@ attn_long_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_const
   }
 }
 
+// ---- the f32 path at head_dim 64, any L: three TF32 passes on wgmma fed by TMA
+
+constexpr int F_ROW = 128;          // bytes of a 32-wide f32 atom row: the swizzle span
+constexpr int F_HALF = LT * F_ROW;  // a [64 rows][32] f32 atom column: 8 KB
+constexpr int F_TILE = 2 * F_HALF;  // a [64 rows][64] f32 tile as two atom columns: 16 KB
+constexpr int FWG = 4;              // warpgroups a block: the 4 query tiles of L 197 at once
+constexpr int F_SMEM = 1024 + (2 * FWG + 6) * F_TILE + 64;  // pad, Q, split tile, landing, bars
+
+struct F32Shape {
+  int heads, L, l_valid, causal, qtiles;
+  float scale;
+  long long osb, osl, osh;  // output element strides
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero (cvt.rna.tf32.f32), in f32 bits with the low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// mbar_wait that traps after 10 s (a load that never lands): the launch
+// fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait_trap(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = global_ns();
+    else if (global_ns() - start > 10000000000ull) __trap();
+  }
+}
+
+// shared-memory writes of the generic proxy made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The byte offset of k8 step kk in a K-major operand 64 deep: two atom
+// columns `half` bytes apart, 32 bytes (8 f32) a step inside each
+__device__ __forceinline__ uint32_t kstep(int kk, uint32_t half) {
+  return (kk >> 2) * half + (kk & 3) * 32;
+}
+
+// x -> (tf32 hi, tf32 lo) over n float4 of one layout; hi may be x
+__device__ __forceinline__ void split_flat(const float4* x, float4* hi, float4* lo, int n, int tid,
+                                           int nthr) {
+  for (int i = tid; i < n; i += nthr) {
+    const float4 v = x[i];
+    const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+    lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y), tf32_rna(v.z - h.z),
+                        tf32_rna(v.w - h.w));
+    hi[i] = h;
+  }
+}
+
+// A [64 rows][64] f32 tile as TMA lands it (two swizzled atom columns) ->
+// the tf32 hi and lo of its transpose, [64][64 rows] K-major over the rows
+// (two atom columns of 32 rows, F_HALF apart), the rows permuted inside
+// each 8: column 8c + j holds row 8c + 2j (j < 4) or 8c + 2j - 7 (j >= 4),
+// the order in which a wgmma accumulator hands a thread its keys (2t and
+// 2t + 1 where a k8 A fragment takes t and t + 4).  A sum over the rows
+// does not see the order.  Lanes take consecutive output rows: reads of
+// one source row hit 32 banks, writes fill 4 wavefronts.
+__device__ __forceinline__ void split_t64(const unsigned char* raw, unsigned char* hi,
+                                          unsigned char* lo, int tid, int nthr) {
+  for (int i = tid; i < 16 * LT; i += nthr) {
+    const int d = i & 63, q4 = i >> 6;           // output row d, float4 column q4
+    const int r0 = 8 * (q4 >> 1) + (q4 & 1);     // source rows r0, + 2, + 4, + 6
+    const unsigned char* col = raw + (d >> 5) * F_HALF + (d & 3) * 4;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 2 * e;
+      v[e] = *reinterpret_cast<const float*>(col + r * F_ROW + ((((d & 31) >> 2) ^ (r & 7)) << 4));
+    }
+    const float4 h = make_float4(tf32_rna(v[0]), tf32_rna(v[1]), tf32_rna(v[2]), tf32_rna(v[3]));
+    const float4 l = make_float4(tf32_rna(v[0] - h.x), tf32_rna(v[1] - h.y),
+                                 tf32_rna(v[2] - h.z), tf32_rna(v[3] - h.w));
+    const int off = (q4 >> 3) * F_HALF + d * F_ROW + (((q4 & 7) ^ (d & 7)) << 4);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// Rows [row0, row0 + 64) of (b, h) of an f32 [B, L, H, 64] view into a tile
+// at dst (two boxes of 32 columns), completing on bar (one thread)
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const CUtensorMap* m, uint32_t bar,
+                                              int row0, int b, int h) {
+  tma_load_4d(dst, m, bar, 0, h, row0, b);
+  tma_load_4d(dst + F_HALF, m, bar, 32, h, row0, b);
+}
+
+// One key tile of one 64-row query tile, by its warpgroup, online:
+//   S = Q . K^T: wgmma m64n64k8 .tf32, Q and K K-major from shared memory,
+//     q_lo.k_hi and q_hi.k_lo over the eight k8 steps, then q_hi.k_hi;
+//   scale, mask, the new row max over the row's four threads, O and the
+//     row sums rescaled by exp(old - new), e = exp(s - max) in the score
+//     registers, the sums taken per thread;
+//   O += E . V in F_PV_GROUPS groups of keys: e split into tf32 hi and lo
+//     (keys 2t, 2t + 1 of each 8 as the A fragment's t, t + 4), wgmma with
+//     A from registers and V^T (keys permuted to match) K-major from
+//     shared memory: e_lo.v_hi, e_hi.v_lo, then e_hi.v_hi; each group
+//     waited before the next one's fragments take its registers.
+// A warp whose 16 rows all lie past L feeds e = 0 and skips the softmax.
+// The shared-memory addresses pass through an empty asm first, so the
+// descriptors are formed where they are used, not held across the key
+// loop in registers.
+constexpr int F_PV_GROUPS = 2;  // one group spills at the 128-register cap of four warpgroups
+__device__ __forceinline__ void attend_f32_tile(float* o, float& ma, float& mb, float& la,
+                                                float& lb, uint32_t qhi, uint32_t khi, uint32_t vthi,
+                                                int k0, int kfull, int lv, bool causal, bool live,
+                                                int ra, int rb, int t, float scale) {
+  asm volatile("" : "+r"(qhi), "+r"(khi), "+r"(vthi));
+  const uint32_t qlo = qhi + F_TILE, klo = khi + F_TILE, vtlo = vthi + F_TILE;
+  float s[32];
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss_n64(s, desc_sw128(qlo + kstep(kk, F_HALF)), desc_sw128(khi + kstep(kk, F_HALF)),
+                      kk);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss_n64(s, desc_sw128(qhi + kstep(kk, F_HALF)), desc_sw128(klo + kstep(kk, F_HALF)),
+                      1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss_n64(s, desc_sw128(qhi + kstep(kk, F_HALF)), desc_sw128(khi + kstep(kk, F_HALF)),
+                      1);
+  wg_commit();
+  wg_wait_all();
+  acc_fence<32>(s);
+
+  if (live) {
+    scale_mask64(s, k0, kfull, lv, causal, ra, rb, t, scale);
+    float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      ta = fmaxf(ta, fmaxf(s[4 * c], s[4 * c + 1]));
+      tb = fmaxf(tb, fmaxf(s[4 * c + 2], s[4 * c + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      ta = fmaxf(ta, __shfl_xor_sync(0xffffffffu, ta, off));
+      tb = fmaxf(tb, __shfl_xor_sync(0xffffffffu, tb, off));
+    }
+    // finite: the first key tile holds key 0, which every row sees
+    const float na = fmaxf(ma, ta), nb = fmaxf(mb, tb);
+    const float ca = __expf(ma - na), cb = __expf(mb - nb);
+    ma = na;
+    mb = nb;
+    float ea = 0.f, eb = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      s[4 * c] = __expf(s[4 * c] - na);
+      s[4 * c + 1] = __expf(s[4 * c + 1] - na);
+      s[4 * c + 2] = __expf(s[4 * c + 2] - nb);
+      s[4 * c + 3] = __expf(s[4 * c + 3] - nb);
+      ea += s[4 * c] + s[4 * c + 1];
+      eb += s[4 * c + 2] + s[4 * c + 3];
+    }
+    la = la * ca + ea;
+    lb = lb * cb + eb;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      o[4 * c] *= ca;
+      o[4 * c + 1] *= ca;
+      o[4 * c + 2] *= cb;
+      o[4 * c + 3] *= cb;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  }
+
+  constexpr int NC = 8 / F_PV_GROUPS;  // k8 chunks of keys a group
+#pragma unroll
+  for (int grp = 0; grp < F_PV_GROUPS; ++grp) {
+    uint32_t ph[NC][4], pl[NC][4];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const float* e = s + 4 * (grp * NC + i);
+      const float v[4] = {e[0], e[2], e[1], e[3]};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float hv = tf32_rna(v[x]);
+        ph[i][x] = __float_as_uint(hv);
+        pl[i][x] = __float_as_uint(tf32_rna(v[x] - hv));
+      }
+    }
+    acc_fence<32>(o);
+    reg_fence<4 * NC>(&ph[0][0]);
+    reg_fence<4 * NC>(&pl[0][0]);
+    wg_fence();
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      wgmma_tf32_rs_n64(o, pl[i], desc_sw128(vthi + kstep(grp * NC + i, F_HALF)), 1);
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      wgmma_tf32_rs_n64(o, ph[i], desc_sw128(vtlo + kstep(grp * NC + i, F_HALF)), 1);
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      wgmma_tf32_rs_n64(o, ph[i], desc_sw128(vthi + kstep(grp * NC + i, F_HALF)), 1);
+    wg_commit();
+    wg_wait_all();
+    acc_fence<32>(o);
+  }
+}
+
+// One block per (batch, head) pair, FWG warpgroups.  Shared memory (after a
+// pad to a 1024-byte boundary): per warpgroup its Q tile's tf32 hi and lo
+// (16 KB each), then one split key tile (K hi, K lo, V^T hi, V^T lo), then
+// the landing buffer of one raw K and V tile (32 KB), then the mbarriers.
+// Warpgroup w takes query tiles w, w + FWG, ... one round at a time (L <=
+// 256: one round); per round it loads its Q tile by TMA and splits it in
+// place.  Per key tile of the round (those its last query tile sees): the
+// block waits for the landing buffer, splits K into hi and lo and V into
+// the hi and lo of its transpose (all threads), and the landing buffer is
+// refilled with the next key tile at once, so the load runs under the
+// products; each warpgroup then runs attend_f32_tile on its query tile.
+// The split is paid once per key tile per round, whatever the number of
+// query tiles that read it.  At the end of a round each row's output is
+// o / sum (IEEE division), stored where the row exists.  Key tiles run in
+// order, so runs repeat their bits.
+__global__ void __launch_bounds__(FWG * 128, 1)
+attn_f32_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv, float* __restrict__ out,
+                      F32Shape sh) {
+  extern __shared__ unsigned char fsm_raw[];
+  unsigned char* sm = fsm_raw + ((1024u - (smem_u32(fsm_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t split = base + 2 * FWG * F_TILE;  // K hi, K lo, V^T hi, V^T lo
+  const uint32_t land = split + 4 * F_TILE;        // raw K, raw V
+  unsigned char* split_p = sm + 2 * FWG * F_TILE;
+  unsigned char* land_p = split_p + 4 * F_TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(land_p + 2 * F_TILE);  // [0] landing, [1 + w] Q
+
+  const int b = blockIdx.x / sh.heads, h = blockIdx.x % sh.heads;
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (tid / 32) & 3, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int L = sh.L, lv = min(sh.l_valid, L);
+  const bool causal = sh.causal != 0;
+  const int rounds = (sh.qtiles + FWG - 1) / FWG;
+  const uint32_t land_bar = smem_u32(&bars[0]), q_bar = smem_u32(&bars[1 + wg]);
+  const uint32_t qhi = base + wg * 2 * F_TILE;
+  float4* qhi_p = reinterpret_cast<float4*>(sm + wg * 2 * F_TILE);
+
+  // the key tiles round r streams: those its last query tile sees
+  auto round_tiles = [&](int r) {
+    const int last_q0 = (min((r + 1) * FWG, sh.qtiles) - 1) * LT;
+    return ((causal ? min(lv, last_q0 + LT) : lv) + LT - 1) / LT;
+  };
+  // thread 0's cursor: the next (round, key tile) to land
+  int ld_r = 0, ld_j = 0;
+  auto land_next = [&]() {
+    if (ld_r >= rounds) return;
+    mbar_expect_tx(land_bar, 2 * F_TILE);
+    load_tile_f32(land, &mk, land_bar, ld_j * LT, b, h);
+    load_tile_f32(land + F_TILE, &mv, land_bar, ld_j * LT, b, h);
+    if (++ld_j == round_tiles(ld_r)) {
+      ld_j = 0;
+      ++ld_r;
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= FWG; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    land_next();
+  }
+  __syncthreads();
+
+  float* out_bh = out + b * sh.osb + h * sh.osh;
+  int item = 0;  // key tiles landed so far: the landing buffer's phase
+  for (int r = 0; r < rounds; ++r) {
+    const int tq = r * FWG + wg;
+    const bool has = tq < sh.qtiles;  // uniform in the warpgroup
+    const int q0 = tq * LT;
+    if (has) {
+      if (r > 0) asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // Q read by all
+      if ((tid & 127) == 0) {
+        mbar_expect_tx(q_bar, F_TILE);
+        load_tile_f32(qhi, &mq, q_bar, q0, b, h);
+      }
+      mbar_wait_trap(q_bar, r & 1);
+      split_flat(qhi_p, qhi_p, qhi_p + F_TILE / 16, F_TILE / 16, tid & 127, 128);
+      fence_async_smem();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    // this warp's rows: a warp whose 16 rows all lie past L sees no key
+    const int r_lo = q0 + warp * 16;
+    const int ra = r_lo + g, rb = ra + 8;
+    const bool live = has && r_lo < L;
+    const int kfull = !live ? 0 : causal ? min(lv, r_lo + 1) : lv;  // keys every row sees
+    const int my_nt = !has ? 0 : ((causal ? min(lv, q0 + LT) : lv) + LT - 1) / LT;
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+    const int nkt = round_tiles(r);
+    for (int j = 0; j < nkt; ++j, ++item) {
+      __syncthreads();  // every warpgroup is done with the last split tile
+      mbar_wait_trap(land_bar, item & 1);
+      split_flat(reinterpret_cast<const float4*>(land_p), reinterpret_cast<float4*>(split_p),
+                 reinterpret_cast<float4*>(split_p + F_TILE), F_TILE / 16, tid, FWG * 128);
+      split_t64(land_p + F_TILE, split_p + 2 * F_TILE, split_p + 3 * F_TILE, tid, FWG * 128);
+      fence_async_smem();
+      __syncthreads();  // the split tile is whole; the landing buffer is free
+      if (tid == 0) land_next();
+      if (j < my_nt)
+        attend_f32_tile(o, ma, mb, la, lb, qhi, split, split + 2 * F_TILE, j * LT, kfull, lv,
+                        causal, live, ra, rb, t, sh.scale);
+    }
+    if (live) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        la += __shfl_xor_sync(0xffffffffu, la, off);
+        lb += __shfl_xor_sync(0xffffffffu, lb, off);
+      }
+      // chunk c holds columns 8c + 2t, + 1
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        if (ra < L)
+          *reinterpret_cast<float2*>(out_bh + ra * sh.osl + c * 8 + 2 * t) =
+              make_float2(__fdiv_rn(o[4 * c], la), __fdiv_rn(o[4 * c + 1], la));
+        if (rb < L)
+          *reinterpret_cast<float2*>(out_bh + rb * sh.osl + c * 8 + 2 * t) =
+              make_float2(__fdiv_rn(o[4 * c + 2], lb), __fdiv_rn(o[4 * c + 3], lb));
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(FTHREADS)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, Strides sq,
@@ -1095,25 +1522,28 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a strided bf16 [B, L, H, 64] view: dims (d, H, L, B),
-// innermost first, byte strides of H, L and B (a size-1 dimension gets the
-// stride it would have in a contiguous layout), box 64 x 1 x rows x 1 with
-// the 128-byte swizzle; rows past L read as zeros.
+// A 4-D map over a strided [B, L, H, 64] view, bf16 or (f32) f32: dims (d,
+// H, L, B), innermost first, byte strides of H, L and B (a size-1
+// dimension gets the stride it would have in a contiguous layout), box of
+// one 128-byte swizzle row (64 bf16 or 32 f32) x 1 x rows x 1 with the
+// 128-byte swizzle; rows past L read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, Strides st, int batch, int L, int heads,
-              int rows) {
+              int rows, bool f32 = false) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const long long elem_bytes = f32 ? 4 : 2;
   const long long sh = heads > 1 ? st.h : HD;
   const long long sl = L > 1 ? st.l : sh * heads;
   const long long sb = batch > 1 ? st.b : sl * L;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)L,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)HD, 1u, (cuuint32_t)rows, 1u};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem_bytes), (cuuint64_t)(sl * elem_bytes),
+                                 (cuuint64_t)(sb * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1u, (cuuint32_t)rows, 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1195,14 +1625,35 @@ int launch_long_bf16(const void* q, const void* k, const void* v, void* out, Str
   return (int)cudaGetLastError();
 }
 
+// The f32 path at head_dim 64, any L: one block of FWG warpgroups per
+// (batch, head) pair.
+int launch_f32_wgmma(const void* q, const void* k, const void* v, void* out, Strides sq,
+                     Strides sk, Strides sv, Strides so, int batch, int heads, int L,
+                     int l_valid, int causal, float scale, cudaStream_t stream) {
+  const F32Shape sh{heads, L, l_valid, causal, (L + LT - 1) / LT, scale, so.b, so.l, so.h};
+  const long long pairs = (long long)batch * heads;
+  if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, sq, batch, L, heads, LT, true) ||
+      !make_map(&mk, k, sk, batch, L, heads, LT, true) ||
+      !make_map(&mv, v, sv, batch, L, heads, LT, true))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_f32_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  attn_f32_wgmma_kernel<<<(unsigned)pairs, FWG * 128, F_SMEM, stream>>>(
+      mq, mk, mv, static_cast<float*>(out), sh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, out: [batch, L, heads, hd] with element strides (b, l, h) each and
 // the last dimension contiguous; bf16 or f32 (is_bf16), 1 <= l_valid.
-// L <= 256: bf16 takes hd == 64 with every stride and base 16-byte aligned
-// (the wgmma path), f32 any hd whose rows fit in shared memory.  L > 256
-// (the long paths): bf16 at hd == 64, aligned as above, takes the wgmma
-// long path; f32, and bf16 at another hd, the SIMT long path, hd <= 256.
+// hd == 64 with every stride and base 16-byte aligned: bf16 the wgmma
+// path (L <= 256) or the wgmma long path, f32 the three-pass TF32 kernel
+// at any L.  Another hd: f32 at L <= 256 any hd whose rows fit in shared
+// memory (SIMT); past L 256, f32 and bf16 the SIMT long path, hd <= 256.
 // Launches on `stream` and returns the CUDA error code
 // (cudaErrorInvalidValue for a shape no path takes).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out,
@@ -1213,6 +1664,9 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                              int causal, float scale, cudaStream_t stream) {
   if (batch < 1 || heads < 1 || L < 1 || l_valid < 1) return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsl, qsh}, sk{ksb, ksl, ksh}, sv{vsb, vsl, vsh}, so{osb, osl, osh};
+  if (!is_bf16 && hd == HD)
+    return launch_f32_wgmma(q, k, v, out, sq, sk, sv, so, batch, heads, L, l_valid, causal, scale,
+                            stream);
   if (L > SHORT_MAX_L) {
     if (is_bf16 && hd == HD)
       return launch_long_bf16(q, k, v, out, sq, sk, sv, so, batch, heads, L, l_valid, causal,

@@ -68,12 +68,48 @@
 // finite statistics (max 0, sum l_valid, D 0), so their terms are exactly
 // 0.  A key tile wholly past l_valid visits no query tile and stores zeros.
 //
-// f32 (the --bf16 0 training path), L <= 256, head_dim <= 128: no
-// tensor-core path keeps f32 products exact (the forward's rule too), so
-// two SIMT kernels: attn_bwd_dq_simt_kernel, one block per 32-query tile
-// (score and dP rows against every key, row statistics, dS, dQ = dS . K),
-// and attn_bwd_dkv_simt_kernel, one block per 32-key tile (p and dS
-// recomputed by the same instructions, dV, dK), fmaf products in f32.
+// f32 at head_dim 64 (the end-to-end NCD baselines, metric_learn --bf16
+// 0), any L >= 1: two kernels on the bf16 kernels' plan, on wgmma .tf32
+// fed by TMA, with each f32 product three TF32 products of hi / lo halves
+// summed in f32, as the forward's f32 kernel runs them (csrc/attention.cu
+// says why: split-bf16 products miss the f32 tolerance where the softmax
+// is sharp): hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), a . b =
+// a_lo . b_hi + a_hi . b_lo (issued first) + a_hi . b_hi.  Everything
+// else is the contract above: p = exp(s - max) / sum (the correctly
+// rounded quotient), its rounding to T and dP's the identity, every sum
+// in f32, no atomics, dK = dV = 0 past l_valid.  What bounds it: at B 128,
+// L 197, H 12 the bytes (4-byte elements) are 542 MB, 0.162 ms at 3.35
+// TB/s, and the five products at three TF32 passes 114 GFLOP, 0.231 ms at
+// 495 TFLOP/s: the products.  `.tf32` wgmma has no transpose bit, so every
+// operand is K-major over the reduced axis: S, S^T, dP and dP^T take
+// q, k, v and dO as they land (d contiguous), while dQ = dS . K, dV =
+// P^T . dO and dK = dS^T . Q need K, dO and Q transposed, rows permuted
+// inside each 8 to the order in which the accumulator hands a thread its
+// columns (2t, 2t + 1 where a k8 A fragment takes t, t + 4).  f32 halves
+// double the bytes of every staged tile, so each block has two warpgroups
+// that share one split copy of each streamed unit of 32 rows, and the
+// resident tiles (64 KB a warpgroup) leave room for one block an SM.
+//   1. attn_bwd_dq_f32_kernel, one block per (batch, head, pair of
+//      64-query tiles): Q and dO split once and held as A fragments in
+//      registers (218 registers a thread: with both operands in shared
+//      memory the m64n32 products read 3 KB a 16-cycle step, more than
+//      shared memory gives; 0.92 -> 0.82 ms at B 128 · L 197 on an H100);
+//      K and V stream in units of 32 keys through one landing buffer,
+//      twice, each unit split by the block (sweep 2: K^T too) as the next
+//      one lands.
+//      Sweep 1: S and dP (m64n32), the online max, sum and sum of e * dP;
+//      sweep 2: p, dS = p * (dP - D) split in its registers, dQ += dS . K.
+//   2. attn_bwd_dkv_f32_kernel, one block per (batch, head, pair of
+//      64-key tiles): K and V resident; Q and dO stream in units of 32
+//      queries with their rows' statistics, split into hi / lo and into
+//      their transposes; S^T and dP^T (m64n32), P^T and dS^T split in
+//      registers, dV += P^T . dO, dK += dS^T . Q.
+//
+// f32 at another head_dim <= 128, L <= 256: two SIMT kernels with f32
+// products kept exact: attn_bwd_dq_simt_kernel, one block per 32-query
+// tile (score and dP rows against every key, row statistics, dS, dQ =
+// dS . K), and attn_bwd_dkv_simt_kernel, one block per 32-key tile (p and
+// dS recomputed by the same instructions, dV, dK), fmaf products in f32.
 // bf16 at another head_dim, and f32 past those limits, are refused.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
@@ -194,6 +230,15 @@ __device__ __forceinline__ void reg_fence(T* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&r[i]))::"memory");
 }
 
+// the same for f32 accumulators, bound as floats: a "+r" binding moves
+// each value through an integer register, and ptxas counts those moves as
+// reads of the accumulator inside the pipeline and serializes the wgmma
+template <int N>
+__device__ __forceinline__ void acc_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
 // Shared-memory operand descriptor of rows of 128 bytes with the 128-byte
 // swizzle (what TMA writes): start address >> 4, LBO 1 (unused), 8-row
 // groups 1024 bytes apart (SBO), layout type 1 (128B swizzle).  It serves a
@@ -312,15 +357,17 @@ __device__ __forceinline__ void merge_state(float& m, float& sum, float& wsum, f
   m = mn;
 }
 
-// The scaled scores of one 64-key tile starting at key k0, keys >= lv at
-// -inf.  Thread (lane 4g + t) holds rows g (s[4c], s[4c + 1]) and g + 8
-// (s[4c + 2], s[4c + 3]) of its warp's 16 at keys k0 + 8c + 2t + {0, 1}.
+// The scaled scores of one tile of 8 NC keys (64 by default) starting at
+// key k0, keys >= lv at -inf.  Thread (lane 4g + t) holds rows g (s[4c],
+// s[4c + 1]) and g + 8 (s[4c + 2], s[4c + 3]) of its warp's 16 at keys
+// k0 + 8c + 2t + {0, 1}.
 // A masked score is 1 * -inf: the mask picks the operands of the one
 // multiply (a select of the result, or a branch around the masking, has
 // ptxas serialize the wgmma that wrote s, C7514).
+template <int NC = 8>
 __device__ __forceinline__ void scale_mask(float* s, int k0, int lv, int t, float scale) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool keep = k0 + c * 8 + 2 * t + e < lv;
@@ -650,24 +697,28 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a strided bf16 [B, L, H, 64] view: dims (d, H, L, B),
+// A 4-D map over a strided [B, L, H, 64] view: dims (d, H, L, B),
 // innermost first, byte strides of H, L and B (a size-1 dimension gets the
-// stride it would have in a contiguous layout), box 64 x 1 x 64 x 1 with the
-// 128-byte swizzle; rows past L read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, Strides st, int batch, int L, int heads) {
+// stride it would have in a contiguous layout), the 128-byte swizzle, rows
+// past L read as zeros.  bf16: box 64 x 1 x 64 x 1; f32: box 32 x 1 x 32 x
+// 1 (a 128-byte row of 32 columns by 32 rows).
+bool make_map(CUtensorMap* map, const void* ptr, Strides st, int batch, int L, int heads,
+              bool f32 = false) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const long long elem_bytes = f32 ? 4 : 2;
   const long long sh = heads > 1 ? st.h : HD;
   const long long sl = L > 1 ? st.l : sh * heads;
   const long long sb = batch > 1 ? st.b : sl * L;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)L,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)HD, 1u, (cuuint32_t)TR, 1u};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem_bytes), (cuuint64_t)(sl * elem_bytes),
+                                 (cuuint64_t)(sb * elem_bytes)};
+  const cuuint32_t box[4] = {f32 ? 32u : (cuuint32_t)HD, 1u, f32 ? 32u : (cuuint32_t)TR, 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -699,7 +750,630 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, v
   return (int)cudaGetLastError();
 }
 
-// ---- the f32 path: SIMT, L <= 256, head_dim <= 128
+// ---- the f32 path at head_dim 64, any L: three TF32 passes on wgmma fed by TMA
+
+constexpr int FU = 32;                      // rows of a streamed unit (keys, then queries)
+constexpr int F_ROW = 128;                  // a 32-wide f32 atom row: the swizzle span
+constexpr int F_THALF = TR * F_ROW;         // a tile's atom column [64 rows][32]: 8 KB
+constexpr int F_TILE = 2 * F_THALF;         // a [64 rows][64] f32 tile: 16 KB
+constexpr int F_UHALF = FU * F_ROW;         // a unit's atom column [32 rows][32]: 4 KB
+constexpr int F_UNIT = 2 * F_UHALF;         // a [32 rows][64] f32 unit: 8 KB
+constexpr int F_UT = TR * F_ROW;            // a unit's transpose [64][32 rows]: 8 KB
+constexpr int FWGS = 2;                     // warpgroups a block
+constexpr int FTHR = FWGS * 128;
+constexpr int F_STATS = FU * 16;            // a unit's row statistics: 32 float4
+// after the 1024-byte pad: per warpgroup four resident tiles, the split
+// unit, the landing buffer, the mbarriers
+constexpr int FDQ_SMEM = 1024 + FWGS * 4 * F_TILE + 4 * F_UNIT + 2 * F_UT + 2 * F_UNIT + 64;
+constexpr int FDKV_SMEM = 1024 + FWGS * 4 * F_TILE + 4 * F_UNIT + 4 * F_UT + 2 * F_UNIT +
+                          2 * F_STATS + 64;
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero (cvt.rna.tf32.f32), in f32 bits with the low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// shared-memory writes of the generic proxy made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The byte offset of k8 step kk in a K-major operand 64 deep: two atom
+// columns `half` bytes apart, 32 bytes (8 f32) a step inside each
+__device__ __forceinline__ uint32_t kstep(int kk, uint32_t half) {
+  return (kk >> 2) * half + (kk & 3) * 32;
+}
+
+// x -> (tf32 hi, tf32 lo) over n float4 of one layout; hi may be x
+__device__ __forceinline__ void split_flat(const float4* x, float4* hi, float4* lo, int n, int tid,
+                                           int nthr) {
+  for (int i = tid; i < n; i += nthr) {
+    const float4 v = x[i];
+    const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+    lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y), tf32_rna(v.z - h.z),
+                        tf32_rna(v.w - h.w));
+    hi[i] = h;
+  }
+}
+
+// A [32 rows][64] f32 unit as TMA lands it (two swizzled atom columns) ->
+// the tf32 hi and lo of its transpose, [64][32 rows] K-major over the rows
+// (one atom column), the rows permuted inside each 8: column 8c + j holds
+// row 8c + 2j (j < 4) or 8c + 2j - 7 (j >= 4), the order in which a wgmma
+// accumulator hands a thread its columns (2t and 2t + 1 where a k8 A
+// fragment takes t and t + 4).  A sum over the rows does not see the
+// order.  Lanes take consecutive output rows: reads of one source row hit
+// 32 banks, writes fill 4 wavefronts.
+__device__ __forceinline__ void split_t32(const unsigned char* raw, unsigned char* hi,
+                                          unsigned char* lo, int tid, int nthr) {
+  for (int i = tid; i < 16 * FU; i += nthr) {
+    const int d = i & 63, q4 = i >> 6;        // output row d, float4 column q4
+    const int r0 = 8 * (q4 >> 1) + (q4 & 1);  // source rows r0, + 2, + 4, + 6
+    const unsigned char* col = raw + (d >> 5) * F_UHALF + (d & 3) * 4;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 2 * e;
+      v[e] = *reinterpret_cast<const float*>(col + r * F_ROW + ((((d & 31) >> 2) ^ (r & 7)) << 4));
+    }
+    const float4 h = make_float4(tf32_rna(v[0]), tf32_rna(v[1]), tf32_rna(v[2]), tf32_rna(v[3]));
+    const float4 l = make_float4(tf32_rna(v[0] - h.x), tf32_rna(v[1] - h.y),
+                                 tf32_rna(v[2] - h.z), tf32_rna(v[3] - h.w));
+    const int off = d * F_ROW + ((q4 ^ (d & 7)) << 4);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// Rows [row0, row0 + n) (n 32 or 64) of (b, h) of an f32 [B, L, H, 64] view
+// into dst as two atom columns n * 128 bytes apart: boxes of 32 x 32 (one
+// thread; the caller arms the mbarrier)
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const CUtensorMap* m, uint32_t bar,
+                                              int row0, int n, int b, int h) {
+  for (int rr = 0; rr < n; rr += FU)
+#pragma unroll
+    for (int dh = 0; dh < 2; ++dh)
+      tma_load_4d(dst + dh * n * F_ROW + rr * F_ROW, m, bar, 32 * dh, h, row0 + rr, b);
+}
+
+// X = A . B^T over d, three TF32 passes (a_lo.b_hi and a_hi.b_lo over the
+// eight k8 steps, then a_hi.b_hi): A a resident [64][64] tile, B a [32][64]
+// unit, each with its lo `lo` bytes after its hi; wgmma m64n32k8, both
+// K-major from shared memory.  The caller fences, commits and waits.
+__device__ __forceinline__ void products3_n32(float* x, uint32_t a_hi, uint32_t b_hi,
+                                              uint32_t b_lo) {
+  const uint32_t a_lo = a_hi + F_TILE;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss_n32(x, desc_sw128(a_lo + kstep(kk, F_THALF)),
+                      desc_sw128(b_hi + kstep(kk, F_UHALF)), kk);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss_n32(x, desc_sw128(a_hi + kstep(kk, F_THALF)),
+                      desc_sw128(b_lo + kstep(kk, F_UHALF)), 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss_n32(x, desc_sw128(a_hi + kstep(kk, F_THALF)),
+                      desc_sw128(b_hi + kstep(kk, F_UHALF)), 1);
+}
+
+// The k8 A fragments of a resident split [64][64] tile (hi at `hi`, lo
+// F_TILE after) for this warp's 16 rows: step kk holds rows g and g + 8 at
+// columns 8 kk + t and 8 kk + t + 4 (a0 .. a3: (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4))
+__device__ __forceinline__ void tile_frags(const unsigned char* hi, uint32_t (&fh)[8][4],
+                                           uint32_t (&fl)[8][4], int warp, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = 16 * warp + g + 8 * (x & 1), c = 8 * kk + t + 4 * (x >> 1);
+      const int off = (c >> 5) * F_THALF + r * F_ROW + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
+                      (c & 3) * 4;
+      fh[kk][x] = *reinterpret_cast<const uint32_t*>(hi + off);
+      fl[kk][x] = *reinterpret_cast<const uint32_t*>(hi + F_TILE + off);
+    }
+}
+
+// X = A . B^T over d, three TF32 passes (a_lo.b_hi and a_hi.b_lo over the
+// eight k8 steps, then a_hi.b_hi): A from registers (tile_frags), B a
+// [32][64] unit K-major in shared memory (hi at b_hi, lo at b_lo); wgmma
+// m64n32k8.  The caller fences, commits and waits.
+__device__ __forceinline__ void rs_scores3_n32(float* x, const uint32_t (&ah)[8][4],
+                                               const uint32_t (&al)[8][4], uint32_t b_hi,
+                                               uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_rs_n32(x, al[kk], desc_sw128(b_hi + kstep(kk, F_UHALF)), kk);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_rs_n32(x, ah[kk], desc_sw128(b_lo + kstep(kk, F_UHALF)), 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_rs_n32(x, ah[kk], desc_sw128(b_hi + kstep(kk, F_UHALF)), 1);
+}
+
+// acc += A . B^T over a unit's 32 rows: A from registers (the tf32 hi and
+// lo of each k8 piece), B a [64][32] transposed unit (hi, lo `F_UT` bytes
+// after); lo.hi and hi.lo first, then hi.hi.  `first` overwrites acc.
+__device__ __forceinline__ void rs_products3(float* acc, const uint32_t (&ah)[4][4],
+                                             const uint32_t (&al)[4][4], uint32_t b_hi,
+                                             bool first) {
+  const uint32_t b_lo = b_hi + F_UT;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    wgmma_tf32_rs_n64(acc, al[c], desc_sw128(b_hi + 32 * c), !(first && c == 0));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) wgmma_tf32_rs_n64(acc, ah[c], desc_sw128(b_lo + 32 * c), 1);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) wgmma_tf32_rs_n64(acc, ah[c], desc_sw128(b_hi + 32 * c), 1);
+}
+
+// The A fragments of an m64n32 accumulator x as a k8-by-4 operand: piece c
+// holds columns 8c + 2t (as the fragment's t) and 8c + 2t + 1 (as t + 4) of
+// rows g and g + 8, split into tf32 hi and lo
+__device__ __forceinline__ void a_frags(const float* x, uint32_t (&ah)[4][4],
+                                        uint32_t (&al)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float v[4] = {x[4 * c], x[4 * c + 2], x[4 * c + 1], x[4 * c + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float hv = tf32_rna(v[e]);
+      ah[c][e] = __float_as_uint(hv);
+      al[c][e] = __float_as_uint(tf32_rna(v[e] - hv));
+    }
+  }
+}
+
+// Kernel 1, f32: dQ and the row statistics.  One block per (batch, head,
+// pair of 64-query tiles), warpgroup w on tile 2 p + w: its Q and dO tiles
+// loaded once by TMA, split in place into tf32 hi and lo (64 KB a
+// warpgroup) and read into A fragments, which stay in registers for the
+// whole kernel (S and dP take A from registers).  The keys stream in units
+// of 32 through one landing
+// buffer, twice (sweep 1 then sweep 2); per unit the block splits K and V
+// into hi and lo (sweep 2: and K's transpose, for dQ += dS . K) and the
+// landing buffer takes the next unit at once.  Sweep 1: S = Q . K^T and
+// dP = dO . V^T (m64n32, three passes each), the online max, sum and
+// sum of e * dP per thread, merged over the row's four threads at the end:
+// (max, sum, 1 / sum, D) to the caller's scratch.  Sweep 2: S and dP
+// again, p = quot(exp(s - max), sum), dS = p * (dP - D), split into tf32
+// hi and lo in the accumulator's registers, dQ += dS . K.
+__global__ void __launch_bounds__(FTHR, 1)
+attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                       float* __restrict__ dq, float4* __restrict__ stats, Strides sdq, Shape sh,
+                       int tpairs) {
+  extern __shared__ unsigned char fsm_raw[];
+  unsigned char* sm = fsm_raw + ((1024u - (smem_u32(fsm_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (tid / 32) & 3, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // per warpgroup: Q hi, Q lo, dO hi, dO lo; the unit: K hi, K lo, V hi,
+  // V lo, K^T hi, K^T lo; the landing buffer: K, V
+  const uint32_t mine = base + wg * 4 * F_TILE;
+  const uint32_t unit = base + FWGS * 4 * F_TILE;
+  const uint32_t kt_hi = unit + 4 * F_UNIT;
+  unsigned char* unit_p = sm + FWGS * 4 * F_TILE;
+  unsigned char* land_p = unit_p + 4 * F_UNIT + 2 * F_UT;
+  const uint32_t land = unit + 4 * F_UNIT + 2 * F_UT;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(land_p + 2 * F_UNIT);  // [0] landing, [1 + w]
+  const uint32_t land_bar = smem_u32(&bars[0]), mine_bar = smem_u32(&bars[1 + wg]);
+
+  const int tp = blockIdx.x % tpairs, bh = blockIdx.x / tpairs;
+  const int b = bh / sh.heads, h = bh % sh.heads;
+  const int tq = 2 * tp + wg, q0 = tq * TR;
+  const bool has = tq < sh.tiles;  // uniform in the warpgroup
+  const int lv = sh.lv;
+  const int nu = (lv + FU - 1) / FU;  // key units with a valid key
+  int ld = 0;                         // thread 0: the next item to land (unit ld % nu)
+  auto land_next = [&]() {
+    if (ld >= 2 * nu) return;
+    const int row0 = (ld % nu) * FU;
+    mbar_expect_tx(land_bar, 2 * F_UNIT);
+    load_rows_f32(land, &mk, land_bar, row0, FU, b, h);
+    load_rows_f32(land + F_UNIT, &mv, land_bar, row0, FU, b, h);
+    ++ld;
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= FWGS; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    land_next();
+  }
+  __syncthreads();
+  if (has) {
+    if ((tid & 127) == 0) {
+      mbar_expect_tx(mine_bar, 2 * F_TILE);
+      load_rows_f32(mine, &mq, mine_bar, q0, TR, b, h);
+      load_rows_f32(mine + 2 * F_TILE, &mo, mine_bar, q0, TR, b, h);
+    }
+    mbar_wait(mine_bar, 0);
+    float4* mp = reinterpret_cast<float4*>(sm + wg * 4 * F_TILE);
+    split_flat(mp, mp, mp + F_TILE / 16, F_TILE / 16, tid & 127, 128);
+    split_flat(mp + 2 * F_TILE / 16, mp + 2 * F_TILE / 16, mp + 3 * F_TILE / 16, F_TILE / 16,
+               tid & 127, 128);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  // Q and dO as A fragments in registers for the whole kernel: S and dP
+  // read only K and V from shared memory
+  uint32_t qh[8][4], ql[8][4], oh[8][4], ol[8][4];
+  tile_frags(sm + wg * 4 * F_TILE, qh, ql, warp, g, t);
+  tile_frags(sm + wg * 4 * F_TILE + 2 * F_TILE, oh, ol, warp, g, t);
+  const uint32_t k_hi = unit, v_hi = unit + 2 * F_UNIT;
+
+  // one landed unit into the split unit, by the block; the landing buffer
+  // then takes the next item
+  auto take_unit = [&](int item, bool transpose) {
+    __syncthreads();  // every warpgroup is done with the last split unit
+    mbar_wait(land_bar, item & 1);
+    const float4* lk = reinterpret_cast<const float4*>(land_p);
+    float4* up = reinterpret_cast<float4*>(unit_p);
+    split_flat(lk, up, up + F_UNIT / 16, F_UNIT / 16, tid, FTHR);
+    split_flat(lk + F_UNIT / 16, up + 2 * F_UNIT / 16, up + 3 * F_UNIT / 16, F_UNIT / 16, tid,
+               FTHR);
+    if (transpose) split_t32(land_p, unit_p + 4 * F_UNIT, unit_p + 4 * F_UNIT + F_UT, tid, FTHR);
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0) land_next();
+  };
+
+  // ---- sweep 1: per row (a: g, b: g + 8 of the warp's 16) the max, the sum
+  // of e = exp(s - max) and the sum of e * dP, online
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, ua = 0.f, ub = 0.f;
+  for (int u = 0; u < nu; ++u) {
+    take_unit(u, false);
+    if (has) {
+      uint32_t ka = k_hi, va = v_hi;
+      asm volatile("" : "+r"(ka), "+r"(va));  // descriptors formed here
+      float s[16], dp[16];
+      wg_fence();
+      rs_scores3_n32(s, qh, ql, ka, ka + F_UNIT);
+      rs_scores3_n32(dp, oh, ol, va, va + F_UNIT);
+      wg_commit();
+      wg_wait_all();
+      acc_fence<16>(s);
+      acc_fence<16>(dp);
+      scale_mask<4>(s, u * FU, lv, t, sh.scale);
+      float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        ta = fmaxf(ta, fmaxf(s[4 * c], s[4 * c + 1]));
+        tb = fmaxf(tb, fmaxf(s[4 * c + 2], s[4 * c + 3]));
+      }
+      const float na = fmaxf(ma, ta), nb = fmaxf(mb, tb);
+      const float za = na == -INFINITY ? 0.f : na, zb = nb == -INFINITY ? 0.f : nb;
+      float ea = 0.f, eb = 0.f, wa = 0.f, wb = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float xa = __expf(s[4 * c + e] - za), xb = __expf(s[4 * c + 2 + e] - zb);
+          ea += xa;
+          eb += xb;
+          wa = fmaf(xa, dp[4 * c + e], wa);
+          wb = fmaf(xb, dp[4 * c + 2 + e], wb);
+        }
+      const float ca = __expf(ma - za), cb = __expf(mb - zb);
+      la = la * ca + ea;
+      ua = ua * ca + wa;
+      lb = lb * cb + eb;
+      ub = ub * cb + wb;
+      ma = na;
+      mb = nb;
+    }
+  }
+  // the row's four threads; every row sees key 0, so its max is finite (a
+  // row past L has q = 0: max 0, sum lv, D 0)
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    merge_state(ma, la, ua, __shfl_xor_sync(0xffffffffu, ma, off),
+                __shfl_xor_sync(0xffffffffu, la, off), __shfl_xor_sync(0xffffffffu, ua, off));
+    merge_state(mb, lb, ub, __shfl_xor_sync(0xffffffffu, mb, off),
+                __shfl_xor_sync(0xffffffffu, lb, off), __shfl_xor_sync(0xffffffffu, ub, off));
+  }
+  const float ia = __frcp_rn(la), ib = __frcp_rn(lb);
+  const float da = __fdiv_rn(ua, la), db = __fdiv_rn(ub, lb);
+  const int ra = 16 * warp + g, rb = ra + 8;  // rows in the tile
+  if (has && t == 0) {
+    float4* out = stats + ((long long)bh * sh.tiles + tq) * TR;
+    out[ra] = make_float4(ma, la, ia, da);
+    out[rb] = make_float4(mb, lb, ib, db);
+  }
+
+  // ---- sweep 2: p, dS = p * (dP - D), dQ += dS . K
+  float acc[32];
+  for (int u = 0; u < nu; ++u) {
+    take_unit(nu + u, true);
+    if (has) {
+      uint32_t ka = k_hi, va = v_hi, kta = kt_hi;
+      asm volatile("" : "+r"(ka), "+r"(va), "+r"(kta));
+      float s[16], dp[16];
+      wg_fence();
+      rs_scores3_n32(s, qh, ql, ka, ka + F_UNIT);
+      rs_scores3_n32(dp, oh, ol, va, va + F_UNIT);
+      wg_commit();
+      wg_wait_all();
+      acc_fence<16>(s);
+      acc_fence<16>(dp);
+      scale_mask<4>(s, u * FU, lv, t, sh.scale);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const bool row_b = e & 2;  // elements 2, 3 of each 4 are row g + 8
+        const float p = row_b ? quot(__expf(__fsub_rn(s[e], mb)), lb, ib)
+                              : quot(__expf(__fsub_rn(s[e], ma)), la, ia);
+        s[e] = __fmul_rn(p, __fsub_rn(dp[e], row_b ? db : da));
+      }
+      uint32_t dh[4][4], dl[4][4];
+      a_frags(s, dh, dl);
+      reg_fence<16>(&dh[0][0]);
+      reg_fence<16>(&dl[0][0]);
+      wg_fence();
+      rs_products3(acc, dh, dl, kta, u == 0);
+      wg_commit();
+      wg_wait_all();
+      acc_fence<32>(acc);
+    }
+  }
+
+  // ---- store the rows that exist: chunk c holds columns 8c + 2t, + 1
+  if (has) {
+    float* out = dq + b * sdq.b + h * sdq.h;
+    const int qa = q0 + ra, qb = q0 + rb;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      if (qa < sh.L)
+        *reinterpret_cast<float2*>(out + qa * sdq.l + c * 8 + 2 * t) =
+            make_float2(__fmul_rn(acc[4 * c], sh.scale), __fmul_rn(acc[4 * c + 1], sh.scale));
+      if (qb < sh.L)
+        *reinterpret_cast<float2*>(out + qb * sdq.l + c * 8 + 2 * t) =
+            make_float2(__fmul_rn(acc[4 * c + 2], sh.scale), __fmul_rn(acc[4 * c + 3], sh.scale));
+    }
+  }
+}
+
+// Kernel 2, f32: dK and dV.  One block per (batch, head, pair of 64-key
+// tiles), warpgroup w on key tile 2 p + w: its K and V tiles loaded once by
+// TMA and split in place into tf32 hi and lo.  The queries stream in units
+// of 32 with their rows' statistics (one 512-byte bulk copy) through one
+// landing buffer; per unit the block splits Q and dO into hi and lo and
+// into the hi and lo of their transposes (for dK += dS^T . Q and dV +=
+// P^T . dO), copies the statistics, and the landing buffer takes the next
+// unit at once.  Per unit: S^T = K . Q^T and dP^T = V . dO^T (m64n32, three
+// passes each); P^T and dS^T from the statistics, split into tf32 hi and
+// lo in the accumulator's registers; dV += P^T . dO and dK += dS^T . Q.
+// A thread holds keys k0 + 16 warp + g (a) and + 8 (b) against queries
+// 8c + 2t + {0, 1} of the unit.
+__global__ void __launch_bounds__(FTHR, 1)
+attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                        const float4* __restrict__ stats, float* __restrict__ dk,
+                        float* __restrict__ dv, Strides sdk, Strides sdv, Shape sh, int tpairs) {
+  extern __shared__ unsigned char fsm_raw[];
+  unsigned char* sm = fsm_raw + ((1024u - (smem_u32(fsm_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, (tid / 32) & 3, 0);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // per warpgroup: K hi, K lo, V hi, V lo; the unit: Q hi, Q lo, dO hi,
+  // dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo; the landing buffer: Q, dO;
+  // the landed statistics, the unit's statistics
+  const uint32_t mine = base + wg * 4 * F_TILE;
+  const uint32_t unit = base + FWGS * 4 * F_TILE;
+  const uint32_t qt_hi = unit + 4 * F_UNIT, ot_hi = qt_hi + 2 * F_UT;
+  const uint32_t land = unit + 4 * F_UNIT + 4 * F_UT;
+  unsigned char* unit_p = sm + FWGS * 4 * F_TILE;
+  unsigned char* land_p = unit_p + 4 * F_UNIT + 4 * F_UT;
+  const float4* land_stats = reinterpret_cast<const float4*>(land_p + 2 * F_UNIT);
+  float4* ustats = reinterpret_cast<float4*>(land_p + 2 * F_UNIT + F_STATS);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(land_p + 2 * F_UNIT + 2 * F_STATS);
+  const uint32_t land_bar = smem_u32(&bars[0]), mine_bar = smem_u32(&bars[1 + wg]);
+
+  const int tp = blockIdx.x % tpairs, bh = blockIdx.x / tpairs;
+  const int b = bh / sh.heads, h = bh % sh.heads;
+  const int kt = 2 * tp + wg, k0 = kt * TR;
+  const int lv = sh.lv;
+  const bool has = kt < sh.tiles && k0 < lv;  // a key tile with a valid key
+  // the first tile of the pair has a valid key: the block visits every
+  // query unit (rows past L are zeros from TMA and add exactly 0)
+  const int nu = 2 * tp * TR < lv ? (sh.L + FU - 1) / FU : 0;
+  const float4* stats_bh = stats + (long long)bh * sh.tiles * TR;
+  int ld = 0;  // thread 0: the next unit to land
+  auto land_next = [&]() {
+    if (ld >= nu) return;
+    mbar_expect_tx(land_bar, 2 * F_UNIT + F_STATS);
+    load_rows_f32(land, &mq, land_bar, ld * FU, FU, b, h);
+    load_rows_f32(land + F_UNIT, &mo, land_bar, ld * FU, FU, b, h);
+    bulk_load(land + 2 * F_UNIT, stats_bh + ld * FU, F_STATS, land_bar);
+    ++ld;
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= FWGS; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    land_next();
+  }
+  __syncthreads();
+  if (has) {
+    if ((tid & 127) == 0) {
+      mbar_expect_tx(mine_bar, 2 * F_TILE);
+      load_rows_f32(mine, &mk, mine_bar, k0, TR, b, h);
+      load_rows_f32(mine + 2 * F_TILE, &mv, mine_bar, k0, TR, b, h);
+    }
+    mbar_wait(mine_bar, 0);
+    float4* mp = reinterpret_cast<float4*>(sm + wg * 4 * F_TILE);
+    split_flat(mp, mp, mp + F_TILE / 16, F_TILE / 16, tid & 127, 128);
+    split_flat(mp + 2 * F_TILE / 16, mp + 2 * F_TILE / 16, mp + 3 * F_TILE / 16, F_TILE / 16,
+               tid & 127, 128);
+    fence_async_smem();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  const uint32_t k_hi = mine, v_hi = mine + 2 * F_TILE;
+  const uint32_t q_hi = unit, o_hi = unit + 2 * F_UNIT;
+  const int ra = 16 * warp + g, rb = ra + 8;  // keys in the tile
+  const bool keep_a = k0 + ra < lv, keep_b = k0 + rb < lv;
+
+  float adk[32], adv[32];
+  for (int u = 0; u < nu; ++u) {
+    __syncthreads();  // every warpgroup is done with the last split unit
+    mbar_wait(land_bar, u & 1);
+    {
+      const float4* lq = reinterpret_cast<const float4*>(land_p);
+      float4* up = reinterpret_cast<float4*>(unit_p);
+      split_flat(lq, up, up + F_UNIT / 16, F_UNIT / 16, tid, FTHR);
+      split_flat(lq + F_UNIT / 16, up + 2 * F_UNIT / 16, up + 3 * F_UNIT / 16, F_UNIT / 16, tid,
+                 FTHR);
+      split_t32(land_p, unit_p + 4 * F_UNIT, unit_p + 4 * F_UNIT + F_UT, tid, FTHR);
+      split_t32(land_p + F_UNIT, unit_p + 4 * F_UNIT + 2 * F_UT, unit_p + 4 * F_UNIT + 3 * F_UT,
+                tid, FTHR);
+      if (tid < FU) ustats[tid] = land_stats[tid];
+    }
+    fence_async_smem();
+    __syncthreads();  // the split unit is whole; the landing buffer is free
+    if (tid == 0) land_next();
+    if (has) {
+      uint32_t ka = k_hi, va = v_hi, qa = q_hi, oa = o_hi, qta = qt_hi, ota = ot_hi;
+      asm volatile("" : "+r"(ka), "+r"(va), "+r"(qa), "+r"(oa), "+r"(qta), "+r"(ota));
+      float s[16], dp[16];
+      wg_fence();
+      products3_n32(s, ka, qa, qa + F_UNIT);
+      products3_n32(dp, va, oa, oa + F_UNIT);
+      wg_commit();
+      wg_wait_all();
+      acc_fence<16>(s);
+      acc_fence<16>(dp);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // query 8c + 2t + e of the unit: (max, sum, 1 / sum, D)
+          const float4 r = ustats[8 * c + 2 * t + e];
+          const int ia = 4 * c + e, ib = ia + 2;  // keys a, b
+          const float pa = keep_a ? prob(s[ia], r, sh.scale) : 0.f;
+          const float pb = keep_b ? prob(s[ib], r, sh.scale) : 0.f;
+          s[ia] = pa;
+          s[ib] = pb;
+          dp[ia] = __fmul_rn(pa, __fsub_rn(dp[ia], r.w));
+          dp[ib] = __fmul_rn(pb, __fsub_rn(dp[ib], r.w));
+        }
+      uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+      a_frags(s, ph, pl);
+      a_frags(dp, dh, dl);
+      reg_fence<16>(&ph[0][0]);
+      reg_fence<16>(&pl[0][0]);
+      reg_fence<16>(&dh[0][0]);
+      reg_fence<16>(&dl[0][0]);
+      wg_fence();
+      rs_products3(adv, ph, pl, ota, u == 0);
+      rs_products3(adk, dh, dl, qta, u == 0);
+      wg_commit();
+      wg_wait_all();
+      acc_fence<32>(adv);
+      acc_fence<32>(adk);
+    }
+  }
+
+  // ---- store the keys that exist; keys past l_valid get zeros
+  if (kt < sh.tiles) {
+    float* ok = dk + b * sdk.b + h * sdk.h;
+    float* ov = dv + b * sdv.b + h * sdv.h;
+    const int ka = k0 + ra, kb = k0 + rb;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      if (ka < sh.L) {
+        *reinterpret_cast<float2*>(ok + ka * sdk.l + c * 8 + 2 * t) =
+            keep_a ? make_float2(__fmul_rn(adk[4 * c], sh.scale),
+                                 __fmul_rn(adk[4 * c + 1], sh.scale))
+                   : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(ov + ka * sdv.l + c * 8 + 2 * t) =
+            keep_a ? make_float2(adv[4 * c], adv[4 * c + 1]) : make_float2(0.f, 0.f);
+      }
+      if (kb < sh.L) {
+        *reinterpret_cast<float2*>(ok + kb * sdk.l + c * 8 + 2 * t) =
+            keep_b ? make_float2(__fmul_rn(adk[4 * c + 2], sh.scale),
+                                 __fmul_rn(adk[4 * c + 3], sh.scale))
+                   : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(ov + kb * sdv.l + c * 8 + 2 * t) =
+            keep_b ? make_float2(adv[4 * c + 2], adv[4 * c + 3]) : make_float2(0.f, 0.f);
+      }
+    }
+  }
+}
+
+int launch_f32_wgmma(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                     void* dk, void* dv, float* stats, Strides sq, Strides sk, Strides sv,
+                     Strides so, Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L,
+                     int lv, float scale, cudaStream_t stream) {
+  const Shape sh{heads, L, lv, (L + TR - 1) / TR, scale};
+  const int tpairs = (sh.tiles + 1) / 2;
+  const long long blocks = (long long)batch * heads * tpairs;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, q, sq, batch, L, heads, true) || !make_map(&mk, k, sk, batch, L, heads, true) ||
+      !make_map(&mv, v, sv, batch, L, heads, true) || !make_map(&mo, dout, so, batch, L, heads, true))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, FDQ_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dkv_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, FDKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  float4* st4 = reinterpret_cast<float4*>(stats);
+  attn_bwd_dq_f32_kernel<<<(unsigned)blocks, FTHR, FDQ_SMEM, stream>>>(
+      mq, mk, mv, mo, static_cast<float*>(dq), st4, sdq, sh, tpairs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkv_f32_kernel<<<(unsigned)blocks, FTHR, FDKV_SMEM, stream>>>(
+      mq, mk, mv, mo, st4, static_cast<float*>(dk), static_cast<float*>(dv), sdk, sdv, sh, tpairs);
+  return (int)cudaGetLastError();
+}
+
+// ---- the f32 path at another head_dim: SIMT, L <= 256, head_dim <= 128
 
 constexpr int MAX_L_F32 = 256;
 constexpr int MAX_HD_F32 = 128;
@@ -992,12 +1666,12 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, vo
 // q, k, v (the forward's inputs), dout (the gradient of its output) and dq,
 // dk, dv (written): [batch, L, heads, hd] views with element strides (b, l, h)
 // each and the last dimension contiguous, all bf16 or all f32 (is_bf16).
-// bf16 takes hd == 64, any L >= 1, every base and stride 16-byte aligned;
-// stats: 4 * batch * heads * ceil(L / 64) * 64 floats of scratch, 16-byte
-// aligned.  f32 takes 1 <= L <= 256, 1 <= hd <= 128; stats: 3 * batch *
-// heads * L floats.  1 <= l_valid, causal 0; cudaErrorInvalidValue for
-// anything else.  Launches two kernels on `stream` and returns the CUDA
-// error code.
+// hd == 64 (bf16 or f32), any L >= 1, every base and stride 16-byte
+// aligned; stats: 4 * batch * heads * ceil(L / 64) * 64 floats of scratch,
+// 16-byte aligned.  f32 at another hd takes 1 <= L <= 256, 1 <= hd <= 128;
+// stats: 3 * batch * heads * L floats.  1 <= l_valid, causal 0;
+// cudaErrorInvalidValue for anything else.  Launches two kernels on
+// `stream` and returns the CUDA error code.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                              void* dq, void* dk, void* dv, float* stats, int is_bf16,
                              long long qsb, long long qsl, long long qsh, long long ksb,
@@ -1017,6 +1691,9 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
     return launch_bf16(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch,
                        heads, L, lv, scale, stream);
   }
+  if (hd == HD)
+    return launch_f32_wgmma(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch,
+                            heads, L, lv, scale, stream);
   if (L > MAX_L_F32 || hd < 1 || hd > MAX_HD_F32) return (int)cudaErrorInvalidValue;
   return launch_f32(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch, heads,
                     L, hd, lv, scale, stream);

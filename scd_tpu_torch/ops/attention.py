@@ -15,12 +15,28 @@ sum); round p to v's type; and accumulate p . v in f32, stored in v's type.
 
 Dispatch by device: a CUDA tensor runs the hand-written kernels
 (``csrc/attention.cu``; one library for both entry points, since a packed
-qkv is three strided [B, L, H, d] views of one buffer): L <= 256 the
-whole-row paths (``wgmma`` for bf16, SIMT for f32); longer sequences (a
-tower at image 256 and up) a key-tiled long path, ``wgmma`` for bf16 at
-head_dim 64 and SIMT for f32 or another head_dim, chosen by shape in the
-C entry point.  A CPU tensor runs :func:`attention_plain`.  There is no
-fallback: a CUDA tensor no kernel takes raises.
+qkv is three strided [B, L, H, d] views of one buffer), chosen by shape in
+the C entry point.  At head_dim 64 (every shipped tower) the tensor-core
+paths, which take 16-byte-aligned views and raise on others: bf16 at L <=
+256 the whole-row ``wgmma`` path, past it the key-tiled ``wgmma`` long
+path; f32 at any L one kernel whose products are three TF32 passes on
+``wgmma`` (below).  Another head_dim takes the SIMT kernels: f32 at L <=
+256 the whole-row one, f32 or bf16 past it the key-tiled one.  A CPU
+tensor runs :func:`attention_plain`.  There is no fallback: a CUDA tensor
+no kernel takes raises.
+
+The f32 products.  Each f32 product is three TF32 products on the tensor
+cores, summed in f32: ``hi = rna_tf32(x)``, ``lo = rna_tf32(x - hi)``,
+``a . b = a_lo . b_hi + a_hi . b_lo + a_hi . b_hi`` (``lo . lo``, ~2^-22
+of |a||b|, dropped).  One TF32 pass keeps ~3 decimal digits, which the
+repo's parity rule refuses; the split-bf16 products of the other f32
+kernels (``estep.cu``, ``topk_softmax.cu``, ``fused_em.cu``, ~2^-16)
+lose too much where the softmax is sharp: on inputs of amplitude 3 the
+attention's error from the split alone reads 3.5e-5 of max|v|, three
+times the f32 tolerance of 1e-5 (``chip_smoke.ATTN_F32_VREL``); the TF32
+split reads 4.5e-7 there and 1.6e-6 at amplitude 6, below f32
+arithmetic's own error (``tests/test_torch_attention.py``).  The SIMT
+kernels at other head_dims keep f32 products exact.
 
 The gradient: :func:`qkv_attention` routes through
 :class:`AttentionFunction` whenever grad mode is on and the packed qkv
@@ -28,9 +44,10 @@ requires a gradient (the trainable blocks of a training step); otherwise
 it launches as above, so serving and the pipelines are unchanged.  The
 Function's forward is the dispatch above; its backward is the
 hand-written ``csrc/attention_bwd.cu`` on a CUDA tensor
-(:func:`qkv_attention_bwd_cuda`, non-causal: bf16 at head_dim 64 and any
-L on ``wgmma`` fed by TMA, 16-byte-aligned views; f32 at head_dim <= 128
-and L <= 256 on SIMT; anything else raises) and autograd through
+(:func:`qkv_attention_bwd_cuda`, non-causal: at head_dim 64 and any L,
+16-byte-aligned views, two ``wgmma`` kernels fed by TMA, bf16 or f32 (the
+f32 ones on three TF32 passes, as the forward); f32 at another head_dim
+<= 128 and L <= 256 on SIMT; anything else raises) and autograd through
 :func:`attention_plain` on a CPU tensor (:func:`qkv_attention_bwd_plain`,
 also the card's reference).  The JAX package differentiates its attention
 with XLA autodiff, so the kernel replaces no Pallas kernel.  The gradient
@@ -49,11 +66,11 @@ from scd_tpu_torch.ops import build
 
 SHORT_MAX_L = 256  # the whole-row paths; longer sequences take a long path
 LONG_MAX_HD = 256  # head_dim the SIMT long path takes
-WGMMA_HD = 64  # head_dim of the bf16 wgmma paths, short and long
+WGMMA_HD = 64  # head_dim of the tensor-core paths, bf16 and f32, any L
 
 
-BWD_MAX_L_F32 = 256  # sequences of the gradient's f32 path; bf16 takes any L
-BWD_MAX_HD_F32 = 128  # head_dim of its f32 path; bf16 takes WGMMA_HD only
+BWD_MAX_L_F32 = 256  # sequences of the gradient's f32 SIMT path
+BWD_MAX_HD_F32 = 128  # head_dim of its f32 SIMT path; bf16 takes WGMMA_HD
 
 
 def qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
@@ -126,8 +143,9 @@ def qkv_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
 
 def _check_bwd(qkv: torch.Tensor, heads: int, causal: bool) -> None:
     """Raise for what the gradient kernel does not take: causal attention;
-    bf16 at a head_dim other than 64 or a view whose base or strides are
-    not 16-byte multiples; f32 at L > 256 or head_dim > 128."""
+    bf16 at a head_dim other than 64; at head_dim 64 (bf16 or f32) a view
+    whose base or strides are not 16-byte multiples; f32 at another
+    head_dim past L 256 or head_dim 128."""
     if qkv.dim() != 3 or qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the attention gradient kernel takes a bf16 or f32 "
                         f"[B, L, 3W] qkv, got {qkv.dtype} "
@@ -139,14 +157,15 @@ def _check_bwd(qkv: torch.Tensor, heads: int, causal: bool) -> None:
     if length < 1:
         raise ValueError(f"the attention gradient kernel takes L >= 1, got "
                          f"{length}")
-    if qkv.dtype == torch.bfloat16:
-        if hd != WGMMA_HD:
-            raise ValueError(f"the bf16 attention gradient kernel takes "
-                             f"head_dim {WGMMA_HD}, got {hd}")
-        if any(t.data_ptr() % 16 or any(s % 8 for s in _strides(t))
-               for t in _heads(qkv, heads)):
-            raise ValueError("the bf16 attention gradient kernel takes "
-                             "16-byte-aligned bases and strides")
+    kind = "bf16" if qkv.dtype == torch.bfloat16 else "f32"
+    if kind == "bf16" and hd != WGMMA_HD:
+        raise ValueError(f"the bf16 attention gradient kernel takes "
+                         f"head_dim {WGMMA_HD}, got {hd}")
+    if hd == WGMMA_HD:
+        if not _aligned(*_heads(qkv, heads)):
+            raise ValueError(f"the {kind} attention gradient kernel at "
+                             f"head_dim {WGMMA_HD} takes 16-byte-aligned "
+                             f"bases and strides")
         return
     if length > BWD_MAX_L_F32:
         raise NotImplementedError(f"the f32 attention gradient kernel takes "
@@ -178,6 +197,8 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
     dqkv = attention_bwd(build.load("attention_bwd"), qkv, dout, heads,
                          scale, l_valid)
     qkv_attention_bwd_cuda.launches += 1
+    qkv_attention_bwd_cuda.f32_wgmma_launches += (
+        qkv.dtype == torch.float32 and w3 // (3 * heads) == WGMMA_HD)
     return dqkv
 
 
@@ -190,11 +211,11 @@ def attention_bwd(lib: ctypes.CDLL, qkv: torch.Tensor, dout: torch.Tensor,
     hd = w3 // (3 * heads)
     dout = dout.to(qkv.dtype).contiguous().view(b, length, heads, hd)
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-    # row statistics: (max, sum, 1 / sum, D) a row in 64-row tiles for
-    # bf16, (max, sum, D) planes for f32
+    # row statistics: (max, sum, 1 / sum, D) a row in 64-row tiles at
+    # head_dim 64 (the tensor-core kernels), (max, sum, D) planes for the
+    # f32 SIMT kernels
     tiles = -(-length // 64)
-    stats = torch.empty(4 * b * heads * tiles * 64
-                        if qkv.dtype == torch.bfloat16
+    stats = torch.empty(4 * b * heads * tiles * 64 if hd == WGMMA_HD
                         else 3 * b * heads * length, dtype=torch.float32,
                         device=qkv.device)
     views = _heads(qkv, heads) + (dout,) + _heads(dqkv, heads)
@@ -215,6 +236,7 @@ def attention_bwd(lib: ctypes.CDLL, qkv: torch.Tensor, dout: torch.Tensor,
 
 
 qkv_attention_bwd_cuda.launches = 0
+qkv_attention_bwd_cuda.f32_wgmma_launches = 0
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -274,15 +296,17 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    l_valid: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel on [B, L, H, d] views (any batch, sequence and
     head strides, the last dimension contiguous), all bf16 or all f32 on
-    one CUDA device.  L <= 256: bf16 takes d = 64 and 16-byte-aligned
-    bases and strides, f32 any d whose K, V, Q and score rows fit in
-    shared memory (else the launch fails).  L > 256 (the long paths): bf16
-    at d = 64 takes the ``wgmma`` long path, with the same alignment;
-    f32, and bf16 at another d, the SIMT long path, d <= 256.  Returns a
-    contiguous [B, L, H, d].  Counts every launch in
+    one CUDA device.  d = 64 takes the tensor-core paths, with 16-byte-
+    aligned bases and strides (else it raises): bf16 the whole-row path at
+    L <= 256 and the ``wgmma`` long path past it, f32 the three-pass TF32
+    kernel at any L.  Another d: f32 at L <= 256 any d whose K, V, Q and
+    score rows fit in shared memory (else the launch fails); past L 256,
+    f32 and bf16 the SIMT long path, d <= 256; bf16 at L <= 256 raises.
+    Returns a contiguous [B, L, H, d].  Counts every launch in
     ``attention_cuda.launches``, those at L > 256 also in
-    ``attention_cuda.long_launches``, and of those the ``wgmma`` long
-    path's also in ``attention_cuda.long_wgmma_launches``."""
+    ``attention_cuda.long_launches``, of those the bf16 ``wgmma`` long
+    path's also in ``attention_cuda.long_wgmma_launches``, and the f32
+    kernel's at d = 64 (any L) in ``attention_cuda.f32_wgmma_launches``."""
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError("attention_cuda takes CUDA tensors on one device")
@@ -299,25 +323,32 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_cuda takes L >= 1 and l_valid >= 1 "
                          f"(L={length}, l_valid={l_valid})")
     is_bf16 = q.dtype == torch.bfloat16
-    strides = [_strides(t) for t in (q, k, v)]
     long_path = length > SHORT_MAX_L
     if is_bf16 and not long_path and hd != WGMMA_HD:
         raise ValueError(f"the bf16 attention kernel takes head_dim "
                          f"{WGMMA_HD}, got {hd}")
-    wgmma = is_bf16 and hd == WGMMA_HD
+    wgmma = hd == WGMMA_HD  # the tensor-core paths, bf16 and f32
     if long_path and not wgmma and hd > LONG_MAX_HD:
         raise ValueError(f"the SIMT long attention path (L > {SHORT_MAX_L})"
                          f" takes head_dim <= {LONG_MAX_HD}, got {hd}")
-    if wgmma and (any(t.data_ptr() % 16 for t in (q, k, v)) or any(
-            s % 8 for st in strides for s in st)):
-        raise ValueError("the bf16 attention kernel takes 16-byte-aligned "
-                         "bases and strides")
+    if wgmma and not _aligned(q, k, v):
+        raise ValueError(f"the {'bf16' if is_bf16 else 'f32'} attention "
+                         f"kernel at head_dim {WGMMA_HD} takes 16-byte-"
+                         f"aligned bases and strides")
     out = attention_fwd(build.load("attention"), q, k, v, scale, causal,
                         l_valid)
     attention_cuda.launches += 1
     attention_cuda.long_launches += long_path
-    attention_cuda.long_wgmma_launches += long_path and wgmma
+    attention_cuda.long_wgmma_launches += long_path and wgmma and is_bf16
+    attention_cuda.f32_wgmma_launches += wgmma and not is_bf16
     return out
+
+
+def _aligned(*views: torch.Tensor) -> bool:
+    """Every view's base and its batch, sequence and head strides are
+    16-byte multiples: what TMA reads."""
+    return not any(t.data_ptr() % 16 or any(
+        s * t.element_size() % 16 for s in _strides(t)) for t in views)
 
 
 def attention_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
@@ -345,3 +376,4 @@ def attention_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
 attention_cuda.launches = 0
 attention_cuda.long_launches = 0
 attention_cuda.long_wgmma_launches = 0
+attention_cuda.f32_wgmma_launches = 0

@@ -16,9 +16,9 @@ flags (for example the parent commit's ``csrc/attention_bwd.cu``) is
 timed in turns, other, this, this, other, on the same inputs, with the
 max abs difference of the two gradients.  Times with CUDA events; prints
 the card's name and power limit first.  ``chip_smoke.py`` phase 5 runs
-:func:`time_shapes`, also in f32 at B 128 · L 197 (the end-to-end
-baselines' shape: the SIMT kernels, bounded at 4-byte elements and
-three bf16 passes).
+:func:`time_shapes`, also in f32 at B 128 and 64 · L 197 and B 128 · L
+257 (the end-to-end baselines' shapes: the f32 kernels at head_dim 64,
+bounded at 4-byte elements and three TF32 passes).
 """
 
 from __future__ import annotations
@@ -29,23 +29,24 @@ import os
 import subprocess
 import tempfile
 
-PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES = 989e12, 67e12, 3.35e12
+PEAK_BF16_FLOPS, PEAK_TF32_FLOPS = 989e12, 495e12
+PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
 B, H, D = 256, 12, 64
 SHAPES = (("train", 197, 197), ("train-int8-pad", 208, 197),
           ("image-256", 257, 257))  # (tag, L, l_valid)
 
 
 def bound_ms(b: int, length: int, h: int, d: int, l_valid: int,
-             elem_bytes: int = 2, passes: int = 1) -> tuple:
+             f32: bool = False) -> tuple:
     """(least ms, what bounds it): q, k, v and dO read once, dq, dk, dv
     written once; the five products a gradient needs (s = q . k^T again,
     dP = dO . V^T, dV = P^T . dO, dQ = dS . K, dK = dS^T . Q) over the
-    score pairs this input keeps (keys < l_valid), at the bf16 peak,
-    ``passes`` times (f32 inputs: 4-byte elements and three bf16 passes,
-    the split that keeps f32-class products, as the repo's other f32
-    bounds count them)."""
-    t_ops = passes * 10.0 * b * h * d * length * l_valid / PEAK_BF16_FLOPS
-    t_bytes = 7.0 * elem_bytes * b * length * h * d / PEAK_HBM_BYTES
+    score pairs this input keeps (keys < l_valid): bf16 at the bf16 peak;
+    f32 (4-byte elements) as three TF32 passes at the TF32 peak, the route
+    of the f32 kernels at head_dim 64."""
+    flops = 10.0 * b * h * d * length * l_valid
+    t_ops = 3 * flops / PEAK_TF32_FLOPS if f32 else flops / PEAK_BF16_FLOPS
+    t_bytes = 7.0 * (4 if f32 else 2) * b * length * h * d / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -83,7 +84,7 @@ def time_shapes(gen, other=None, shapes=SHAPES, reps: int = 10,
                 b: int = B, dtype=None) -> dict:
     """{tag: (kernel ms, plain ms, SDPA backward ms, bound ms, bound by,
     other ms or None)} at ``shapes``, batch ``b``, ``dtype`` (default
-    bf16; f32 takes the SIMT kernels), one line printed per shape;
+    bf16; f32 takes the three-pass TF32 kernels), one line printed per shape;
     ``other`` a library from :func:`build_other`."""
     import torch
     import torch.nn.functional as F
@@ -140,8 +141,7 @@ def time_shapes(gen, other=None, shapes=SHAPES, reps: int = 10,
         go = dout.view(b, length, H, D).transpose(1, 2)
         lib = _ms(lambda: torch.autograd.grad(o, (q, k, v), go,
                                               retain_graph=True), reps)
-        bound, by = bound_ms(b, length, H, D, lv, 4 if f32 else 2,
-                             3 if f32 else 1)
+        bound, by = bound_ms(b, length, H, D, lv, f32)
         simt = ""
         if f32:  # the same products at the f32 rate outside the tensor cores
             t_simt = max(10.0 * b * H * D * length * lv / PEAK_F32_FLOPS,

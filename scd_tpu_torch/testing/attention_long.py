@@ -43,7 +43,9 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _build(src: str) -> ctypes.CDLL:
+def build_other(src: str) -> ctypes.CDLL:
+    """``src`` (an ``attention.cu``) built with ``ops/build.py``'s flags
+    into a temporary directory, loaded."""
     from scd_tpu_torch.ops import build
 
     out = os.path.join(tempfile.mkdtemp(), "libattention_other.so")
@@ -79,7 +81,7 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    other = _build(args.against) if args.against else None
+    other = build_other(args.against) if args.against else None
     b, h, d, reps = 128, 12, 64, 20
     gen = torch.Generator(device="cuda").manual_seed(0)
     for length, px in SHAPES:

@@ -13,6 +13,13 @@
   the Pallas kernels do not take).
 - ``models.vit.Attention`` on the CPU against the JAX ``Attention`` from
   one Flax tree, causal and padded, at atol 1e-5.
+- The f32 kernels' product contract at head_dim 64 (three TF32 passes,
+  ``testing/attention_tf32.py``) at input amplitudes 1, 3 and 6, with
+  ``chip_smoke.ATTN_F32_VREL`` (1e-5 of max|v|, the tolerance the card's
+  f32 forward is held to): the split's own error against float64
+  attention (split-bf16's beyond it at 3 and 6), and the f32-summed
+  emulation against the JAX towers' f32 attention off the TPU
+  (``jax.nn.dot_product_attention``); ``tf32_rna``'s rounding.
 """
 
 import jax
@@ -21,9 +28,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ATTN_F32_VREL
 from scd_tpu.ops.pallas_kernels import (qkv_attention_pallas,
                                         vit_attention_pallas)
 from scd_tpu_torch.ops import attention as A
+from scd_tpu_torch.testing.attention_tf32 import (attention_x3, split_bf16,
+                                                  tf32_rna)
 
 TOL = 1e-5
 
@@ -125,3 +135,62 @@ def test_dispatch_plain_on_cpu_and_kernel_refuses_cpu():
         A.attention_cuda(q, q, q, 0.125)
     with pytest.raises(ValueError, match="l_valid"):
         A.vit_attention(q, q, q, 0.125, l_valid=0)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    """10 mantissa bits kept, to nearest, ties away from zero, by sign and
+    magnitude; the rest of x is exact in f32."""
+    one = 1.0 + 2.0 ** -10  # the TF32 successor of 1
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, 3.0, -0.0,
+                      one + 2.0 ** -11 + 2.0 ** -23])
+    want = torch.tensor([one, -one, 1.0, 3.0, -0.0, one + 2.0 ** -10])
+    assert torch.equal(tf32_rna(x), want)
+    r = torch.from_numpy(_rand((4_096,), 9))
+    hi = tf32_rna(r)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((r - hi).abs() <= 2.0 ** -11 * r.abs()).all())
+
+
+
+_jax_attend = jax.jit(jax.nn.dot_product_attention)
+
+
+def _f64_attention(q, k, v, scale):
+    qh, kh, vh = (torch.from_numpy(t).double().transpose(1, 2)
+                  for t in (q, k, v))
+    p = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    return (p @ vh).transpose(1, 2).numpy()
+
+
+@pytest.mark.parametrize("amp", [1.0, 3.0, 6.0])
+def test_tf32x3_forward_matches_jax_f32(amp):
+    """The f32 kernels' products, three TF32 passes (``attention_x3``), on
+    numpy inputs scaled by ``amp`` (scores of std ~amp^2: at 6 the softmax
+    is near one-hot), with ATTN_F32_VREL of max|v| as the tolerance:
+    - the split's own error (the split products summed in float64) is
+      within it of float64 attention, where split-bf16 products are not
+      at amplitudes 3 and 6: the precision choice;
+    - summed in f32 as the kernels sum, the emulation is within it of the
+      JAX towers' f32 attention, beyond the distance at which the plain
+      version (full f32 products, ``attention_plain``) lies from JAX: at
+      amplitude 6 f32 arithmetic alone is ~1e-5 of max|v| off (scores up
+      to ~150, each rounded at 2^-24 of that)."""
+    b, length, h, d = 2, 197, 4, 64
+    q, k, v = (amp * _rand((b, length, h, d), 40 + i) for i in range(3))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    tol = ATTN_F32_VREL * np.abs(v).max()
+    truth = _f64_attention(q, k, v, d ** -0.5)
+    split_err = np.abs(attention_x3(tq, tk, tv, d ** -0.5, acc=torch.float64
+                                    ).numpy() - truth).max()
+    bf16_err = np.abs(attention_x3(tq, tk, tv, d ** -0.5, split=split_bf16,
+                                   acc=torch.float64).numpy() - truth).max()
+    assert split_err <= tol, split_err / tol
+    assert amp < 3 or bf16_err > tol, bf16_err / tol
+    want = np.asarray(_jax_attend(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v)))
+    got = attention_x3(tq, tk, tv, d ** -0.5).numpy()
+    plain = np.abs(A.attention_plain(tq, tk, tv, d ** -0.5).numpy()
+                   - want).max()
+    err = np.abs(got - want).max()
+    assert err <= tol + plain, (err / tol, plain / tol)

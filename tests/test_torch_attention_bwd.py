@@ -8,8 +8,14 @@
   256, past the old 256-key limit) and at L 300 with l_valid 289.  Every
   element within the f32 bound of ``testing/attention_grad.py`` (1e-4 of
   the sum of the absolute values of its terms).
-- ``_check_bwd`` on CPU tensors: bf16 at head_dim 64 passes at any L; f32
-  past L 256, causal attention and bf16 at another head_dim raise.
+- The f32 gradient kernels' product contract at head_dim 64 (three TF32
+  passes in every product, ``testing/attention_tf32.py``, differentiated
+  by autograd) against ``jax.vjp`` of the same JAX attention at input
+  amplitudes 1, 3 and 6 (B 2 · L 197 · H 2 · d 64): every element within
+  the f32 bound.
+- ``_check_bwd`` on CPU tensors: bf16 and f32 at head_dim 64 pass at any
+  L; f32 at another head_dim past L 256, causal attention, bf16 at
+  another head_dim and a head_dim-64 view off the 16-byte grid raise.
 """
 
 import jax
@@ -20,20 +26,22 @@ import torch
 
 from scd_tpu_torch.ops import attention as A
 from scd_tpu_torch.testing.attention_grad import grad_bound
+from scd_tpu_torch.testing.attention_tf32 import attention_x3
 
 B, H, D = 2, 2, 16
 
 
-def _jax_grad(qkv, dout, l_valid):
+def _jax_grad(qkv, dout, l_valid, heads=H):
     """The gradient of the packed qkv through the JAX towers' off-TPU
     attention: split, heads, dot_product_attention with the key mask."""
     b, length, w3 = qkv.shape
+    d = w3 // (3 * heads)
     mask = None
     if l_valid < length:
         mask = (jnp.arange(length) < l_valid)[None, None, None, :]
 
     def attend(x):
-        q, k, v = (t.reshape(b, length, H, D)
+        q, k, v = (t.reshape(b, length, heads, d)
                    for t in jnp.split(x, 3, axis=-1))
         return jax.nn.dot_product_attention(q, k, v, mask=mask).reshape(
             b, length, w3 // 3)
@@ -64,19 +72,49 @@ def test_plain_gradient_matches_jax_vjp(length, l_valid):
     assert bool((dkv == 0).all())
 
 
+@pytest.mark.parametrize("amp", [1.0, 3.0, 6.0])
+def test_tf32x3_gradient_matches_jax_vjp(amp):
+    """Autograd of ``attention_x3`` (every product of the forward and the
+    backward three TF32 passes, as the f32 gradient kernels run them) on
+    numpy inputs scaled by ``amp``, against ``jax.vjp`` of the JAX
+    attention: every element within the f32 bound (1e-4 of the sum of
+    the absolute values of its terms)."""
+    h, d, length = 2, 64, 197
+    rng = np.random.default_rng(int(amp))
+    qkv = (amp * rng.standard_normal((B, length, 3 * h * d))).astype(
+        np.float32)
+    dout = rng.standard_normal((B, length, h * d)).astype(np.float32)
+    want = _jax_grad(qkv, dout, length, heads=h)
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = attention_x3(*A._heads(x, h), d ** -0.5).reshape(B, length, h * d)
+    dout_t = torch.from_numpy(dout)
+    (got,) = torch.autograd.grad(out, x, dout_t)
+    bound = grad_bound(torch.from_numpy(qkv), dout_t, h, d ** -0.5, None,
+                       got).numpy()
+    err = np.abs(got.numpy() - want)
+    assert (err <= bound).all(), float((err / bound).max())
+
+
 @pytest.mark.parametrize("length", [257, 1_025])
 def test_check_bwd_takes_bf16_head_dim_64_at_any_length(length):
     qkv = torch.zeros(2, length, 3 * 64, dtype=torch.bfloat16)
     A._check_bwd(qkv, 1, False)
 
 
+@pytest.mark.parametrize("length", [257, 1_025])
+def test_check_bwd_takes_f32_head_dim_64_at_any_length(length):
+    A._check_bwd(torch.zeros(2, length, 3 * 64), 1, False)
+
+
 @pytest.mark.parametrize("qkv,heads,causal,raises", [
-    (torch.zeros(2, 257, 3 * 64), 1, False, NotImplementedError),
+    (torch.zeros(2, 257, 3 * 32), 1, False, NotImplementedError),
     (torch.zeros(2, 16, 3 * 64, dtype=torch.bfloat16), 1, True,
      NotImplementedError),
     (torch.zeros(2, 16, 3 * 64, dtype=torch.bfloat16), 2, False,
      ValueError),
-], ids=["f32-L257", "causal", "bf16-head_dim-32"])
+    (torch.zeros(2 * 16 * 3 * 64 + 1)[1:].view(2, 16, 3 * 64), 1, False,
+     ValueError),
+], ids=["f32-L257", "causal", "bf16-head_dim-32", "f32-misaligned"])
 def test_check_bwd_refuses_what_the_kernel_does_not_take(qkv, heads, causal,
                                                          raises):
     with pytest.raises(raises):

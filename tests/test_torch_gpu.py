@@ -471,8 +471,9 @@ def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
     """L > 256 (towers at image 256, 288, 384, 448, 512): the key-tiled
     long paths, counted apart, through both entry points: bf16 (head_dim
     64) on the ``wgmma`` long path, its key tiles resident up to L 832 and
-    streamed past it (L 1,025), f32 on the SIMT one; agrees with the plain
-    version within ``_attention_within`` and repeats its bits."""
+    streamed past it (L 1,025), f32 (head_dim 64) on the f32 kernel (three
+    TF32 passes on ``wgmma``, any L); agrees with the plain version within
+    ``_attention_within`` and repeats its bits."""
     from scd_tpu_torch.ops import attention as A
 
     g = torch.Generator(device=cuda).manual_seed(length + h)
@@ -482,6 +483,7 @@ def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
     q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
     before, long_before, wgmma_before = A.attention_cuda.launches, \
         A.attention_cuda.long_launches, A.attention_cuda.long_wgmma_launches
+    f32_before = A.attention_cuda.f32_wgmma_launches
     got = A.qkv_attention(qkv, h, 0.125, causal, l_valid)
     got_vit = A.vit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               0.125, causal, l_valid)
@@ -489,6 +491,8 @@ def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
     assert A.attention_cuda.long_launches == long_before + 2
     assert A.attention_cuda.long_wgmma_launches == wgmma_before + 2 * (
         dtype == torch.bfloat16)
+    assert A.attention_cuda.f32_wgmma_launches == f32_before + 2 * (
+        dtype == torch.float32)
     assert got.shape == (b, length, h * 64) and got.dtype == dtype
     assert torch.equal(got.reshape(b, length, h, 64), got_vit)
     assert torch.equal(got, A.qkv_attention(qkv, h, 0.125, causal, l_valid))
@@ -524,6 +528,11 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     z = torch.zeros(1, 8, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         A.vit_attention(z, z, z, 0.125)
+    f = torch.zeros(2 * 300 * 2 * 64 + 1, device=cuda)[1:].view(2, 300, 2, 64)
+    f32_before = A.attention_cuda.f32_wgmma_launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        A.vit_attention(f, f, f, 0.125)  # f32 at head_dim 64: no SIMT
+    assert A.attention_cuda.f32_wgmma_launches == f32_before
 
 
 @pytest.mark.parametrize("pixels", [64, 256])
@@ -769,6 +778,9 @@ def test_fit_constrained_numpy_runs_on_the_card(cuda, monkeypatch):
     (2, 577, 12, 64, 577, torch.bfloat16),
     (3, 300, 2, 64, 289, torch.bfloat16),
     (4, 197, 12, 64, 197, torch.float32),
+    (3, 257, 12, 64, 250, torch.float32),
+    (2, 577, 5, 64, 577, torch.float32),
+    (5, 1, 2, 64, 1, torch.float32),
     (3, 77, 2, 128, 70, torch.float32),
     (2, 33, 3, 40, 33, torch.float32),
 ])
@@ -822,7 +834,9 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
 
     bf = torch.bfloat16
     for qkv, heads, causal in (
-            (torch.zeros(2, 257, 192, device=cuda), 1, False),
+            (torch.zeros(2, 257, 96, device=cuda), 1, False),
+            (torch.zeros(2 * 16 * 192 + 1, device=cuda)[1:].view(2, 16, 192),
+             1, False),
             (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 1, True),
             (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 2, False),
             (torch.zeros(2, 16, 3 * 160, device=cuda), 1, False)):

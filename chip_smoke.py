@@ -172,6 +172,24 @@ Phases, each printing its own lines and seconds:
    of them, and the two-head ResNet-18 (f32) card against CPU.  The
    mains, the card steps and the frozen CLI hold every kernel call
    against its plain version on the path's arguments (``path_inputs``).
+12. the prefix-KV vocabulary build (``SCD_PREFIX_VOCAB=1``): the prefix
+   attention kernel (``csrc/prefix_attention.cu``) against its plain
+   version at the build's shapes (B 8,192 x S 16 and 8 x P 16 x H 8 x d
+   64 bf16, one p_valid < P; one f32 case); then, through the CLIP
+   ViT-B/16 text tower that ``build_encoders`` makes from a fabricated
+   cold root (bf16, ``dense_int8`` off), ``build_zeroshot_weights`` for
+   8,192 fabricated names of one to three tokens in the JAX package's
+   word mix (``testing/fabricate.py::short_names``, all cached) x the 80
+   ImageNet templates, once on the prefix route and once on the
+   full-row route: the prefix kernel must launch 12 x (cached templates)
+   x (chunks) times, the two [512, 8,192] matrices must agree to a
+   minimum column cosine of PREFIX_COS_TOL; then the same on 1,024 of
+   those names and 128 of the root's own, which fall back, timed apart;
+   both builds' prompts/s (warm), the fallback templates and names, every
+   kernel call of the prefix build held against its plain version on its
+   arguments (``path_inputs``), and the kernel's time at the build's
+   shapes beside its plain version, SDPA (a yardstick, never on the path)
+   and its bound.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -186,7 +204,10 @@ row, ``attention_bwd`` (no TPU kernel: the JAX package takes its
 attention gradient from XLA autodiff), with phase 10's training steps;
 and the f32 kernels at head_dim 64 of the attention
 (``qkv_attention_f32``) and its gradient (``attention_bwd_f32``), with
-phase 11's end-to-end mains and phase 5's times at B 128 x L 197.
+phase 11's end-to-end mains and phase 5's times at B 128 x L 197; and a
+row, ``prefix_attention`` (no TPU kernel: the JAX package's prefix
+attention is plain XLA), with phase 12's prefix build and times at its
+first shape.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 10 (the attention forward, its gradient and ``fused_em_step`` in
@@ -293,7 +314,7 @@ ESTEP_DIST_TOL = 1e-4
 ACC_FLOOR, IOU_FLOOR = 0.90, 0.80
 # the kernel sources under scd_tpu_torch/csrc, built together in phase 1
 SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep",
-           "attention_bwd")
+           "attention_bwd", "prefix_attention")
 # the attention gradient's bf16 kernels (wgmma fed by TMA)
 BWD_WGMMA_KERNELS = ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
 # the f32 attention kernels at head_dim 64 (three TF32 passes on wgmma fed
@@ -422,6 +443,11 @@ def phase_build():
                       for ln in lines), f"attention_bwd: the {kern} spills")
             check(not any("wgmma" in ln and kern in ln for ln in lines),
                   f"attention_bwd: ptxas serializes the {kern}'s wgmma")
+    if "prefix_attention" in reports:  # built now: its ptxas report is here
+        lines = [ln for ln in ptxas_summary(reports["prefix_attention"])
+                 if ln.startswith("prefix_attn_kernel")]
+        check(lines and all("spill 0 / 0 bytes" in ln for ln in lines),
+              "prefix_attention: a prefix_attn_kernel instance spills")
     if "estep" in reports:  # built now: its ptxas report is here
         lines = ptxas_summary(reports["estep"])
         check(any(ln.startswith("estep_kernel:") and "spill 0 / 0 bytes" in ln
@@ -1254,8 +1280,9 @@ def _counters():
     ``launches``, the attention long paths' launches (also in
     ``attention``) and of those the bf16 ``wgmma`` long path's, the f32
     attention forward's and gradient's launches at head_dim 64 (three TF32
-    passes on ``wgmma``; also in ``attention`` and ``attention_bwd``), and
-    the top-k route past the kernel (k > 16)."""
+    passes on ``wgmma``; also in ``attention`` and ``attention_bwd``), the
+    top-k route past the kernel (k > 16), and the prefix attention's
+    launches."""
     from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
     return {"topk_softmax": (topk.topk_softmax_cuda, "launches"),
@@ -1273,7 +1300,9 @@ def _counters():
             "attention_bwd": (attention.qkv_attention_bwd_cuda,
                               "launches"),
             "attention_bwd_f32": (attention.qkv_attention_bwd_cuda,
-                                  "f32_wgmma_launches")}
+                                  "f32_wgmma_launches"),
+            "prefix_attention": (attention.prefix_attention_cuda,
+                                 "launches")}
 
 
 def _reset_counts():
@@ -2598,7 +2627,8 @@ PATH_WRAPPERS = {"fused_em_step": ("em", "fused_em_step_cuda"),
                  "topk_softmax": ("topk", "topk_softmax_cuda"),
                  "attention": ("attention", "attention_cuda"),
                  "attention_bwd": ("attention", "qkv_attention_bwd_cuda"),
-                 "w8a8_fusedq": ("w8a8", "w8a8_fusedq_cuda")}
+                 "w8a8_fusedq": ("w8a8", "w8a8_fusedq_cuda"),
+                 "prefix_attention": ("attention", "prefix_attention_cuda")}
 
 
 def _path_key(args):
@@ -2677,7 +2707,8 @@ def hold_path_inputs(seen, tag):
     """Each kernel against its plain version on the arguments a main path
     passed it (:func:`path_inputs`), with the tolerances of
     :func:`em_hold`, :func:`topk_hold`, :func:`attention_parity`,
-    :func:`attention_bwd_parity` and :func:`fusedq_parity`."""
+    :func:`attention_bwd_parity`, :func:`fusedq_parity` and
+    :func:`prefix_parity`."""
     for i, a in enumerate(seen["fused_em_step"].values()):
         em_hold(a["x"], a["centers"], a["row_w"], tag=f"{tag} #{i}")
     for i, a in enumerate(seen["topk_softmax"].values()):
@@ -2701,6 +2732,10 @@ def hold_path_inputs(seen, tag):
         fusedq_parity(x.shape[0], x.shape[1], wq_t.shape[0], a["act"],
                       a["out_dtype"], None, f"{tag} #{i}",
                       inputs=(x, wq_t, a["s_w"], a["bias"]))
+    for i, a in enumerate(seen["prefix_attention"].values()):
+        prefix_parity(a["p_valid"], a["q"].dtype, None, tag=f"{tag} #{i}",
+                      inputs=tuple(a[n] for n in ("q", "k", "v", "pk", "pv")),
+                      scale=a["scale"])
 
 
 def fine_grained_run(fn, cfg, tag, against_cpu=True):
@@ -3855,6 +3890,255 @@ def phase_baselines(seed, workdir):
     return launches
 
 
+# ------------------------------------------------------------- phase 12
+
+# the prefix-KV vocabulary build: names (one chunk of the build), and the
+# prefix kernel's heads and head_dim (the CLIP text tower's 8 x 64)
+PREFIX_NAMES, PREFIX_CHUNK, PREFIX_P, TEXT_H, TEXT_D = 8_192, 8_192, 16, 8, 64
+# names too long for the suffix rows (the fallback route), timed apart
+# with PREFIX_MIXED of the short names
+PREFIX_LONG, PREFIX_MIXED = 128, 1_024
+# - the prefix-built [512, 8,192] matrix against the full-row-built one,
+#   both through the bf16 text tower on the card: the same math, but
+#   activations rounded to bf16 after products grouped otherwise (the
+#   prefix K / V from [T, P] rows, suffixes in their own bucket, cuBLAS
+#   picking other tilings), through 12 blocks, then the mean over 80
+#   templates.  Read on an H100 at this seed: min 0.9999999 (the JAX
+#   package read 0.999999 on its chip)
+PREFIX_COS_TOL = 0.9999
+
+
+def prefix_parity(p_valid, dtype, gen, b=PREFIX_NAMES, s=16, n_pre=PREFIX_P,
+                  tag="", inputs=None, scale=None):
+    """The prefix attention kernel against its plain version on one shape
+    (q, k, v views of a packed qkv made from ``gen`` at H 8, d 64, or
+    ``inputs`` = (q, k, v, pk, pv)), with :func:`attention_parity`'s
+    tolerances (max|v| over the prefix's values and the suffix's); two
+    runs must repeat their bits.  Returns (max abs error, the inputs)."""
+    import torch
+
+    from scd_tpu_torch.ops import attention as A
+
+    if inputs is None:
+        _, (q, k, v) = _attn_inputs(b, s, TEXT_H, TEXT_D, dtype, True, gen)
+        pk, pv = (torch.randn(n_pre, TEXT_H, TEXT_D, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        inputs = (q, k, v, pk, pv)
+    q, k, v, pk, pv = inputs
+    b, s, h, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    got = A.prefix_attention(*inputs, scale, p_valid)
+    again = A.prefix_attention(*inputs, scale, p_valid)
+    torch.cuda.synchronize()
+    name = f"prefix attention {tag}"
+    check(torch.equal(got, again), f"{name}: two runs differ")
+    want = A.prefix_attention_plain(*inputs, scale, p_valid)
+    err = (got.float() - want.float()).abs()
+    vmax = max(v.float().abs().max().item(), pv.float().abs().max().item())
+    if dtype == torch.bfloat16:
+        bound = ATTN_BF16_REL * want.float().abs() + ATTN_BF16_VREL * vmax
+    else:
+        bound = torch.full_like(err, ATTN_F32_VREL * vmax)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(bool((err <= bound).all()), f"{name}: error {err.max().item():.3e} "
+          f"beyond the stated bound")
+    print(f"  {name} B={b} S={s} P={pk.shape[0]} p_valid={p_valid} H={h} "
+          f"d={d} {str(dtype)[6:]}: max abs err {err.max().item():.3e} "
+          f"(max |v| {vmax:.2f})")
+    return err.max().item(), inputs
+
+
+def _prefix_bound(b, s, n_pre, p_valid, h, d, elt):
+    """q, k, v, the output ([B, S, H, d]) and pk, pv ([P, H, d]) moved once;
+    the products of the pairs this input keeps (p_valid prefix keys and
+    the causal suffix keys of each row) in q . k and p . v, at the bf16
+    tensor-core peak (bf16) or the f32 SIMT peak (f32: exact products)."""
+    pairs = sum(min(p_valid, n_pre) + i + 1 for i in range(s))
+    ops = 4.0 * b * h * d * pairs
+    return _bound(ops, PEAK_BF16_FLOPS if elt == 2 else PEAK_F32_FLOPS,
+                  elt * (4.0 * b * s * h * d + 2.0 * n_pre * h * d))
+
+
+def time_prefix_attention(inputs, p_valid, scale):
+    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) on ``inputs``.
+    SDPA, the yardstick, takes the same function as one call on the
+    [prefix, suffix] keys concatenated beforehand (outside its time) with
+    a boolean mask; its result is printed against the kernel's."""
+    import torch
+    import torch.nn.functional as F
+
+    from scd_tpu_torch.ops import attention as A
+
+    q, k, v, pk, pv = inputs
+    b, s, h, d = q.shape
+    n_pre = pk.shape[0]
+    ms = cuda_ms(lambda: A.prefix_attention_cuda(*inputs, scale, p_valid),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: A.prefix_attention_plain(*inputs, scale,
+                                                        p_valid), reps=5)
+    qh = q.transpose(1, 2)
+    kh = torch.cat([pk.expand(b, n_pre, h, d), k], 1).transpose(1, 2)
+    vh = torch.cat([pv.expand(b, n_pre, h, d), v], 1).transpose(1, 2)
+    mask = torch.cat([
+        (torch.arange(n_pre, device=q.device) < p_valid).expand(s, n_pre),
+        torch.ones(s, s, dtype=torch.bool, device=q.device).tril()], 1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              scale=scale)
+
+    lib_ms = cuda_ms(sdpa, reps=50)
+    diff = (sdpa().transpose(1, 2).float()
+            - A.prefix_attention_cuda(*inputs, scale, p_valid).float()
+            ).abs().max().item()
+    bound_ms, by = _prefix_bound(b, s, n_pre, p_valid, h, d,
+                                 q.element_size())
+    print(f"  prefix attention B={b} S={s} P={n_pre} p_valid={p_valid} "
+          f"{str(q.dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
+          f"SDPA {lib_ms:.4f} (max |SDPA - kernel| {diff:.3e}), bound "
+          f"{bound_ms:.4f} ({by}), {ms / bound_ms:.2f}x the bound")
+    return ms, plain_ms, lib_ms, bound_ms, by
+
+
+def phase_prefix_vocab(seed: int, workdir: str):
+    """The prefix-KV vocabulary build (``SCD_PREFIX_VOCAB=1``) at the
+    full-width CLIP ViT-B/16 text tower (bf16): the kernel against its
+    plain version, the build against the full-row build, their times.
+    Returns (launches, max abs error, the kernels line's times)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.models import clip_vit_b16_config, dino_vit_b16_config
+    from scd_tpu_torch.naming import zeroshot as zs
+    from scd_tpu_torch.naming.templates import IMAGENET_TEMPLATES
+    from scd_tpu_torch.pipelines.unsup import build_encoders
+    from scd_tpu_torch.testing.fabricate import (cold_config,
+                                                 fabricate_cold_root,
+                                                 short_names)
+
+    # ---- (a) the kernel against its plain version at the build's shapes
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = max(prefix_parity(PREFIX_P, bf16, gen, s=16, tag="S16")[0],
+              prefix_parity(PREFIX_P, bf16, gen, s=8, tag="S8")[0],
+              prefix_parity(11, bf16, gen, s=16, tag="S16 p_valid<P")[0])
+    prefix_parity(11, f32, gen, b=1_024, s=16, tag="f32")
+
+    # ---- the text tower of build_encoders (dense_int8 off) on a cold root
+    t0 = time.perf_counter()
+    cfg = cold_config(os.path.join(workdir, "prefix"), dense_int8=False,
+                      batch_size=BATCH, num_workers=1)
+    cfg = cfg.replace(feature=dataclasses.replace(cfg.feature,
+                                                  feat_model="clip"))
+    info = fabricate_cold_root(
+        cfg, clip_vit_b16_config(),
+        dino_vit_b16_config(gelu_tanh=cfg.feature.gelu_tanh), seed=seed,
+        n_images=100, vocab=PREFIX_NAMES)
+    encode_text = build_encoders(cfg, {}, device="cuda")[2]
+    check(hasattr(encode_text, "prefix_forward")
+          and hasattr(encode_text, "suffix_forward"),
+          "build_encoders set no prefix hooks with dense_int8 off")
+    # one chunk of names of one to three tokens (short_names, in the JAX
+    # package's word mix: the random merges split the root's own names
+    # into nine tokens), all cached; then PREFIX_MIXED of them with the
+    # root's last PREFIX_LONG names, which take the fallback route
+    names = short_names(encode_text.tokenize, PREFIX_NAMES, seed)
+    mixed = names[:PREFIX_MIXED] + info["nouns"][-PREFIX_LONG:]
+    plans = {}
+    for tag, nm in (("cached", names), ("mixed", mixed)):
+        cached, fallback_t, cached_n, fallback_n = zs.prefix_plan(
+            encode_text.tokenize, nm, IMAGENET_TEMPLATES)[:4]
+        plans[tag] = (len(cached), -(-len(cached_n) // PREFIX_CHUNK),
+                      len(fallback_n), len(fallback_t))
+        print(f"{tag} names: {len(nm)} names x {len(IMAGENET_TEMPLATES)} "
+              f"templates: {len(cached)} cached templates, "
+              f"{len(fallback_t)} fallback templates, {len(cached_n)} "
+              f"cached names in {plans[tag][1]} chunk(s), "
+              f"{len(fallback_n)} fallback names")
+    check(plans["cached"][2] == 0, "a short name took the fallback route")
+    check(plans["mixed"][2] == PREFIX_LONG,
+          "the root's names did not all take the fallback route")
+    print(f"CLIP ViT-B/16 (bf16) from build_encoders and the names in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    env = os.environ.get("SCD_PREFIX_VOCAB")
+
+    def build(prefix, nm):
+        os.environ["SCD_PREFIX_VOCAB"] = "1" if prefix else "0"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w = zs.build_zeroshot_weights(encode_text, nm, IMAGENET_TEMPLATES)
+        torch.cuda.synchronize()
+        return w, time.perf_counter() - t
+
+    def both(tag, nm):
+        """The prefix build (counted) and the full-row build on ``nm``,
+        each warm; gates on the launches and the column cosine.  Returns
+        (the prefix build's launches, its prompts/s)."""
+        _reset_counts()
+        w_pre, t_pre = build(True, nm)
+        launches = _counts()
+        w_full, t_full = build(False, nm)
+        n_cached, chunks, n_fallback, n_fallback_t = plans[tag]
+        print(f"launches in the prefix build ({tag} names): {launches}")
+        want = 12 * n_cached * chunks
+        check(launches["prefix_attention"] == want,
+              f"{tag}: prefix_attention launched "
+              f"{launches['prefix_attention']} times, not 12 x {n_cached} "
+              f"x {chunks} = {want}")
+        check(launches["attention"] > 0 or not (n_fallback or n_fallback_t),
+              f"{tag}: the fallbacks ran no full-row attention")
+        check(w_pre.shape == w_full.shape == (D_CLIP, len(nm))
+              and bool(np.isfinite(w_pre).all()),
+              f"{tag}: prefix build: bad matrix")
+        cos = _row_cos(w_pre.T, w_full.T)
+        prompts = len(nm) * len(IMAGENET_TEMPLATES)
+        print(f"{tag} names ({len(nm)}, {n_fallback} fallback): prefix "
+              f"build {t_pre:.3f} s ({prompts / t_pre:.1f} prompts/s), "
+              f"full-row build {t_full:.3f} s ({prompts / t_full:.1f} "
+              f"prompts/s), warm; column cosine min "
+              f"{cos.min().item():.7f}, mean {cos.mean().item():.7f} "
+              f"(tolerance {PREFIX_COS_TOL})")
+        check(cos.min().item() >= PREFIX_COS_TOL,
+              f"{tag}: the prefix build disagrees with the full-row build")
+        return launches
+
+    try:
+        # ---- (b) the build: first under path_inputs (it warms the card
+        # and copies each prefix-kernel call's arguments, one per shape),
+        # then counted and timed against the full-row build (warmed
+        # first), on the cached names and then on the mixed ones
+        with path_inputs() as seen:
+            build(True, names)
+        build(False, names[:256])
+        launches = both("cached", names)
+        both("mixed", mixed)
+    finally:
+        if env is None:
+            os.environ.pop("SCD_PREFIX_VOCAB", None)
+        else:
+            os.environ["SCD_PREFIX_VOCAB"] = env
+
+    # ---- every kernel on the arguments the build passed it
+    held = list(seen["prefix_attention"].values())
+    check(held, "path_inputs saw no prefix-kernel call")
+    hold_path_inputs(seen, "prefix build")
+
+    # ---- (c) the kernel alone: at the build's first shape, then both
+    # suffix buckets on random inputs
+    a = held[0]
+    times = time_prefix_attention(
+        tuple(a[n] for n in ("q", "k", "v", "pk", "pv")), a["p_valid"],
+        a["scale"])
+    for s in (16, 8):
+        time_prefix_attention(prefix_parity(PREFIX_P, bf16, gen, s=s,
+                                            tag=f"timed S{s}")[1],
+                              PREFIX_P, TEXT_D ** -0.5)
+    return launches["prefix_attention"], err, times
+
+
 # (kernels line name, source, the TPU kernel it replaces, key of the
 # launch count and the times); rows 3-4 share the attention kernel and
 # rows 6-7 the w8a8_prequant kernel, and each pair reports that kernel's
@@ -3888,6 +4172,11 @@ KERNELS = [
     ("attention_bwd_f32", "scd_tpu_torch/csrc/attention_bwd.cu",
      "none: XLA autodiff of scd_tpu/models/vit.py:338",
      "attention_bwd_f32"),
+    # no TPU kernel: the JAX package's prefix attention is plain XLA;
+    # launches from phase 12's prefix-KV vocabulary build
+    ("prefix_attention", "scd_tpu_torch/csrc/prefix_attention.cu",
+     "none: XLA einsums of scd_tpu/models/vit.py:308 (_prefix_attention)",
+     "prefix_attention"),
 ]
 
 
@@ -3983,7 +4272,14 @@ def main(argv=None) -> int:
     for key in ("attention_f32", "attention_bwd_f32"):
         launches[key] = sum(baseline_launches[f"{m}_e2e"][key]
                             for m in ("uno", "autonovel"))
-    print(f"phase 11 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 11 {time.perf_counter() - t0:.1f} s")
+    section("phase 12: the prefix-KV vocabulary build (SCD_PREFIX_VOCAB=1)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["prefix_attention"], errs["prefix_attention"], \
+            times["prefix_attention"] = phase_prefix_vocab(args.seed,
+                                                           workdir)
+    print(f"phase 12 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

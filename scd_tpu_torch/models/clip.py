@@ -1,6 +1,6 @@
 """CLIP ViT-B/16 (image and text towers) with OpenAI checkpoint loading.
 
-Port of ``scd_tpu/models/clip.py``, non-prefix modes: the visual tower is
+Port of ``scd_tpu/models/clip.py``: the visual tower is
 :class:`~scd_tpu_torch.models.vit.VisionTransformer`; the text tower is a
 causal pre-norm transformer over token and position embeddings, pooled at
 the EOT token (the highest id of each row) and projected.  Under the int8
@@ -8,8 +8,11 @@ knob (one knob quantizes both towers) the token sequence is padded to a
 multiple of 16; the causal mask already hides the pad keys from every real
 query, and pooling reads a real position.  Both towers' attention is the
 port's own (``ops/attention.py``: the ``csrc/attention.cu`` kernel on a
-CUDA device, causal for the text tower).  The prefix-KV modes (the
-``SCD_PREFIX_VOCAB=1`` vocabulary build) are not ported yet (ROADMAP).
+CUDA device, causal for the text tower).  The text tower's prefix-KV
+modes serve the ``SCD_PREFIX_VOCAB=1`` vocabulary build
+(:meth:`CLIPModel.encode_text_prefix`, :meth:`CLIPModel.
+encode_text_suffix`); their attention is ``ops.attention.
+prefix_attention`` (``csrc/prefix_attention.cu`` on a CUDA device).
 """
 
 from __future__ import annotations
@@ -77,17 +80,51 @@ class TextTransformer(nn.Module):
         self.text_projection = _param(cfg.text_width, cfg.embed_dim,
                                       device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, prefix_kv=None,
+                p_len: Optional[int] = None, return_prefix_kv: bool = False):
+        """Prefix-KV modes (the prefix-KV vocabulary build):
+
+        * ``return_prefix_kv=True``: tokens are prefix rows [T, P]
+          (SOT-framed, zero-padded); returns the per-layer (k, v) head
+          projections as ``(k_stack, v_stack)``, each [depth, T, P, heads,
+          head_dim].  Causal masking keeps the padding out of the prefix
+          activations, so the cache is exact.
+        * ``prefix_kv=(k, v)`` (each [depth, P, heads, head_dim]) and
+          ``p_len`` (the real prefix length): tokens are suffix rows [B, S]
+          (name, template tail, EOT, zero-padded) at positions ``p_len +
+          j``, attending [cached prefix, own causal]; the result equals the
+          full-row forward on the prefix + suffix rows.
+
+        Neither mode pads the sequence for the int8 path."""
         c = self.cfg
         b, length = tokens.shape
         tokens = tokens.long()
-        x = (self.token_embedding[tokens] + self.pos_embed[None, :length]
-             ).to(c.compute_dtype)
+        if prefix_kv is None:
+            pos = self.pos_embed[:length]
+        else:
+            p_len = int(p_len)
+            if not 0 <= p_len <= c.context_length - length:
+                raise ValueError(f"suffix rows of {length} tokens after a "
+                                 f"prefix of {p_len} pass the context "
+                                 f"length {c.context_length}")
+            pos = self.pos_embed[p_len:p_len + length]
+        x = (self.token_embedding[tokens] + pos[None]).to(c.compute_dtype)
         pad_to = seq_pad_target(c.text_block_config(), length)
-        if pad_to > length:
+        if pad_to > length and prefix_kv is None and not return_prefix_kv:
             x = F.pad(x, (0, 0, 0, pad_to - length))
+        kvs = []
         for i in range(c.text_depth):
-            x = getattr(self, f"block_{i}")(x, causal=True)
+            layer_kv = None if prefix_kv is None else (prefix_kv[0][i],
+                                                       prefix_kv[1][i])
+            x = getattr(self, f"block_{i}")(
+                x, causal=True, prefix_kv=layer_kv, p_valid=p_len,
+                return_kv=return_prefix_kv)
+            if return_prefix_kv:
+                x, kv = x
+                kvs.append(kv)
+        if return_prefix_kv:
+            return (torch.stack([k for k, _ in kvs]),
+                    torch.stack([v for _, v in kvs]))
         x = self.ln_final(x)
         eot = tokens.argmax(dim=-1)
         pooled = x[torch.arange(b, device=x.device), eot]
@@ -109,6 +146,17 @@ class CLIPModel(nn.Module):
 
     def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.text(tokens)
+
+    def encode_text_prefix(self, tokens: torch.Tensor):
+        """Prefix rows [T, P] -> the per-layer KV cache (see
+        :meth:`TextTransformer.forward`)."""
+        return self.text(tokens, return_prefix_kv=True)
+
+    def encode_text_suffix(self, tokens: torch.Tensor, prefix_kv,
+                           p_len: int) -> torch.Tensor:
+        """Suffix rows [B, S] and one template's cache -> [B, D]
+        features."""
+        return self.text(tokens, prefix_kv=prefix_kv, p_len=p_len)
 
     def forward(self, images: torch.Tensor, tokens: torch.Tensor
                 ) -> torch.Tensor:

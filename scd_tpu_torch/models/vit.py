@@ -27,7 +27,10 @@ package computes on a CPU, so the CPU tests compare with it.
 Attention goes through :func:`scd_tpu_torch.ops.attention.qkv_attention`
 on the packed qkv projection, with the JAX package's masks (pad keys
 masked out, causal for the text tower): on a CUDA device the hand-written
-kernel (``csrc/attention.cu``), on the CPU its plain version.
+kernel (``csrc/attention.cu``), on the CPU its plain version.  With a
+cached prefix (``prefix_kv``, the text tower's prefix-KV modes) it goes
+through ``ops.attention.prefix_attention`` (``csrc/prefix_attention.cu``
+on a CUDA device).
 
 Training: parameters are made with ``requires_grad=False`` (serving builds
 no graph); a trainer switches on the ones it trains.  A trainable
@@ -54,7 +57,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from scd_tpu_torch.ops import w8a8
-from scd_tpu_torch.ops.attention import qkv_attention
+from scd_tpu_torch.ops.attention import (_heads, prefix_attention,
+                                         qkv_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,9 +259,15 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention on a packed qkv projection (non-prefix
-    modes).  ``real_len``: keys at or beyond it are sequence padding and
-    are masked out; ``causal``: the text tower's mask."""
+    """Multi-head self-attention on a packed qkv projection.
+    ``real_len``: keys at or beyond it are sequence padding and are masked
+    out; ``causal``: the text tower's mask.  ``prefix_kv``: a cached
+    prefix's (k, v), each [P, H, d], shared by the batch; the queries then
+    attend [prefix, own causal] through :func:`~scd_tpu_torch.ops.
+    attention.prefix_attention`, prefix keys at or past ``p_valid`` masked.
+    ``return_kv``: also return this layer's (k, v) head views [B, L, H,
+    d], the cache a later prefix call feeds back in.  Both serve the
+    prefix-KV vocabulary build (``naming/zeroshot.py``)."""
 
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
@@ -267,12 +277,24 @@ class Attention(nn.Module):
                            device=device)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                real_len: Optional[int] = None) -> torch.Tensor:
+                real_len: Optional[int] = None, prefix_kv=None,
+                p_valid: Optional[int] = None, return_kv: bool = False):
         c = self.cfg
         qkv = self.qkv(x).to(c.compute_dtype).contiguous()
-        out = qkv_attention(qkv, c.heads, float(c.width // c.heads) ** -0.5,
-                            causal=causal, l_valid=real_len)
-        return self.proj(out).to(c.compute_dtype)
+        scale = float(c.width // c.heads) ** -0.5
+        if prefix_kv is None and not return_kv:
+            out = qkv_attention(qkv, c.heads, scale, causal=causal,
+                                l_valid=real_len)
+            return self.proj(out).to(c.compute_dtype)
+        heads = _heads(qkv, c.heads)  # q, k, v [B, L, H, d] views
+        if prefix_kv is not None:
+            out = prefix_attention(*heads, *prefix_kv, scale,
+                                   p_valid).flatten(2)
+        else:
+            out = qkv_attention(qkv, c.heads, scale, causal=causal,
+                                l_valid=real_len)
+        out = self.proj(out).to(c.compute_dtype)
+        return (out, heads[1:]) if return_kv else out
 
 
 class Block(nn.Module):
@@ -284,9 +306,19 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg, device=device)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                real_len: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), causal=causal, real_len=real_len)
-        return x + self.mlp(self.norm2(x))
+                real_len: Optional[int] = None, prefix_kv=None,
+                p_valid: Optional[int] = None, return_kv: bool = False):
+        """See :class:`Attention` for ``prefix_kv``, ``p_valid`` and
+        ``return_kv`` (which returns ``(x, (k, v))``)."""
+        attn = self.attn(self.norm1(x), causal=causal, real_len=real_len,
+                         prefix_kv=prefix_kv, p_valid=p_valid,
+                         return_kv=return_kv)
+        kv = None
+        if return_kv:
+            attn, kv = attn
+        x = x + attn
+        x = x + self.mlp(self.norm2(x))
+        return (x, kv) if return_kv else x
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,15 @@ sharded` without a mesh) keeps the JAX package's host-side plan:
 length-sorted names, three length-sorted template groups encoded at their
 own sequence buckets when that saves a bucket, and EOT-bucket truncation
 (exact for a causal tower pooled at EOT).  The prefix-KV build
-(``SCD_PREFIX_VOCAB=1``) and the mesh-sharded build are not ported yet
-(ROADMAP).
+(:func:`build_zeroshot_weights_prefix`, opt-in with ``SCD_PREFIX_VOCAB=1``)
+encodes each template's shared prefix once and runs only the name and
+template-tail tokens of every prompt.  The mesh-sharded build is not
+ported (multi-device, ROADMAP): a ``mesh`` other than None raises.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Sequence
 
 import numpy as np
@@ -56,20 +59,44 @@ def _ensemble_reduce(emb: torch.Tensor) -> torch.Tensor:
     return mean / mean.norm(dim=-1, keepdim=True)
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the mesh-sharded vocabulary build is not "
+                                  "ported (multi-device); pass mesh=None")
+
+
 def build_zeroshot_weights(encode_text_fn: Callable[[List[str]], np.ndarray],
                            classnames: Sequence[str],
                            templates: Sequence[str],
-                           names_per_batch: int = 64) -> np.ndarray:
+                           names_per_batch: int = 64,
+                           mesh=None) -> np.ndarray:
     """The [D, V] zero-shot weight matrix (one column per name).
 
     ``encode_text_fn`` maps prompt strings to raw embeddings [len, D]
     (numpy or a tensor).  When it also exposes ``forward`` / ``variables``
     / ``tokenize`` (the pipeline's CLIP encoder does) and the vocabulary
     holds at least two batches of names, the batched builder
-    :func:`build_zeroshot_weights_sharded` runs; small calls (the
-    missing-name repair) encode prompt strings batch by batch."""
+    :func:`build_zeroshot_weights_sharded` runs, or, with
+    ``SCD_PREFIX_VOCAB=1`` and the prefix hooks ``prefix_forward`` /
+    ``suffix_forward`` present (the pipeline sets them unless
+    ``dense_int8``), :func:`build_zeroshot_weights_prefix`; small calls
+    (the missing-name repair) encode prompt strings batch by batch.
+    ``mesh`` takes None only."""
+    _no_mesh(mesh)
     if hasattr(encode_text_fn, "forward") and \
             len(classnames) >= 2 * names_per_batch:
+        # the JAX package keeps multi-controller processes on the full-row
+        # build; the port drives one card from one process (multi-device
+        # is not ported), so this is never one
+        is_multiprocess = False
+        if (os.environ.get("SCD_PREFIX_VOCAB", "0") == "1"
+                and hasattr(encode_text_fn, "prefix_forward")
+                and hasattr(encode_text_fn.tokenize, "template_pieces")
+                and not is_multiprocess):
+            return build_zeroshot_weights_prefix(
+                encode_text_fn.forward, encode_text_fn.prefix_forward,
+                encode_text_fn.suffix_forward, encode_text_fn.variables,
+                encode_text_fn.tokenize, classnames, templates)
         return build_zeroshot_weights_sharded(
             encode_text_fn.forward, encode_text_fn.variables,
             encode_text_fn.tokenize, classnames, templates,
@@ -156,3 +183,170 @@ def build_zeroshot_weights_sharded(forward, variables, tokenize,
         unsorted[order] = weights
         weights = unsorted
     return weights.T.astype(np.float32)  # [D, V]
+
+
+# Suffix-row buckets of the prefix-KV build: name tokens, the template's
+# tail and EOT nearly always fit in 8 or 16 tokens.
+PREFIX_SUFFIX_BUCKETS = (8, 16)
+PREFIX_ROW_MAX = 16  # templates with longer [SOT] + prefix rows fall back
+
+
+def prefix_plan(tokenize, classnames: Sequence[str],
+                templates: Sequence[str]):
+    """How :func:`build_zeroshot_weights_prefix` splits the work: returns
+    ``(cached, fallback_t, cached_n, fallback_n, name_toks, s_cap)``.
+    ``cached`` holds a (prefix row, suffix tail) pair per spliceable
+    template whose [SOT] + prefix row fits ``PREFIX_ROW_MAX`` (the tail
+    ends in EOT); ``fallback_t`` the other templates' indices;
+    ``cached_n`` / ``fallback_n`` the names that splice into every cached
+    template / that do not (a punctuation hazard at a boundary, or too
+    long for the suffix cap ``s_cap``); ``name_toks`` every name's
+    tokens.  With no cached template every name falls back."""
+    sot, eot = tokenize.sot_id, tokenize.eot_id
+    context_length = 77
+    cached, fallback_t = [], []
+    any_pre_punct = any_suf_punct = False
+    for ti, (pre, suf, _tmpl, pre_p, suf_p) in enumerate(
+            tokenize.template_pieces(templates)):
+        prow = None if pre is None else [sot] + list(pre)
+        if prow is None or len(prow) > PREFIX_ROW_MAX:
+            fallback_t.append(ti)
+            continue
+        cached.append((prow, list(suf) + [eot]))
+        any_pre_punct |= pre_p
+        any_suf_punct |= suf_p
+    name_toks = [tokenize.encode(n) for n in classnames]
+    if not cached:
+        return cached, fallback_t, [], list(range(len(classnames))), \
+            name_toks, 0
+    max_plen = max(len(prow) for prow, _ in cached)
+    max_tail = max(len(tail) for _, tail in cached)
+    s_cap = min(PREFIX_SUFFIX_BUCKETS[-1], context_length - max_plen)
+    cached_n, fallback_n = [], []
+    for ni, name in enumerate(classnames):
+        head_p, tail_p = tokenize.name_boundary_punct(name)
+        if ((head_p and any_pre_punct) or (tail_p and any_suf_punct)
+                or len(name_toks[ni]) + max_tail + 1 > s_cap):
+            fallback_n.append(ni)
+        else:
+            cached_n.append(ni)
+    return cached, fallback_t, cached_n, fallback_n, name_toks, s_cap
+
+
+def build_zeroshot_weights_prefix(forward, prefix_forward, suffix_forward,
+                                  variables, tokenize,
+                                  classnames: Sequence[str],
+                                  templates: Sequence[str], mesh=None,
+                                  names_per_chunk: int = 8192) -> np.ndarray:
+    """Prefix-KV vocabulary embedding: each template's shared prefix is
+    encoded once, and every prompt runs only its ``name + template tail +
+    EOT`` tokens against that cache.
+
+    In a causal tower the prefix activations depend only on the prefix
+    tokens, so ``prefix_forward(variables, rows [T, P])`` returns every
+    cached template's per-layer (k, v) stacks [depth, T, P, H, d] in one
+    pass, and ``suffix_forward(variables, rows [n, s], (k, v), p_len)``
+    encodes suffix rows at positions ``p_len + j`` attending [prefix, own
+    causal] (``models/clip.py::TextTransformer``).  Per chunk of
+    ``names_per_chunk`` length-sorted names: one suffix step per cached
+    template adding the normalized embeddings into one f32 [chunk, D] sum
+    on the device, one full-row step per fallback template (its rows
+    from one ``prompt_tokens`` splice per chunk where the tokenizer has
+    it: the same ids as tokenizing each prompt), one finalize (mean,
+    renormalize) and one fetch, the fetch two chunks behind so the host
+    assembles the next rows while the device works.
+
+    Exactness: the splice is token-exact (``tokenizer.template_pieces``,
+    ``name_boundary_punct``) and the attention sees the same keys in the
+    same order, so the columns match the full-row build to float rounding.
+    What the splice cannot cover falls back: templates without a literal
+    '{}' (or whose [SOT] + prefix row is longer than ``PREFIX_ROW_MAX``)
+    accumulate through full-row ``forward`` steps; names with a
+    punctuation hazard at a boundary, or too long for the suffix bucket,
+    go through :func:`build_zeroshot_weights_sharded`.  Port of
+    ``scd_tpu/naming/zeroshot.py::build_zeroshot_weights_prefix`` on one
+    device (``mesh`` takes None only); the last chunk is not padded to
+    the chunk size, since eager PyTorch compiles nothing per shape.
+    """
+    _no_mesh(mesh)
+    cached, fallback_t, cached_n, fallback_n, name_toks, s_cap = \
+        prefix_plan(tokenize, classnames, templates)
+    if not cached or not cached_n:
+        return build_zeroshot_weights_sharded(forward, variables, tokenize,
+                                              classnames, templates)
+    max_plen = max(len(prow) for prow, _ in cached)
+
+    # ---- one pass encodes every cached template's prefix KV
+    p_bucket = _bucket_for(max_plen, PREFIX_ROW_MAX,
+                           buckets=PREFIX_SUFFIX_BUCKETS)
+    prow_mat = np.zeros((len(cached), p_bucket), np.int32)
+    for i, (prow, _) in enumerate(cached):
+        prow_mat[i, :len(prow)] = prow
+    k_all, v_all = prefix_forward(variables, prow_mat)
+
+    order = sorted(cached_n, key=lambda ni: len(name_toks[ni]))
+    chunk = max(min(names_per_chunk, len(order)), 1)
+    results = []  # (device weights [n, D], name indices)
+    weights = None
+
+    def drain(upto: int):
+        nonlocal weights
+        while len(results) > upto:
+            w_dev, idxs = results.pop(0)
+            w = w_dev.cpu().numpy()
+            if weights is None:
+                weights = np.zeros((len(classnames), w.shape[1]), np.float32)
+            weights[idxs] = w
+
+    def add(acc, emb):
+        emb = emb.float()
+        emb = emb / emb.norm(dim=-1, keepdim=True)
+        return emb if acc is None else acc + emb
+
+    for start in range(0, len(order), chunk):
+        idxs = order[start:start + chunk]
+        n = len(idxs)
+        nlen = np.fromiter((len(name_toks[i]) for i in idxs), np.int64, n)
+        max_n = int(nlen.max())
+        nmat = np.zeros((n, max_n), np.int32)
+        for r, i in enumerate(idxs):
+            nmat[r, :nlen[r]] = name_toks[i]
+        acc = None
+        for t_pos, (prow, tail) in enumerate(cached):
+            s = _bucket_for(max_n + len(tail), s_cap,
+                            buckets=PREFIX_SUFFIX_BUCKETS)
+            rows = np.zeros((n, s), np.int32)
+            rows[:, :max_n] = nmat
+            rows[np.arange(n)[:, None],
+                 nlen[:, None] + np.arange(len(tail))[None]] = \
+                np.asarray(tail, np.int32)[None]
+            acc = add(acc, suffix_forward(
+                variables, rows, (k_all[:, t_pos], v_all[:, t_pos]),
+                len(prow)))
+        if fallback_t:
+            fb_templates = [templates[ti] for ti in fallback_t]
+            chunk_names = [classnames[i] for i in idxs]
+            if hasattr(tokenize, "prompt_tokens"):
+                # the ids tokenize(template.format(name)) gives, spliced
+                # with each name encoded once: per-prompt BPE of the
+                # fallback templates would bound the build on the host
+                fb = tokenize.prompt_tokens(fb_templates, chunk_names)
+            else:
+                fb = tokenize([t.format(x) for x in chunk_names
+                               for t in fb_templates])
+            fb = np.asarray(fb, np.int32).reshape(n, len(fallback_t), -1)
+            for j in range(len(fallback_t)):
+                acc = add(acc, forward(variables, truncate_to_eot_bucket(
+                    np.ascontiguousarray(fb[:, j]))))
+        mean = acc / len(templates)
+        results.append((mean / mean.norm(dim=-1, keepdim=True), idxs))
+        drain(2)  # two chunks in flight; the host assembles ahead
+    drain(0)
+
+    # ---- fallback names take the full-row build
+    if fallback_n:
+        w_fb = build_zeroshot_weights_sharded(
+            forward, variables, tokenize,
+            [classnames[i] for i in fallback_n], templates)  # [D, M]
+        weights[fallback_n] = w_fb.T
+    return weights.T.astype(np.float32)  # [D, V], the reference layout

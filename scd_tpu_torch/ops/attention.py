@@ -53,6 +53,22 @@ also the card's reference).  The JAX package differentiates its attention
 with XLA autodiff, so the kernel replaces no Pallas kernel.  The gradient
 lands in one packed [B, L, 3W] buffer, the gradient of the qkv Dense's
 output.
+
+Prefix attention (:func:`prefix_attention`, the prefix-KV vocabulary
+build's text tower): suffix queries q [B, S, H, d] attend the keys
+[prefix, suffix]: a per-template prefix pk / pv [P, H, d] shared by the
+whole batch, its keys at or past ``p_valid`` (pad tokens) masked, then
+their own suffix keys k / v [B, S, H, d] under a causal mask.  The
+contract is the one above (scores in f32 from products of the input type,
+softmax in f32, p rounded to v's type, p . v accumulated in f32 and stored
+in v's type).  The JAX package's ``_prefix_attention``
+(``scd_tpu/models/vit.py``) stores its scores at the compute dtype, so
+under bf16 the two differ by the scores' rounding, as the full-row
+attention already differs from ``_manual_attention_bf16``; in f32 they
+agree to f32 rounding.  A CUDA tensor launches the hand-written
+``csrc/prefix_attention.cu`` (one block per (batch, head); S <= 16, P + S
+<= 32, head_dim <= 128, else it raises); a CPU tensor runs
+:func:`prefix_attention_plain`.  Neither materializes [B, P, H, d].
 """
 
 from __future__ import annotations
@@ -377,3 +393,120 @@ attention_cuda.launches = 0
 attention_cuda.long_launches = 0
 attention_cuda.long_wgmma_launches = 0
 attention_cuda.f32_wgmma_launches = 0
+
+
+PREFIX_MAX_S = 16  # suffix rows the prefix kernel takes
+PREFIX_MAX_KEYS = 32  # prefix + suffix keys
+PREFIX_MAX_HD = 128
+
+
+def prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pk: torch.Tensor, pv: torch.Tensor, scale: float,
+                     p_valid: int) -> torch.Tensor:
+    """Suffix queries over [cached prefix, own causal] keys (the JAX
+    package's ``_prefix_attention`` contract, module docstring): q, k, v
+    [B, S, H, d] (views of a packed qkv), pk, pv [P, H, d] shared by the
+    batch, ``p_valid`` the real prefix length (keys at or past it are
+    masked) -> [B, S, H, d] in v's dtype, contiguous.  A CUDA tensor
+    launches the kernel, a CPU one runs the plain version; any other
+    device raises."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, S, H, d] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if pk.dim() != 3 or pk.shape != pv.shape or \
+            tuple(pk.shape[1:]) != tuple(q.shape[2:]):
+        raise ValueError(f"pk, pv must share one [P, H, d] shape with q's "
+                         f"H, d, got {tuple(pk.shape)}, {tuple(pv.shape)} "
+                         f"for q {tuple(q.shape)}")
+    if q.is_cuda:
+        return prefix_attention_cuda(q, k, v, pk, pv, scale, p_valid)
+    if q.device.type != "cpu":
+        raise ValueError(f"prefix_attention: unsupported device {q.device}")
+    return prefix_attention_plain(q, k, v, pk, pv, scale, p_valid)
+
+
+def prefix_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, pk: torch.Tensor,
+                           pv: torch.Tensor, scale: float,
+                           p_valid: int) -> torch.Tensor:
+    """The plain PyTorch version of the prefix kernel, on any device: f32
+    products of the upcast inputs (exact for bf16 products; TF32 off),
+    the prefix broadcast inside the einsums."""
+    n_pre, s_len = pk.shape[0], q.shape[1]
+    qf = q.float()
+    s_pre = torch.einsum("bshd,phd->bhsp", qf, pk.float()) * scale
+    s_pre = s_pre.masked_fill(
+        torch.arange(n_pre, device=q.device) >= int(p_valid),
+        float("-inf"))
+    s_suf = torch.einsum("bshd,bmhd->bhsm", qf, k.float()) * scale
+    col = torch.arange(s_len, device=q.device)
+    s_suf = s_suf.masked_fill(col[None, :] > col[:, None], float("-inf"))
+    s = torch.cat([s_pre, s_suf], dim=-1)  # [B, H, S, P + S]
+    e = (s - s.amax(dim=-1, keepdim=True)).exp_()
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).float()
+    out = torch.einsum("bhsp,phd->bshd", p[..., :n_pre], pv.float()) \
+        + torch.einsum("bhsm,bmhd->bshd", p[..., n_pre:], v.float())
+    return out.to(v.dtype).contiguous()
+
+
+def _prefix_vec(*views: torch.Tensor) -> bool:
+    """Every view's base, strides and head row allow 16-byte loads."""
+    return not any(
+        t.data_ptr() % 16 or t.shape[-1] * t.element_size() % 16
+        or any(s * t.element_size() % 16 for s in t.stride()[:-1])
+        for t in views)
+
+
+def prefix_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pk: torch.Tensor, pv: torch.Tensor, scale: float,
+                          p_valid: int) -> torch.Tensor:
+    """One launch of ``csrc/prefix_attention.cu`` on CUDA views (any batch,
+    row and head strides, the last dimension contiguous), all bf16 or all
+    f32 on one device; S <= 16, P + S <= 32, head_dim <= 128, else it
+    raises.  It has no gradient: a call that would need one raises.
+    Returns a contiguous [B, S, H, d]; counts each launch in
+    ``prefix_attention_cuda.launches``."""
+    dev = q.device
+    views = (q, k, v, pk, pv)
+    if not all(t.is_cuda and t.device == dev for t in views):
+        raise ValueError("prefix_attention_cuda takes CUDA tensors on one "
+                         "device")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != q.dtype for t in views):
+        raise TypeError(f"prefix_attention_cuda takes all-bf16 or all-f32 "
+                        f"inputs, got {[str(t.dtype) for t in views]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in views):
+        raise NotImplementedError("the prefix attention kernel has no "
+                                  "gradient")
+    b, s_len, heads, hd = q.shape
+    n_pre = pk.shape[0]
+    if not (1 <= s_len <= PREFIX_MAX_S and n_pre + s_len <= PREFIX_MAX_KEYS
+            and 1 <= hd <= PREFIX_MAX_HD and b >= 1):
+        raise ValueError(f"the prefix attention kernel takes S <= "
+                         f"{PREFIX_MAX_S}, P + S <= {PREFIX_MAX_KEYS} and "
+                         f"head_dim <= {PREFIX_MAX_HD}, got B {b}, S "
+                         f"{s_len}, P {n_pre}, head_dim {hd}")
+    if any(t.stride(-1) != 1 for t in views):
+        raise ValueError("prefix_attention_cuda: the head dimension must be "
+                         "contiguous")
+    out = torch.empty(b, s_len, heads, hd, dtype=q.dtype, device=dev)
+    fn = build.load("prefix_attention").prefix_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_longlong] * 16 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(*(t.data_ptr() for t in views), out.data_ptr(),
+                int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k),
+                *_strides(v), *pk.stride()[:2], *pv.stride()[:2],
+                *out.stride()[:3], b, heads, s_len, n_pre, hd,
+                max(0, min(int(p_valid), n_pre)), float(scale),
+                int(_prefix_vec(*views)), stream)
+    build.check(rc, "prefix_attention")
+    prefix_attention_cuda.launches += 1
+    return out
+
+
+prefix_attention_cuda.launches = 0

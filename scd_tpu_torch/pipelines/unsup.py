@@ -9,7 +9,10 @@ per-iteration ACC/sACC/Soft-sACC printouts -> name-set IoU.  The metric
 lines are byte-identical to the JAX package's.  ``--int8`` runs the towers'
 qkv and fc1 layers through the W8A8 kernels.  The synthetic dataset runs
 with the synthetic encoder pair (``models/synthetic.py``) and needs no
-assets.  The ``resnet50`` backbone comes with a later slice (ROADMAP).
+assets.  ``--feat_model resnet50`` takes the ResNet-50 backbone
+(``models/resnet50.py``).  With ``SCD_PREFIX_VOCAB=1`` (and ``--int8``
+off) the vocabulary build takes the prefix-KV route
+(``naming/zeroshot.py::build_zeroshot_weights_prefix``).
 
 Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name synthetic
 --device cpu`` (asset-free), or ``... --dataset_name imagenet_100
@@ -109,7 +112,9 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
 
     ``encode_text`` also exposes ``forward(model, tokens)``, ``variables``
     (the CLIP model) and ``tokenize``, which the batched vocabulary build
-    uses."""
+    uses, and, unless ``cfg.feature.dense_int8``, the prefix-KV hooks
+    ``prefix_forward(model, tokens)`` and ``suffix_forward(model, tokens,
+    kv, p_len)`` of the ``SCD_PREFIX_VOCAB=1`` build."""
     import torch
 
     from scd_tpu_torch.data.transforms import device_normalize_clip
@@ -164,6 +169,22 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
     encode_text.forward = text_forward
     encode_text.variables = clip_model
     encode_text.tokenize = tokenizer
+    if not cfg.feature.dense_int8:
+        # the prefix-KV hooks of the opt-in SCD_PREFIX_VOCAB=1 build; the
+        # int8 knob skips them, as in the JAX package (its sequence padding
+        # does not compose with 8-token suffixes)
+        def text_prefix_forward(model, tokens):
+            with torch.inference_mode():
+                return model.encode_text_prefix(
+                    torch.as_tensor(tokens).to(dev))
+
+        def text_suffix_forward(model, tokens, kv, p_len):
+            with torch.inference_mode():
+                return model.encode_text_suffix(
+                    torch.as_tensor(tokens).to(dev), kv, p_len)
+
+        encode_text.prefix_forward = text_prefix_forward
+        encode_text.suffix_forward = text_suffix_forward
 
     if name == "clip":
         return clip_encode_image, clip_encode_image, encode_text

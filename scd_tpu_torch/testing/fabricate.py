@@ -630,6 +630,33 @@ def write_bpe_merges(path: str, seed: int = 0,
     return path
 
 
+# words per name in a vocabulary build's traffic: the mix of the JAX
+# package's own measurement of that build (``bench.py::bench_vocab_build``,
+# "WordNet-ish mix: ~60% one-word, 30% two-word, 10% three-word lemmas")
+NAME_WORD_MIX = (0.6, 0.3, 0.1)
+
+
+def short_names(tokenizer, n: int, seed: int = 0) -> List[str]:
+    """``n`` names of one, two or three words in the shares of
+    :data:`NAME_WORD_MIX`, each word a single token of ``tokenizer`` (an
+    alphabetic word-final entry of its vocabulary, three letters or more,
+    that encodes to itself), drawn with repetition as that measurement
+    draws its names (about 1,300 such words: distinct names would push
+    the mix to two and three words).  Under
+    :func:`write_bpe_merges`'s random merges a cold root's own names
+    (``noun_00123``) take nine tokens and the templates' tails up to
+    twelve, so no such name fits the prefix-KV build's 16-token suffix
+    rows."""
+    words = sorted(w[:-4] for w in tokenizer.encoder
+                   if w.endswith("</w>") and w[:-4].isalpha()
+                   and len(w) >= 7)
+    words = [w for w in words if len(tokenizer.encode(w)) == 1]
+    rng = np.random.default_rng(seed)
+    n_words = 1 + rng.choice(len(NAME_WORD_MIX), size=n, p=NAME_WORD_MIX)
+    return [" ".join(words[i] for i in rng.integers(0, len(words), k))
+            for k in n_words]
+
+
 def cold_config(root: str, dense_int8: bool = True, n_clusters: int = 100,
                 n_init: int = 10, max_iterations: int = 10,
                 batch_size: int = 128, num_workers: int = 8

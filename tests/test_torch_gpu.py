@@ -535,6 +535,67 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     assert A.attention_cuda.f32_wgmma_launches == f32_before
 
 
+@pytest.mark.parametrize("b,s,n_pre,p_valid,h,d,dtype,packed", [
+    (512, 16, 16, 11, 8, 64, torch.bfloat16, True),  # the build's shapes
+    (512, 8, 16, 16, 8, 64, torch.bfloat16, True),
+    (64, 16, 16, 9, 8, 64, torch.float32, True),
+    (9, 5, 3, 0, 3, 38, torch.bfloat16, False),  # scalar loads, d pad 40
+    (3, 16, 16, 20, 2, 128, torch.float32, False),  # 32 keys, d 128
+    (7, 1, 0, 0, 5, 13, torch.float32, False)])
+def test_prefix_attention_kernel_matches_plain(cuda, b, s, n_pre, p_valid,
+                                               h, d, dtype, packed):
+    """The prefix attention kernel (``csrc/prefix_attention.cu``) against
+    its plain version within ``_attention_within`` (max|v| over the
+    prefix's values and the suffix's), on views of a packed qkv or
+    contiguous tensors; one launch a call, and two runs repeat their
+    bits."""
+    from scd_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(s + n_pre + d)
+    if packed:
+        qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+        t = qkv.unflatten(-1, (3, h, d))
+        q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    else:
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+                   for _ in range(3))
+    pk, pv = (torch.randn(n_pre, h, d, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    before = A.prefix_attention_cuda.launches
+    got = A.prefix_attention(q, k, v, pk, pv, d ** -0.5, p_valid)
+    assert A.prefix_attention_cuda.launches == before + 1
+    assert got.shape == (b, s, h, d) and got.dtype == dtype
+    assert torch.equal(got, A.prefix_attention(q, k, v, pk, pv, d ** -0.5,
+                                               p_valid))
+    want = A.prefix_attention_plain(q, k, v, pk, pv, d ** -0.5, p_valid)
+    assert _attention_within(got, want, torch.cat([v.flatten(),
+                                                   pv.flatten()]))
+
+
+def test_prefix_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from scd_tpu_torch.ops import attention as A
+
+    x = torch.zeros(2, 17, 2, 64, device=cuda)
+    p = torch.zeros(4, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="S <= 16"):
+        A.prefix_attention(x, x, x, p, p, 0.125, 4)
+    y = torch.zeros(2, 16, 2, 64, device=cuda)
+    for n_pre in (17, 48):  # 33 and 64 keys
+        pp = torch.zeros(n_pre, 2, 64, device=cuda)
+        with pytest.raises(ValueError, match="P \\+ S <= 32"):
+            A.prefix_attention(y, y, y, pp, pp, 0.125, 4)
+    z = torch.zeros(2, 16, 2, 136, device=cuda)
+    pz = torch.zeros(4, 2, 136, device=cuda)
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        A.prefix_attention(z, z, z, pz, pz, 0.125, 4)
+    with pytest.raises(TypeError):
+        A.prefix_attention(y.half(), y.half(), y.half(), p.half(),
+                           p.half(), 0.125, 4)
+    yg = y.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="gradient"):
+        A.prefix_attention(yg, y, y, p, p, 0.125, 4)
+
+
 @pytest.mark.parametrize("pixels", [64, 256])
 def test_tower_attention_runs_the_kernel(cuda, pixels):
     """A bf16 CLIP image tower on the card launches the attention kernel

@@ -4,8 +4,9 @@ A fresh interpreter imports every ``scd_tpu_torch`` module (the towers,
 the tokenizer, the kernels' ops, the runners, the serving entry point, the
 ptsup entry point, the constrained and FINCH clusterers, the min-cost-flow
 bridge, the reference-cache importer, the training subpackages ``train``
-and ``utils``, the NCD baselines, WTA hashing and the ResNet towers among
-them) and ``chip_smoke``, then looks at
+and ``utils`` (the runtime, log-parsing and plot modules too), the NCD
+baselines, WTA hashing and the ResNet towers among them) and
+``chip_smoke``, then looks at
 ``sys.modules``.  ``scd_tpu_torch`` itself
 starts with ``scd_tpu``, so the check matches the JAX package by exact name
 or the ``scd_tpu.`` prefix.
@@ -41,12 +42,14 @@ def test_port_imports_no_jax_and_no_scd_tpu():
     # the towers, tokenizer, W8A8 and attention ops, runners, serving,
     # ptsup, interop, constrained + sinkhorn + native, finch, training,
     # the baselines, WTA hashing and the ResNet towers
-    assert int(n_modules) >= 79
+    assert int(n_modules) >= 82
     assert bad == "[]", bad
     assert {f"scd_tpu_torch.train.{m}" for m in (
         "losses", "schedulers", "checkpoint", "gcd", "metric_learn",
         "baselines", "baselines_e2e", "run_baseline", "run_baseline_e2e")} | {
         "scd_tpu_torch.utils.experiment", "scd_tpu_torch.data.augment",
         "scd_tpu_torch.data.transforms", "scd_tpu_torch.ops.wta",
-        "scd_tpu_torch.models.resnet", "scd_tpu_torch.models.resnet50"} <= \
+        "scd_tpu_torch.models.resnet", "scd_tpu_torch.models.resnet50",
+        "scd_tpu_torch.utils.runtime", "scd_tpu_torch.utils.logparse",
+        "scd_tpu_torch.utils.plots"} <= \
         set(names.split(","))

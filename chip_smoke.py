@@ -2,12 +2,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--against-bwd SRC.cu] [--against-fwd SRC.cu]
+                          [--against-prefix SRC.cu] [--profile-prefix]
 
 Phases, each printing its own lines and seconds:
 
 1. device and build: the card's name and power limit (``nvidia-smi``),
    then every CUDA kernel built from ``scd_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together) with the compiler's register report;
+   per source, started together) with the compiler's register report
+   (no redesigned kernel may spill) and the tensor-core instructions of
+   the SASS (HGMMA / IGMMA; HMMA in the prefix ``mma.sync`` kernel);
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge shapes (attention at L 257,
    325, 577, 785 and 1,025 through its long paths: bf16 on ``wgmma``,
@@ -173,23 +176,28 @@ Phases, each printing its own lines and seconds:
    mains, the card steps and the frozen CLI hold every kernel call
    against its plain version on the path's arguments (``path_inputs``).
 12. the prefix-KV vocabulary build (``SCD_PREFIX_VOCAB=1``): the prefix
-   attention kernel (``csrc/prefix_attention.cu``) against its plain
+   attention kernels (``csrc/prefix_attention.cu``) against their plain
    version at the build's shapes (B 8,192 x S 16 and 8 x P 16 x H 8 x d
-   64 bf16, one p_valid < P; one f32 case); then, through the CLIP
-   ViT-B/16 text tower that ``build_encoders`` makes from a fabricated
-   cold root (bf16, ``dense_int8`` off), ``build_zeroshot_weights`` for
-   8,192 fabricated names of one to three tokens in the JAX package's
-   word mix (``testing/fabricate.py::short_names``, all cached) x the 80
-   ImageNet templates, once on the prefix route and once on the
-   full-row route: the prefix kernel must launch 12 x (cached templates)
-   x (chunks) times, the two [512, 8,192] matrices must agree to a
-   minimum column cosine of PREFIX_COS_TOL; then the same on 1,024 of
-   those names and 128 of the root's own, which fall back, timed apart;
-   both builds' prompts/s (warm), the fallback templates and names, every
-   kernel call of the prefix build held against its plain version on its
-   arguments (``path_inputs``), and the kernel's time at the build's
-   shapes beside its plain version, SDPA (a yardstick, never on the path)
-   and its bound.
+   64 bf16 on the ``mma.sync`` kernel, one p_valid < P; one f32 case on
+   the SIMT kernel); then, through the CLIP ViT-B/16 text tower that
+   ``build_encoders`` makes from a fabricated cold root (bf16,
+   ``dense_int8`` off), ``build_zeroshot_weights`` for 8,192 fabricated
+   names of one to three tokens in the JAX package's word mix
+   (``testing/fabricate.py::short_names``, all cached) x the 80 ImageNet
+   templates, once on the prefix route and once on the full-row route:
+   the prefix kernel must launch 12 x (cached templates) x (chunks)
+   times, every launch on the ``mma.sync`` kernel, the two [512, 8,192]
+   matrices must agree to a minimum column cosine of PREFIX_COS_TOL; then
+   the same on 1,024 of those names and 128 of the root's own, which fall
+   back, timed apart; both builds' prompts/s (warm), the fallback
+   templates and names, every kernel call of the prefix build held
+   against its plain version on its arguments (``path_inputs``), with
+   ``--profile-prefix`` the cached-name prefix build's device time by
+   kernel (``torch.profiler``), and the kernel's time at the build's
+   shapes beside its plain version, SDPA (a yardstick, never on the
+   path), its bound and, with ``--against-prefix SRC.cu``, another build
+   of ``csrc/prefix_attention.cu`` (e.g. the parent commit's SIMT
+   kernel) timed in turns on the same inputs.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -206,8 +214,8 @@ and the f32 kernels at head_dim 64 of the attention
 (``qkv_attention_f32``) and its gradient (``attention_bwd_f32``), with
 phase 11's end-to-end mains and phase 5's times at B 128 x L 197; and a
 row, ``prefix_attention`` (no TPU kernel: the JAX package's prefix
-attention is plain XLA), with phase 12's prefix build and times at its
-first shape.
+attention is plain XLA), with the ``mma.sync`` kernel's launches in phase
+12's prefix build and times at its first shape.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 10 (the attention forward, its gradient and ``fused_em_step`` in
@@ -317,6 +325,8 @@ SOURCES = ("topk_softmax", "fused_em", "w8a8", "attention", "estep",
            "attention_bwd", "prefix_attention")
 # the attention gradient's bf16 kernels (wgmma fed by TMA)
 BWD_WGMMA_KERNELS = ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+# the prefix attention's bf16 kernel at head_dim 64 (mma.sync tiles)
+PREFIX_MMA_KERNEL = "prefix_mma_kernel"
 # the f32 attention kernels at head_dim 64 (three TF32 passes on wgmma fed
 # by TMA), by source
 F32_WGMMA_KERNELS = {"attention": ("attn_f32_wgmma_kernel",),
@@ -443,11 +453,18 @@ def phase_build():
                       for ln in lines), f"attention_bwd: the {kern} spills")
             check(not any("wgmma" in ln and kern in ln for ln in lines),
                   f"attention_bwd: ptxas serializes the {kern}'s wgmma")
+    hmma = sass_counts(build.library_path("prefix_attention"), ("HMMA",))
+    for fn, (n,) in hmma.items():
+        print(f"  prefix_attention SASS {fn}: HMMA {n}")
+    mma_fns = [fn for fn in hmma if fn.startswith(PREFIX_MMA_KERNEL)]
+    check(mma_fns and all(hmma[fn][0] > 0 for fn in mma_fns),
+          f"prefix_attention: no HMMA in a {PREFIX_MMA_KERNEL} instance")
     if "prefix_attention" in reports:  # built now: its ptxas report is here
-        lines = [ln for ln in ptxas_summary(reports["prefix_attention"])
-                 if ln.startswith("prefix_attn_kernel")]
-        check(lines and all("spill 0 / 0 bytes" in ln for ln in lines),
-              "prefix_attention: a prefix_attn_kernel instance spills")
+        lines = ptxas_summary(reports["prefix_attention"])
+        for kern in ("prefix_attn_kernel", PREFIX_MMA_KERNEL):
+            mine = [ln for ln in lines if ln.startswith(kern)]
+            check(mine and all("spill 0 / 0 bytes" in ln for ln in mine),
+                  f"prefix_attention: a {kern} instance spills")
     if "estep" in reports:  # built now: its ptxas report is here
         lines = ptxas_summary(reports["estep"])
         check(any(ln.startswith("estep_kernel:") and "spill 0 / 0 bytes" in ln
@@ -505,8 +522,9 @@ def ptxas_summary(log: str):
     return out
 
 
-def sass_counts(lib: str):
-    """{kernel: (HGMMA, IGMMA)} instruction counts in ``lib``'s SASS."""
+def sass_counts(lib: str, ops=("HGMMA", "IGMMA")):
+    """{kernel: (count of each of ``ops``)} instruction counts in ``lib``'s
+    SASS (by default HGMMA and IGMMA)."""
     from scd_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -517,10 +535,10 @@ def sass_counts(lib: str):
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
             fn = _short(ln.split("Function :")[1].strip())
-            counts[fn] = [0, 0]
+            counts[fn] = [0] * len(ops)
         elif fn is not None:
-            counts[fn][0] += "HGMMA" in ln
-            counts[fn][1] += "IGMMA" in ln
+            for i, op in enumerate(ops):
+                counts[fn][i] += op in ln
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -1282,7 +1300,7 @@ def _counters():
     attention forward's and gradient's launches at head_dim 64 (three TF32
     passes on ``wgmma``; also in ``attention`` and ``attention_bwd``), the
     top-k route past the kernel (k > 16), and the prefix attention's
-    launches."""
+    launches and of those the ``mma.sync`` kernel's."""
     from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
     return {"topk_softmax": (topk.topk_softmax_cuda, "launches"),
@@ -1302,7 +1320,9 @@ def _counters():
             "attention_bwd_f32": (attention.qkv_attention_bwd_cuda,
                                   "f32_wgmma_launches"),
             "prefix_attention": (attention.prefix_attention_cuda,
-                                 "launches")}
+                                 "launches"),
+            "prefix_attention_mma": (attention.prefix_attention_cuda,
+                                     "mma_launches")}
 
 
 def _reset_counts():
@@ -3262,8 +3282,9 @@ def int8_frozen_steps(seed):
 def profile_by_kernel(step, top=14):
     """One call of ``step`` under ``torch.profiler``: device time by
     kernel (the kernels' own events; an operator's device time repeats
-    theirs), then by part (attention forward, attention gradient, matrix
-    products, other)."""
+    theirs), then by part (attention forward, attention gradient, the
+    prefix attention, matrix products, other; parts with no time left
+    out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3287,10 +3308,13 @@ def profile_by_kernel(step, top=14):
             print(f"    {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{n:<4d} "
                   f"{key[:90]}")
         groups = {"attention forward": 0.0, "attention gradient": 0.0,
-                  "matrix products": 0.0, "other": 0.0}
+                  "prefix attention": 0.0, "matrix products": 0.0,
+                  "other": 0.0}
         for key, ms, _n in rows:
             name = key.lower()
-            if "attn_bwd" in name:
+            if "prefix_" in name:
+                groups["prefix attention"] += ms
+            elif "attn_bwd" in name:
                 groups["attention gradient"] += ms
             elif "attn_" in name:
                 groups["attention forward"] += ms
@@ -3301,7 +3325,7 @@ def profile_by_kernel(step, top=14):
                 groups["other"] += ms
         print("  by part: " + ", ".join(
             f"{k} {v:.3f} ms ({100 * v / total_ms:.1f}%)"
-            for k, v in groups.items()))
+            for k, v in groups.items() if v))
 
 
 def step_breakdown(seed):
@@ -3914,7 +3938,8 @@ def prefix_parity(p_valid, dtype, gen, b=PREFIX_NAMES, s=16, n_pre=PREFIX_P,
     (q, k, v views of a packed qkv made from ``gen`` at H 8, d 64, or
     ``inputs`` = (q, k, v, pk, pv)), with :func:`attention_parity`'s
     tolerances (max|v| over the prefix's values and the suffix's); two
-    runs must repeat their bits.  Returns (max abs error, the inputs)."""
+    runs must repeat their bits, on the ``mma.sync`` kernel exactly where
+    :func:`prefix_route` says so.  Returns (max abs error, the inputs)."""
     import torch
 
     from scd_tpu_torch.ops import attention as A
@@ -3927,10 +3952,14 @@ def prefix_parity(p_valid, dtype, gen, b=PREFIX_NAMES, s=16, n_pre=PREFIX_P,
     q, k, v, pk, pv = inputs
     b, s, h, d = q.shape
     scale = d ** -0.5 if scale is None else scale
+    route = A.prefix_route(q.dtype, d)
+    mma_before = A.prefix_attention_cuda.mma_launches
     got = A.prefix_attention(*inputs, scale, p_valid)
     again = A.prefix_attention(*inputs, scale, p_valid)
     torch.cuda.synchronize()
     name = f"prefix attention {tag}"
+    check(A.prefix_attention_cuda.mma_launches - mma_before
+          == 2 * (route == "mma"), f"{name}: not on the {route} kernel")
     check(torch.equal(got, again), f"{name}: two runs differ")
     want = A.prefix_attention_plain(*inputs, scale, p_valid)
     err = (got.float() - want.float()).abs()
@@ -3943,7 +3972,8 @@ def prefix_parity(p_valid, dtype, gen, b=PREFIX_NAMES, s=16, n_pre=PREFIX_P,
     check(bool((err <= bound).all()), f"{name}: error {err.max().item():.3e} "
           f"beyond the stated bound")
     print(f"  {name} B={b} S={s} P={pk.shape[0]} p_valid={p_valid} H={h} "
-          f"d={d} {str(dtype)[6:]}: max abs err {err.max().item():.3e} "
+          f"d={d} {str(dtype)[6:]} ({route}): max abs err "
+          f"{err.max().item():.3e} "
           f"(max |v| {vmax:.2f})")
     return err.max().item(), inputs
 
@@ -3959,11 +3989,15 @@ def _prefix_bound(b, s, n_pre, p_valid, h, d, elt):
                   elt * (4.0 * b * s * h * d + 2.0 * n_pre * h * d))
 
 
-def time_prefix_attention(inputs, p_valid, scale):
+def time_prefix_attention(inputs, p_valid, scale, other=None):
     """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) on ``inputs``.
     SDPA, the yardstick, takes the same function as one call on the
     [prefix, suffix] keys concatenated beforehand (outside its time) with
-    a boolean mask; its result is printed against the kernel's."""
+    a boolean mask; its result is printed against the kernel's.  With
+    ``other`` (another build of ``prefix_attention.cu``, e.g. the parent
+    commit's SIMT kernel), its ``prefix_attention_fwd`` is timed in turns,
+    other, this, this, other, on the same inputs and held against the
+    kernel's output."""
     import torch
     import torch.nn.functional as F
 
@@ -3972,8 +4006,26 @@ def time_prefix_attention(inputs, p_valid, scale):
     q, k, v, pk, pv = inputs
     b, s, h, d = q.shape
     n_pre = pk.shape[0]
-    ms = cuda_ms(lambda: A.prefix_attention_cuda(*inputs, scale, p_valid),
-                 reps=50)
+
+    def kern():
+        return A.prefix_attention_cuda(*inputs, scale, p_valid)
+
+    if other is not None:
+        def then():
+            return A.prefix_attention_fwd(other, *inputs, scale, p_valid,
+                                          False)
+
+        diff = (then().float() - kern().float()).abs().max().item()
+        t_other = cuda_ms(then, reps=50)
+        ms = cuda_ms(kern, reps=50)
+        again = cuda_ms(kern, reps=50)
+        t_other2 = cuda_ms(then, reps=50)
+        line = (f"kernel {ms:.4f} ms (again {again:.4f}), other build "
+                f"{t_other:.4f} ms (again {t_other2:.4f}), max |kernel - "
+                f"other| {diff:.3e},")
+    else:
+        ms = cuda_ms(kern, reps=50)
+        line = f"kernel {ms:.4f} ms,"
     plain_ms = cuda_ms(lambda: A.prefix_attention_plain(*inputs, scale,
                                                         p_valid), reps=5)
     qh = q.transpose(1, 2)
@@ -3988,23 +4040,29 @@ def time_prefix_attention(inputs, p_valid, scale):
                                               scale=scale)
 
     lib_ms = cuda_ms(sdpa, reps=50)
-    diff = (sdpa().transpose(1, 2).float()
-            - A.prefix_attention_cuda(*inputs, scale, p_valid).float()
+    diff = (sdpa().transpose(1, 2).float() - kern().float()
             ).abs().max().item()
     bound_ms, by = _prefix_bound(b, s, n_pre, p_valid, h, d,
                                  q.element_size())
     print(f"  prefix attention B={b} S={s} P={n_pre} p_valid={p_valid} "
-          f"{str(q.dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
-          f"SDPA {lib_ms:.4f} (max |SDPA - kernel| {diff:.3e}), bound "
-          f"{bound_ms:.4f} ({by}), {ms / bound_ms:.2f}x the bound")
+          f"{str(q.dtype)[6:]} ({A.prefix_route(q.dtype, d)}): {line} "
+          f"plain {plain_ms:.4f}, SDPA {lib_ms:.4f} (max |SDPA - kernel| "
+          f"{diff:.3e}), bound {bound_ms:.4f} ({by}), {ms / bound_ms:.2f}x "
+          f"the bound", flush=True)
     return ms, plain_ms, lib_ms, bound_ms, by
 
 
-def phase_prefix_vocab(seed: int, workdir: str):
+def phase_prefix_vocab(seed: int, workdir: str, against=None,
+                       profile=False):
     """The prefix-KV vocabulary build (``SCD_PREFIX_VOCAB=1``) at the
     full-width CLIP ViT-B/16 text tower (bf16): the kernel against its
-    plain version, the build against the full-row build, their times.
-    Returns (launches, max abs error, the kernels line's times)."""
+    plain version, the build against the full-row build, their times
+    (with ``against``, a ``prefix_attention.cu`` such as the parent
+    commit's, that build's SIMT kernel timed beside; with ``profile``,
+    one more cached-name prefix build under ``torch.profiler``, ~20 s on
+    an H100, most of it the profiler's).  Returns (the
+    ``mma.sync`` kernel's launches in the build, max abs error, the
+    kernels line's times)."""
     import dataclasses
 
     import numpy as np
@@ -4088,6 +4146,9 @@ def phase_prefix_vocab(seed: int, workdir: str):
               f"{tag}: prefix_attention launched "
               f"{launches['prefix_attention']} times, not 12 x {n_cached} "
               f"x {chunks} = {want}")
+        check(launches["prefix_attention_mma"] == want,
+              f"{tag}: {launches['prefix_attention_mma']} of {want} prefix "
+              f"launches on the mma.sync kernel")
         check(launches["attention"] > 0 or not (n_fallback or n_fallback_t),
               f"{tag}: the fallbacks ran no full-row attention")
         check(w_pre.shape == w_full.shape == (D_CLIP, len(nm))
@@ -4115,6 +4176,11 @@ def phase_prefix_vocab(seed: int, workdir: str):
         build(False, names[:256])
         launches = both("cached", names)
         both("mixed", mixed)
+        if profile:  # where the cached-name prefix build's device time goes
+            os.environ["SCD_PREFIX_VOCAB"] = "1"
+            print("the prefix build (cached names) under torch.profiler:")
+            profile_by_kernel(lambda: zs.build_zeroshot_weights(
+                encode_text, names, IMAGENET_TEMPLATES))
     finally:
         if env is None:
             os.environ.pop("SCD_PREFIX_VOCAB", None)
@@ -4127,16 +4193,23 @@ def phase_prefix_vocab(seed: int, workdir: str):
     hold_path_inputs(seen, "prefix build")
 
     # ---- (c) the kernel alone: at the build's first shape, then both
-    # suffix buckets on random inputs
+    # suffix buckets on random inputs; with ``against``, beside that build
+    other = None
+    if against:
+        from scd_tpu_torch.testing.attention_long import build_other
+
+        other = build_other(against)
+    else:
+        print("  prefix attention: no other build given (--against-prefix)")
     a = held[0]
     times = time_prefix_attention(
         tuple(a[n] for n in ("q", "k", "v", "pk", "pv")), a["p_valid"],
-        a["scale"])
+        a["scale"], other)
     for s in (16, 8):
         time_prefix_attention(prefix_parity(PREFIX_P, bf16, gen, s=s,
                                             tag=f"timed S{s}")[1],
-                              PREFIX_P, TEXT_D ** -0.5)
-    return launches["prefix_attention"], err, times
+                              PREFIX_P, TEXT_D ** -0.5, other)
+    return launches["prefix_attention_mma"], err, times
 
 
 # (kernels line name, source, the TPU kernel it replaces, key of the
@@ -4173,10 +4246,10 @@ KERNELS = [
      "none: XLA autodiff of scd_tpu/models/vit.py:338",
      "attention_bwd_f32"),
     # no TPU kernel: the JAX package's prefix attention is plain XLA;
-    # launches from phase 12's prefix-KV vocabulary build
+    # launches of its mma.sync kernel from phase 12's prefix-KV build
     ("prefix_attention", "scd_tpu_torch/csrc/prefix_attention.cu",
      "none: XLA einsums of scd_tpu/models/vit.py:308 (_prefix_attention)",
-     "prefix_attention"),
+     "prefix_attention_mma"),
 ]
 
 
@@ -4189,6 +4262,13 @@ def main(argv=None) -> int:
     p.add_argument("--against-fwd", default=None,
                    help="an attention.cu (e.g. the parent commit's) to build "
                         "and time beside the f32 forward kernel in phase 5")
+    p.add_argument("--against-prefix", default=None,
+                   help="a prefix_attention.cu (e.g. the parent commit's) "
+                        "to build and time beside the prefix kernel in "
+                        "phase 12")
+    p.add_argument("--profile-prefix", action="store_true",
+                   help="profile one more prefix build in phase 12 "
+                        "(torch.profiler: device time by kernel, ~20 s)")
     args = p.parse_args(argv)
 
     import torch
@@ -4276,9 +4356,9 @@ def main(argv=None) -> int:
     section("phase 12: the prefix-KV vocabulary build (SCD_PREFIX_VOCAB=1)")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
-        launches["prefix_attention"], errs["prefix_attention"], \
-            times["prefix_attention"] = phase_prefix_vocab(args.seed,
-                                                           workdir)
+        launches["prefix_attention_mma"], errs["prefix_attention"], \
+            times["prefix_attention"] = phase_prefix_vocab(
+                args.seed, workdir, args.against_prefix, args.profile_prefix)
     print(f"phase 12 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 

@@ -65,10 +65,13 @@ in v's type).  The JAX package's ``_prefix_attention``
 (``scd_tpu/models/vit.py``) stores its scores at the compute dtype, so
 under bf16 the two differ by the scores' rounding, as the full-row
 attention already differs from ``_manual_attention_bf16``; in f32 they
-agree to f32 rounding.  A CUDA tensor launches the hand-written
-``csrc/prefix_attention.cu`` (one block per (batch, head); S <= 16, P + S
-<= 32, head_dim <= 128, else it raises); a CPU tensor runs
-:func:`prefix_attention_plain`.  Neither materializes [B, P, H, d].
+agree to f32 rounding.  A CUDA tensor launches a hand-written kernel of
+``csrc/prefix_attention.cu`` (S <= 16, P + S <= 32, else it raises),
+chosen by :func:`prefix_route` from the dtype and head_dim alone: bf16 at
+head_dim 64 (every shipped text tower) the ``mma.sync`` tensor-core
+kernel, which takes 16-byte-aligned views and raises on others; f32, or
+another head_dim <= 128, the SIMT kernel.  A CPU tensor runs
+:func:`prefix_attention_plain`.  None materializes [B, P, H, d].
 """
 
 from __future__ import annotations
@@ -395,9 +398,18 @@ attention_cuda.long_wgmma_launches = 0
 attention_cuda.f32_wgmma_launches = 0
 
 
-PREFIX_MAX_S = 16  # suffix rows the prefix kernel takes
+PREFIX_MAX_S = 16  # suffix rows the prefix kernels take
 PREFIX_MAX_KEYS = 32  # prefix + suffix keys
-PREFIX_MAX_HD = 128
+PREFIX_MAX_HD = 128  # head_dim of the SIMT kernel
+PREFIX_MMA_HD = 64  # head_dim of the bf16 tensor-core kernel
+
+
+def prefix_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel of ``csrc/prefix_attention.cu`` that a CUDA call at
+    ``dtype`` and head_dim ``hd`` launches: ``"mma"`` (bf16 at head_dim 64,
+    ``mma.sync`` tensor-core tiles) or ``"simt"`` (everything else)."""
+    return "mma" if dtype == torch.bfloat16 and hd == PREFIX_MMA_HD \
+        else "simt"
 
 
 def prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -463,10 +475,13 @@ def prefix_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           p_valid: int) -> torch.Tensor:
     """One launch of ``csrc/prefix_attention.cu`` on CUDA views (any batch,
     row and head strides, the last dimension contiguous), all bf16 or all
-    f32 on one device; S <= 16, P + S <= 32, head_dim <= 128, else it
-    raises.  It has no gradient: a call that would need one raises.
-    Returns a contiguous [B, S, H, d]; counts each launch in
-    ``prefix_attention_cuda.launches``."""
+    f32 on one device; S <= 16 and P + S <= 32, else it raises.  bf16 at
+    head_dim 64 launches the ``mma.sync`` kernel (16-byte-aligned bases
+    and strides, else it raises), anything else the SIMT kernel (head_dim
+    <= 128, else it raises); :func:`prefix_route` chooses.  It has no
+    gradient: a call that would need one raises.  Returns a contiguous
+    [B, S, H, d]; counts each launch in ``prefix_attention_cuda.launches``
+    and those of the ``mma.sync`` kernel also in ``.mma_launches``."""
     dev = q.device
     views = (q, k, v, pk, pv)
     if not all(t.is_cuda and t.device == dev for t in views):
@@ -490,23 +505,49 @@ def prefix_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in views):
         raise ValueError("prefix_attention_cuda: the head dimension must be "
                          "contiguous")
-    out = torch.empty(b, s_len, heads, hd, dtype=q.dtype, device=dev)
-    fn = build.load("prefix_attention").prefix_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_longlong] * 16 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(*(t.data_ptr() for t in views), out.data_ptr(),
-                int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k),
-                *_strides(v), *pk.stride()[:2], *pv.stride()[:2],
-                *out.stride()[:3], b, heads, s_len, n_pre, hd,
-                max(0, min(int(p_valid), n_pre)), float(scale),
-                int(_prefix_vec(*views)), stream)
-    build.check(rc, "prefix_attention")
+    mma = prefix_route(q.dtype, hd) == "mma"
+    if mma and not _prefix_vec(*views):
+        raise ValueError(f"the bf16 prefix attention kernel at head_dim "
+                         f"{PREFIX_MMA_HD} takes 16-byte-aligned bases and "
+                         f"strides")
+    out = prefix_attention_fwd(build.load("prefix_attention"), q, k, v, pk,
+                               pv, scale, p_valid, mma)
     prefix_attention_cuda.launches += 1
+    prefix_attention_cuda.mma_launches += mma
+    return out
+
+
+def prefix_attention_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                         scale: float, p_valid: int, mma: bool
+                         ) -> torch.Tensor:
+    """One launch of ``lib``'s C entry point ``prefix_attention_mma_fwd``
+    (``mma``) or ``prefix_attention_fwd`` (the SIMT kernel) on checked CUDA
+    views; raises on a CUDA error.  Counts nothing."""
+    b, s_len, heads, hd = q.shape
+    n_pre = pk.shape[0]
+    out = torch.empty(b, s_len, heads, hd, dtype=q.dtype, device=q.device)
+    if mma:
+        fn, is_bf16, vec = lib.prefix_attention_mma_fwd, [], []
+    else:  # the SIMT entry also takes the dtype and the 16-byte-load flag
+        fn = lib.prefix_attention_fwd
+        is_bf16 = [int(q.dtype == torch.bfloat16)]
+        vec = [int(_prefix_vec(q, k, v, pk, pv))]
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * len(is_bf16)
+                   + [ctypes.c_longlong] * 16 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * len(vec)
+                   + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = fn(*(t.data_ptr() for t in (q, k, v, pk, pv)), out.data_ptr(),
+                *is_bf16, *_strides(q), *_strides(k), *_strides(v),
+                *pk.stride()[:2], *pv.stride()[:2], *out.stride()[:3], b,
+                heads, s_len, n_pre, hd, max(0, min(int(p_valid), n_pre)),
+                float(scale), *vec, stream)
+    build.check(rc, "prefix_attention")
     return out
 
 
 prefix_attention_cuda.launches = 0
+prefix_attention_cuda.mma_launches = 0

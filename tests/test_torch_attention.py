@@ -137,6 +137,21 @@ def test_dispatch_plain_on_cpu_and_kernel_refuses_cpu():
         A.vit_attention(q, q, q, 0.125, l_valid=0)
 
 
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "mma"),  # every shipped text tower
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 128, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 13, "simt")])
+def test_prefix_route_from_dtype_and_head_dim(dtype, hd, route):
+    """The prefix kernel's route is chosen from the dtype and head_dim
+    alone: bf16 at head_dim 64 the mma.sync kernel, the rest the SIMT
+    one; nothing is launched."""
+    before = (A.prefix_attention_cuda.launches,
+              A.prefix_attention_cuda.mma_launches)
+    assert A.prefix_route(dtype, hd) == route
+    assert (A.prefix_attention_cuda.launches,
+            A.prefix_attention_cuda.mma_launches) == before
+
+
 def test_tf32_rna_rounds_to_nearest_ties_away():
     """10 mantissa bits kept, to nearest, ties away from zero, by sign and
     magnitude; the rest of x is exact in f32."""

@@ -538,17 +538,32 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("b,s,n_pre,p_valid,h,d,dtype,packed", [
     (512, 16, 16, 11, 8, 64, torch.bfloat16, True),  # the build's shapes
     (512, 8, 16, 16, 8, 64, torch.bfloat16, True),
+    # the mma.sync kernel (bf16, head_dim 64) at the edges: S 1, 7, 8, 9,
+    # 16; P 0, 1, 16; p_valid 1, 11, P; B 1, 3 and batches that no grid of
+    # about one block an SM divides; H 12 (two groups of six heads), H 3
+    (1, 1, 16, 1, 8, 64, torch.bfloat16, True),
+    (3, 7, 1, 1, 8, 64, torch.bfloat16, False),
+    (3, 9, 0, 0, 8, 64, torch.bfloat16, True),
+    (1, 16, 16, 16, 8, 64, torch.bfloat16, False),
+    (3, 8, 16, 11, 8, 64, torch.bfloat16, False),
+    (1_001, 8, 16, 11, 8, 64, torch.bfloat16, True),
+    (8_191, 16, 16, 16, 8, 64, torch.bfloat16, False),
+    (5, 16, 16, 11, 12, 64, torch.bfloat16, True),
+    (3, 9, 16, 11, 3, 64, torch.bfloat16, False),
+    (2, 15, 17, 17, 2, 64, torch.bfloat16, False),  # 32 keys, P > 16
+    # the SIMT kernel: f32, and bf16 at another head_dim
     (64, 16, 16, 9, 8, 64, torch.float32, True),
+    (3, 8, 16, 11, 8, 32, torch.bfloat16, True),
     (9, 5, 3, 0, 3, 38, torch.bfloat16, False),  # scalar loads, d pad 40
     (3, 16, 16, 20, 2, 128, torch.float32, False),  # 32 keys, d 128
     (7, 1, 0, 0, 5, 13, torch.float32, False)])
 def test_prefix_attention_kernel_matches_plain(cuda, b, s, n_pre, p_valid,
                                                h, d, dtype, packed):
-    """The prefix attention kernel (``csrc/prefix_attention.cu``) against
-    its plain version within ``_attention_within`` (max|v| over the
+    """The prefix attention kernels (``csrc/prefix_attention.cu``) against
+    their plain version within ``_attention_within`` (max|v| over the
     prefix's values and the suffix's), on views of a packed qkv or
-    contiguous tensors; one launch a call, and two runs repeat their
-    bits."""
+    contiguous tensors; one launch a call, on the ``mma.sync`` kernel
+    exactly for bf16 at head_dim 64, and two runs repeat their bits."""
     from scd_tpu_torch.ops import attention as A
 
     g = torch.Generator(device=cuda).manual_seed(s + n_pre + d)
@@ -561,9 +576,12 @@ def test_prefix_attention_kernel_matches_plain(cuda, b, s, n_pre, p_valid,
                    for _ in range(3))
     pk, pv = (torch.randn(n_pre, h, d, generator=g, device=cuda).to(dtype)
               for _ in range(2))
+    mma = dtype == torch.bfloat16 and d == 64
     before = A.prefix_attention_cuda.launches
+    mma_before = A.prefix_attention_cuda.mma_launches
     got = A.prefix_attention(q, k, v, pk, pv, d ** -0.5, p_valid)
     assert A.prefix_attention_cuda.launches == before + 1
+    assert A.prefix_attention_cuda.mma_launches == mma_before + mma
     assert got.shape == (b, s, h, d) and got.dtype == dtype
     assert torch.equal(got, A.prefix_attention(q, k, v, pk, pv, d ** -0.5,
                                                p_valid))
@@ -594,6 +612,20 @@ def test_prefix_attention_kernel_refuses_what_it_does_not_take(cuda):
     yg = y.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="gradient"):
         A.prefix_attention(yg, y, y, p, p, 0.125, 4)
+    # bf16 at head_dim 64 (the mma.sync kernel) takes 16-byte-aligned views
+    # only, and raises on others rather than taking the SIMT kernel
+    yb, pb = y.bfloat16(), p.bfloat16()
+    odd = torch.zeros(2, 16, 2, 68, dtype=torch.bfloat16,
+                      device=cuda)[..., :64]  # head stride 68 elements
+    shifted = torch.zeros(2 * 16 * 2 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(2, 16, 2, 64)
+    for bad in (odd, shifted):
+        before = (A.prefix_attention_cuda.launches,
+                  A.prefix_attention_cuda.mma_launches)
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            A.prefix_attention(bad, yb, yb, pb, pb, 0.125, 4)
+        assert (A.prefix_attention_cuda.launches,
+                A.prefix_attention_cuda.mma_launches) == before
 
 
 @pytest.mark.parametrize("pixels", [64, 256])

@@ -198,6 +198,28 @@ Phases, each printing its own lines and seconds:
    path), its bound and, with ``--against-prefix SRC.cu``, another build
    of ``csrc/prefix_attention.cu`` (e.g. the parent commit's SIMT
    kernel) timed in turns on the same inputs.
+13. the mesh (``torch.distributed``; ``core/mesh.py``,
+   ``core/multihost.py``), ranks started by ``testing/dist.py``: at world
+   size 1 over NCCL, ``fit_sskm`` on phase 3's features (130,048 x 768,
+   K 100, n_init 10, 10 iterations) with an explicit mesh of one rank must
+   give the mesh-free call's labels and inertia; the same process then
+   computes the single-process references.  At world size 2 over gloo
+   with both ranks on the card, each rank runs its share of 4,096
+   fabricated 224 px images through DINO and CLIP ViT-B/16 (bf16, weights
+   fabricated from the seed; batches of 128 split over the ranks),
+   ``run_clustering`` (SSKM) on phase 3's features, the name-sharded
+   vocabulary build of 8,000 fabricated names x 80 templates, and
+   ``classify_topk_sharded`` over V 68,000 split over the two ranks' model
+   axis (N 97,536, D 512, k 5).  Each rank's features and vocabulary
+   columns must reach a minimum cosine of MESH_COS against the
+   single-process run's, its clustering ARI MESH_ARI and ACC within
+   MESH_ACC, its top-k rows equal on MESH_TOPK_AGREE of rows, and the
+   ranks must hold the same clusters and vocabulary; every rank's
+   ``fused_em_step``, ``topk_softmax`` and attention launches (counts set
+   to 0 just before its stages) must be above 0.  Stage seconds of each
+   rank and of the single-process run are printed beside the card's name
+   and power limit.  A rank that fails or passes the deadline fails the
+   phase.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -218,6 +240,7 @@ attention is plain XLA), with the ``mma.sync`` kernel's launches in phase
 12's prefix build and times at its first shape.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
+phase 13 (each rank's) and
 phase 10 (the attention forward, its gradient and ``fused_em_step`` in
 ``metric_learn``'s steps and evals) and phase 11 (the attention forward
 and its f32 gradient in each end-to-end main, ``fused_em_step`` in the
@@ -4253,6 +4276,157 @@ KERNELS = [
 ]
 
 
+# ------------------------------------------------------------- phase 13
+
+# the mesh phase's sizes: images through both ViT-B/16 towers in batches
+# split over the ranks, vocabulary names, and the top-k over phase 3's
+# unlabelled CLIP rows against its V = 68,000 matrix
+MESH_IMAGES = 4_096
+MESH_BATCH = 128
+MESH_NAMES = 8_000
+MESH_TOPK_ROWS = 97_536
+MESH_K = 5
+# its gates, with their reasons:
+# - features and vocabulary columns: each rank runs the bf16 towers on 64
+#   rows where one process runs 128, and a kernel may take another tiling
+#   at another row count: bf16 rounding only
+MESH_COS = 0.9999
+# - clustering: the merged sums add two ranks' partial sums (another f32
+#   order), which may move a near-tie row
+MESH_ARI = 0.999
+MESH_ACC = 0.001
+# - top-k: the two shards' logits come from the same kernel at V 34,000
+#   each; the merge picks the same candidates unless two logits tie to
+#   the kernel's rounding
+MESH_TOPK_AGREE = 0.9999
+MESH_DEADLINE = 420
+
+
+def _mesh_spec(seed, cfg, workdir):
+    """What ``testing/mesh_cases.py``'s card functions run (see there)."""
+    from scd_tpu_torch.testing.fabricate import write_bpe_merges
+
+    return {"cfg": cfg, "towers": "vit_b16", "images": MESH_IMAGES,
+            "batch": MESH_BATCH, "names": MESH_NAMES,
+            "topk_rows": MESH_TOPK_ROWS, "k": MESH_K, "seed": seed,
+            "bpe": write_bpe_merges(os.path.join(workdir, "bpe.txt.gz"),
+                                    seed)}
+
+
+def adjusted_rand_score(a, b) -> float:
+    """The adjusted Rand index of two labelings (the card's machine has no
+    scikit-learn): pair counts of the contingency table against their
+    expectation under independence."""
+    import numpy as np
+
+    _, ai = np.unique(np.asarray(a), return_inverse=True)
+    _, bi = np.unique(np.asarray(b), return_inverse=True)
+    table = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
+    np.add.at(table, (ai, bi), 1)
+
+    def pairs(c):
+        c = np.asarray(c, np.float64)
+        return float((c * (c - 1) / 2).sum())
+
+    n = pairs([len(ai)])
+    both = pairs(table)
+    rows, cols = pairs(table.sum(1)), pairs(table.sum(0))
+    expected = rows * cols / n if n else 0.0
+    top = (rows + cols) / 2 - expected
+    return 1.0 if top == 0 else (both - expected) / top
+
+
+def mesh_checks(ref, ranks, u_targets):
+    """Hold every rank's sharded stages against the single-process ones:
+    returns {rank: {metric: value}} and raises on a failed gate."""
+    import numpy as np
+
+    from scd_tpu_torch.metrics import cluster_acc
+
+    acc_ref = cluster_acc(u_targets, ref["clusters"])
+    out = {}
+    for r, got in enumerate(ranks):
+        m = {f"cos_{k}": float(_row_cos(got["features"][k],
+                                        ref["features"][k]).min())
+             for k in ref["features"]}
+        m["cos_vocab"] = float(_row_cos(got["vocabulary"].T,
+                                        ref["vocabulary"].T).min())
+        m["ari"] = float(adjusted_rand_score(ref["clusters"],
+                                             got["clusters"]))
+        m["acc"] = float(cluster_acc(u_targets, got["clusters"]))
+        m["topk_agree"] = float((got["topk"][1] == ref["topk"][1]).all(
+            axis=1).mean())
+        m["topk_max_abs_err"] = float(np.abs(got["topk"][0]
+                                             - ref["topk"][0]).max())
+        out[r] = m
+        for key in ("cos_dino", "cos_clip", "cos_vocab"):
+            check(m[key] >= MESH_COS, f"rank {r}: {key} {m[key]} < "
+                                      f"{MESH_COS}")
+        check(m["ari"] >= MESH_ARI, f"rank {r}: ARI {m['ari']} < {MESH_ARI}")
+        check(abs(m["acc"] - acc_ref) <= MESH_ACC,
+              f"rank {r}: ACC {m['acc']} against {acc_ref}")
+        check(m["topk_agree"] >= MESH_TOPK_AGREE,
+              f"rank {r}: top-k rows equal {m['topk_agree']}")
+        check(all(v > 0 for v in got["launches"].values()),
+              f"rank {r}: a kernel never launched: {got['launches']}")
+    for other in ranks[1:]:
+        for key in ("clusters", "vocabulary"):
+            check(np.array_equal(other[key], ranks[0][key]),
+                  f"the ranks' {key} differ")
+    return out
+
+
+def phase_mesh(seed: int, cfg, workdir: str):
+    """World size 1 over NCCL (an explicit mesh of one rank against the
+    mesh-free fit, and the single-process references), then world size 2
+    over gloo with both ranks on the card (the sharded stages)."""
+    import numpy as np
+
+    from scd_tpu_torch.pipelines.common import feature_cache_key, stage_cache
+    from scd_tpu_torch.testing.dist import spawn
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    spec = _mesh_spec(seed, cfg, workdir)
+    t0 = time.perf_counter()
+    ref, = spawn("scd_tpu_torch.testing.mesh_cases.mesh_stage_references",
+                 world=1, backend="nccl", device="cuda", args=(spec,),
+                 timeout=MESH_DEADLINE, threads=0)
+    t_ref = time.perf_counter() - t0
+    sskm = ref["sskm"]
+    print(f"world 1 (nccl): fit_sskm with a mesh of one rank against the "
+          f"mesh-free call: labels equal {sskm['labels_equal']}, inertia "
+          f"{sskm['inertia'][0]!r} / {sskm['inertia'][1]!r}, iterations "
+          f"{sskm['n_iter']}; launches {ref['launches_mesh1']}")
+    check(sskm["labels_equal"] and sskm["inertia"][0] == sskm["inertia"][1],
+          "world 1: the mesh fit differs from the mesh-free fit")
+    check(ref["launches_mesh1"]["fused_em_step"] > 0,
+          "world 1: fused_em_step never launched under the mesh")
+    t0 = time.perf_counter()
+    ranks = spawn("scd_tpu_torch.testing.mesh_cases.mesh_stages", world=2,
+                  backend="gloo", device="cuda", args=(spec,),
+                  timeout=MESH_DEADLINE, threads=0)
+    t_mesh = time.perf_counter() - t0
+    feats = stage_cache(cfg).load("features", feature_cache_key(cfg, "feat"))
+    u_targets = feats["targets"].astype(np.int64)[
+        ~feats["mask_lab"].astype(bool)]
+    metrics = mesh_checks(ref, ranks, u_targets)
+    for r, got in enumerate(ranks):
+        print(f"world 2 (gloo, both ranks on the card) rank {r}: "
+              f"{json.dumps(metrics[r])}; launches "
+              f"{json.dumps(got['launches'])}")
+    print(f"stage seconds ({smi}): single process "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ref["seconds"].items())
+          + f" (world 1 call {t_ref:.1f} s)")
+    for r, got in enumerate(ranks):
+        print(f"stage seconds ({smi}): world 2 rank {r} "
+              + ", ".join(f"{k} {v:.3f}" for k, v in got["seconds"].items())
+              + (f" (world 2 call {t_mesh:.1f} s)" if r == 0 else ""))
+    return {r: got["launches"] for r, got in enumerate(ranks)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4317,11 +4491,8 @@ def main(argv=None) -> int:
     print(f"phase 7 {time.perf_counter() - t0:.1f} s")
     section("phase 8: partially supervised path (ptsup, ConSSKM, FINCH)")
     t0 = time.perf_counter()
-    try:
-        with tempfile.TemporaryDirectory() as workdir:
-            ptsup_launches = phase_ptsup(args.seed, in100, workdir)
-    finally:
-        in100_dir.cleanup()
+    with tempfile.TemporaryDirectory() as workdir:
+        ptsup_launches = phase_ptsup(args.seed, in100, workdir)
     print(f"launches in phase 8's run_ptsup: {json.dumps(ptsup_launches)}")
     print(f"phase 8 {time.perf_counter() - t0:.1f} s")
     section("phase 9: estimate_k and the new readers (CUB, Stanford Dogs)")
@@ -4359,7 +4530,15 @@ def main(argv=None) -> int:
         launches["prefix_attention_mma"], errs["prefix_attention"], \
             times["prefix_attention"] = phase_prefix_vocab(
                 args.seed, workdir, args.against_prefix, args.profile_prefix)
-    print(f"phase 12 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 12 {time.perf_counter() - t0:.1f} s")
+    section("phase 13: the mesh (torch.distributed: NCCL at world size 1, "
+            "gloo at world size 2 on one card)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        mesh_launches = phase_mesh(args.seed, in100, workdir)
+    in100_dir.cleanup()  # phases 8 and 13 read phase 3's root
+    print(f"launches in phase 13's ranks: {json.dumps(mesh_launches)}")
+    print(f"phase 13 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

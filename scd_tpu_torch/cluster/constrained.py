@@ -249,14 +249,20 @@ def _fit(u, lab: _Labelled, k: int, cfg: ClusterConfig
 
 
 def fit_constrained(u_feats, l_feats, l_targets, cfg: ClusterConfig,
-                    device=None) -> KMeansResult:
+                    device=None, mesh=None) -> KMeansResult:
     """ConSSKM ``fit_mix``: labelled pinned + size-constrained unlabelled
     E-step (reference ``sskm_constrained.py:87-139,165-187``).
 
     Returned labels follow the reference contract: labelled instances
     first (remapped class ids from ``np.unique``), then the unlabelled
     assignments.  ``device`` as in ``fit_sskm``, decided by ``u_feats``.
+    A ``mesh`` of more than one rank raises: ConSSKM over a mesh is not
+    ported yet (``core.mesh.refuse_mesh``).
     """
+    from scd_tpu_torch.core.mesh import refuse_mesh
+
+    refuse_mesh(mesh, "ConSSKM (fit_constrained)",
+                "ConSSKM over a mesh, next")
     u = _device_f32(u_feats, device)
     dev = u.device
     l = _device_f32(l_feats, dev)

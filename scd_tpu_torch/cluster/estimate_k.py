@@ -14,8 +14,9 @@ probe runs the ``fused_em_step`` kernel (``csrc/fused_em.cu``) at K =
 ``max_k`` on a CUDA device, and the plain version on the CPU.  The
 restarts run one after another on one ``torch.Generator`` seeded from the
 objective's ``seed``, made afresh for every probe, as every JAX probe
-starts from ``PRNGKey(seed)``.  The multi-device path (``mesh``) comes
-with the multi-device slice.
+starts from ``PRNGKey(seed)``.  A ``mesh`` of more than one rank raises
+(``core.mesh.refuse_mesh``): estimate_k's mesh path is not ported yet; a
+mesh of one rank runs the single-device path.
 
 ``python -m scd_tpu_torch.cluster.estimate_k`` takes the JAX CLI's flags
 plus ``--device`` (``cuda`` unless asked for ``cpu``).
@@ -38,9 +39,9 @@ SENTINEL = 1e12
 
 
 def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "estimate_k over a mesh comes with the multi-device slice")
+    from scd_tpu_torch.core.mesh import refuse_mesh
+
+    refuse_mesh(mesh, "estimate_k", "estimate_k's mesh, after ConSSKM's")
 
 
 def _kpp_masked(x: torch.Tensor, k_active: int, max_k: int,

@@ -58,10 +58,28 @@ class ArtifactCache:
 
     def load_or_compute(self, stage: str, key: str, fn, meta: Optional[dict] = None,
                         refresh: bool = False) -> Dict[str, np.ndarray]:
-        if not refresh and self.has(stage, key):
-            return self.load(stage, key)
-        arrays = fn()
-        self.save(stage, key, arrays, meta=meta)
+        """The cached arrays, or ``fn()``'s, saved.  Over several ranks
+        (``core.multihost``) every rank takes the same branch (a hit only
+        when every rank sees the file: one ``all_reduce``), every rank
+        computes on a miss (``fn`` may hold collectives), rank 0 alone
+        writes and a ``barrier`` publishes the file before anyone reads
+        on."""
+        from scd_tpu_torch.core import multihost
+
+        if not multihost.is_multiprocess():
+            if not refresh and self.has(stage, key):
+                return self.load(stage, key)
+            arrays = fn()
+            self.save(stage, key, arrays, meta=meta)
+            return arrays
+        hit = torch.tensor([int(not refresh and self.has(stage, key))])
+        if int(multihost.all_reduce(hit, "min")):
+            arrays = self.load(stage, key)
+        else:
+            arrays = fn()
+            if multihost.process_index() == 0:
+                self.save(stage, key, arrays, meta=meta)
+        multihost.barrier()
         return arrays
 
 

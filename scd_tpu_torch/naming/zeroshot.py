@@ -1,17 +1,21 @@
 """Prompt-ensembled zero-shot vocabulary embedding.
 
-Port of ``scd_tpu/naming/zeroshot.py`` on one device: every name's 80
-prompts go through the CLIP text tower in batches of names, and each
-name's column is the renormalized mean of its normalized prompt
-embeddings.  The large-vocabulary build (:func:`build_zeroshot_weights_
-sharded` without a mesh) keeps the JAX package's host-side plan:
+Port of ``scd_tpu/naming/zeroshot.py``: every name's 80 prompts go
+through the CLIP text tower in batches of names, and each name's column
+is the renormalized mean of its normalized prompt embeddings.  The
+large-vocabulary build (:func:`build_zeroshot_weights_sharded`) keeps the
+JAX package's host-side plan:
 length-sorted names, three length-sorted template groups encoded at their
 own sequence buckets when that saves a bucket, and EOT-bucket truncation
 (exact for a causal tower pooled at EOT).  The prefix-KV build
 (:func:`build_zeroshot_weights_prefix`, opt-in with ``SCD_PREFIX_VOCAB=1``)
 encodes each template's shared prefix once and runs only the name and
-template-tail tokens of every prompt.  The mesh-sharded build is not
-ported (multi-device, ROADMAP): a ``mesh`` other than None raises.
+template-tail tokens of every prompt.  Over a ``mesh``
+(``core/mesh.py``) the batched build shards the names over the data axis,
+each rank encoding whole names (every template of a name on one rank),
+and the [D, V] columns gather on every rank; the prefix route stays off
+over several ranks, as the JAX package keeps multi-controller processes
+off it.
 """
 
 from __future__ import annotations
@@ -59,12 +63,6 @@ def _ensemble_reduce(emb: torch.Tensor) -> torch.Tensor:
     return mean / mean.norm(dim=-1, keepdim=True)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded vocabulary build is not "
-                                  "ported (multi-device); pass mesh=None")
-
-
 def build_zeroshot_weights(encode_text_fn: Callable[[List[str]], np.ndarray],
                            classnames: Sequence[str],
                            templates: Sequence[str],
@@ -81,18 +79,21 @@ def build_zeroshot_weights(encode_text_fn: Callable[[List[str]], np.ndarray],
     ``suffix_forward`` present (the pipeline sets them unless
     ``dense_int8``), :func:`build_zeroshot_weights_prefix`; small calls
     (the missing-name repair) encode prompt strings batch by batch.
-    ``mesh`` takes None only."""
-    _no_mesh(mesh)
-    if hasattr(encode_text_fn, "forward") and \
-            len(classnames) >= 2 * names_per_batch:
+    With a ``mesh`` (a ``core.mesh.MeshContext``; any other object raises)
+    and the raw pieces, the batched build shards the names over it."""
+    from scd_tpu_torch.core.mesh import check_mesh
+    from scd_tpu_torch.core.multihost import is_multiprocess
+
+    mesh = check_mesh(mesh)
+    if hasattr(encode_text_fn, "forward") and (
+            mesh is not None or len(classnames) >= 2 * names_per_batch):
         # the JAX package keeps multi-controller processes on the full-row
-        # build; the port drives one card from one process (multi-device
-        # is not ported), so this is never one
-        is_multiprocess = False
+        # build (its pod contracts are proven)
         if (os.environ.get("SCD_PREFIX_VOCAB", "0") == "1"
                 and hasattr(encode_text_fn, "prefix_forward")
                 and hasattr(encode_text_fn.tokenize, "template_pieces")
-                and not is_multiprocess):
+                and not is_multiprocess()
+                and len(classnames) >= 2 * names_per_batch):
             return build_zeroshot_weights_prefix(
                 encode_text_fn.forward, encode_text_fn.prefix_forward,
                 encode_text_fn.suffix_forward, encode_text_fn.variables,
@@ -100,7 +101,7 @@ def build_zeroshot_weights(encode_text_fn: Callable[[List[str]], np.ndarray],
         return build_zeroshot_weights_sharded(
             encode_text_fn.forward, encode_text_fn.variables,
             encode_text_fn.tokenize, classnames, templates,
-            names_per_batch=names_per_batch)
+            names_per_batch=names_per_batch, mesh=mesh)
     t = len(templates)
     cols = []
     for start in range(0, len(classnames), names_per_batch):
@@ -116,8 +117,9 @@ def build_zeroshot_weights_sharded(forward, variables, tokenize,
                                    classnames: Sequence[str],
                                    templates: Sequence[str],
                                    names_per_batch: int = 64,
-                                   template_groups: int = 3) -> np.ndarray:
-    """Batched vocabulary embedding on one device.
+                                   template_groups: int = 3,
+                                   mesh=None) -> np.ndarray:
+    """Batched (and, over a ``mesh``, name-sharded) vocabulary embedding.
 
     ``forward(variables, tokens [B, L] int32 numpy) -> [B, D]`` is the raw
     text encoder (a device tensor); ``tokenize(texts) -> [len, L] int32``
@@ -129,9 +131,20 @@ def build_zeroshot_weights_sharded(forward, variables, tokenize,
     length-sorted groups that are encoded at their own buckets only when
     some group lands in a smaller bucket than the whole batch (the mean
     over templates does not depend on their order).
+
+    Over a ``mesh`` (``scd_tpu/naming/zeroshot.py:256-411``) every rank
+    runs this loop over the SAME full vocabulary (host tokenization is
+    repeated; cheap next to the encode) with batches of names padded to a
+    multiple of the data-axis size; each rank encodes its contiguous
+    whole names of every batch (all their templates), at the batch's
+    buckets, and one ``all_gather`` at the end brings every rank's
+    columns to every rank.
     """
     t = len(templates)
-    b = names_per_batch
+    n_dev = 1 if mesh is None else mesh.n_data
+    b = max(names_per_batch // n_dev, 1) * n_dev  # whole names per shard
+    per = b // n_dev
+    me = 0 if mesh is None else mesh.data_index
     order = None
     if len(classnames) > 4 * b:
         name_tok = np.asarray(tokenize(list(classnames)), np.int32)
@@ -147,7 +160,7 @@ def build_zeroshot_weights_sharded(forward, variables, tokenize,
                   for g in np.array_split(t_order, template_groups)
                   if len(g)]
 
-    cols = []
+    cols, valids = [], []
     for start in range(0, len(classnames), b):
         batch = list(classnames[start:start + b])
         valid = len(batch)
@@ -167,17 +180,29 @@ def build_zeroshot_weights_sharded(forward, variables, tokenize,
                                  tokens_all.shape[1]) for g in groups]
             if any(gb < whole for gb in per_g):
                 split = per_g
+        # this rank's names of the batch (name-major rows: whole names)
+        tok3 = tokens_all.reshape(b, t, -1)[me * per:(me + 1) * per]
         if split is not None:
-            tok3 = tokens_all.reshape(b, t, -1)
             parts = [forward(variables, np.ascontiguousarray(
-                tok3[:, g, :gb].reshape(b * len(g), gb))).reshape(
-                    b, len(g), -1) for g, gb in zip(groups, split)]
+                tok3[:, g, :gb].reshape(per * len(g), gb))).reshape(
+                    per, len(g), -1) for g, gb in zip(groups, split)]
             col = _ensemble_reduce(torch.cat(parts, dim=1))
         else:
-            emb = forward(variables, truncate_to_eot_bucket(tokens_all))
-            col = _ensemble_reduce(emb.reshape(b, t, -1))
-        cols.append(col[:valid])
-    weights = torch.cat(cols).cpu().numpy()  # [V, D]
+            bucket = truncate_to_eot_bucket(tokens_all).shape[1]
+            emb = forward(variables, np.ascontiguousarray(
+                tok3[:, :, :bucket].reshape(per * t, bucket)))
+            col = _ensemble_reduce(emb.reshape(per, t, -1))
+        cols.append(col)
+        valids.append(valid)
+    if mesh is not None:  # every rank's [batches * per, D] columns
+        from scd_tpu_torch.core.multihost import all_gather
+
+        ranks = [g.cpu() for g in all_gather(torch.cat(cols),
+                                             group=mesh.data_group)]
+        cols = [torch.cat([g[i * per:(i + 1) * per] for g in ranks])
+                for i in range(len(valids))]
+    weights = torch.cat([c[:v] for c, v in zip(cols, valids)]
+                        ).cpu().numpy()  # [V, D]
     if order is not None:  # undo the length sort
         unsorted = np.empty_like(weights)
         unsorted[order] = weights
@@ -265,10 +290,14 @@ def build_zeroshot_weights_prefix(forward, prefix_forward, suffix_forward,
     punctuation hazard at a boundary, or too long for the suffix bucket,
     go through :func:`build_zeroshot_weights_sharded`.  Port of
     ``scd_tpu/naming/zeroshot.py::build_zeroshot_weights_prefix`` on one
-    device (``mesh`` takes None only); the last chunk is not padded to
-    the chunk size, since eager PyTorch compiles nothing per shape.
+    device (``mesh``: None or a mesh of one rank; more ranks raise, and
+    :func:`build_zeroshot_weights` never sends them here); the last chunk
+    is not padded to the chunk size, since eager PyTorch compiles nothing
+    per shape.
     """
-    _no_mesh(mesh)
+    from scd_tpu_torch.core.mesh import refuse_mesh
+
+    refuse_mesh(mesh, "the prefix-KV vocabulary build", "a later slice")
     cached, fallback_t, cached_n, fallback_n, name_toks, s_cap = \
         prefix_plan(tokenize, classnames, templates)
     if not cached or not cached_n:

@@ -54,9 +54,14 @@ def estep_assign_plain(x: torch.Tensor, c: torch.Tensor
     return labels.to(torch.int32), mindist
 
 
-def masked_min_sum(mindist: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """Inertia over the first ``n_valid`` rows (rows beyond are padding)."""
-    return mindist[:n_valid].sum()
+def masked_min_sum(mindist: torch.Tensor, n_valid) -> torch.Tensor:
+    """Inertia over the valid rows: the first ``n_valid`` (a count, the
+    rows beyond are padding) or, for a [N] 0/1 mask (a mesh's ragged
+    pads, anywhere), the rows it marks."""
+    if getattr(n_valid, "ndim", 0) == 1:
+        valid = torch.as_tensor(n_valid, device=mindist.device).bool()
+        return torch.where(valid, mindist, torch.zeros_like(mindist)).sum()
+    return mindist[:int(n_valid)].sum()
 
 
 def estep_assign_cuda(x: torch.Tensor, c: torch.Tensor

@@ -10,8 +10,9 @@ Port of ``scd_tpu/ops/em.py::em_iteration``.  Dispatch by device:
 - a CPU tensor runs :func:`em_iteration_plain`, ``estep_assign_plain`` +
   ``segment_sums`` as in ``scd_tpu/ops/em.py:61-67``.
 
-There is no fallback from the kernel to the plain version.  The sharded
-variant comes with the multi-device slice.
+There is no fallback from the kernel to the plain version.
+:func:`em_iteration_sharded` runs the same per rank on its row shard and
+merges the partial sums, counts and inertia with one ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -79,6 +80,34 @@ def em_iteration_plain(x: torch.Tensor, centers: torch.Tensor, k: int,
     inertia = (mindist if row_w is None else mindist * row_w.float()).sum()
     sums, counts = segment_sums(x, labels, k, weights=row_w)
     return labels, sums, counts, inertia
+
+
+def em_iteration_sharded(x: torch.Tensor, centers: torch.Tensor,
+                         row_w: Optional[torch.Tensor], mesh,
+                         estep_passes: int = 3, x_bf16: bool = False,
+                         fused: Optional[bool] = None) -> EMResult:
+    """One EM iteration over a mesh (``scd_tpu/ops/em.py:70-128``).
+
+    ``x`` [n, D] is THIS rank's row shard (padded rows weighted 0 in
+    ``row_w`` [n], or ``row_w`` None), ``centers`` [K, D] the same on every
+    rank.  Each rank runs :func:`em_iteration` (the fused kernel on a card,
+    the plain version on the CPU) on its rows; the [K, D] sums, [K] counts
+    and the inertia go as one packed f32 [K*D + K + 1] vector through ONE
+    ``all_reduce`` over the data axis, so every rank holds the same merged
+    values.  Labels stay local ([n], this rank's rows)."""
+    from scd_tpu_torch.core.multihost import all_reduce
+
+    k, d = centers.shape
+    labels, sums, counts, inertia = em_iteration(
+        x, centers, k, row_w=row_w, fused=fused, estep_passes=estep_passes,
+        x_bf16=x_bf16)
+    if mesh is None:
+        return labels, sums, counts, inertia
+    packed = all_reduce(torch.cat([sums.reshape(-1), counts,
+                                   inertia.reshape(1)]),
+                        group=mesh.data_group)
+    return labels, packed[:k * d].view(k, d), packed[k * d:k * d + k], \
+        packed[-1]
 
 
 class EMPlan(NamedTuple):

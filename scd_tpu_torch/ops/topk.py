@@ -17,7 +17,10 @@ k, decided before any launch:
   ``_classify_topk_xla`` and chunks rows to bound memory;
 - anything else raises.
 
-The vocabulary-sharded variant comes with the multi-device slice.
+:func:`classify_topk_sharded` splits the vocabulary over a mesh's
+``model`` axis: each rank runs the same dispatch on its [D, V/s] columns,
+the candidates merge on raw logits by ``all_gather`` and the softmax takes
+the exact global normaliser.
 """
 
 from __future__ import annotations
@@ -88,6 +91,84 @@ def classify_topk_plain(feats: torch.Tensor, weights: torch.Tensor, k: int,
         return (torch.empty(0, k, device=feats.device),
                 torch.empty(0, k, dtype=torch.int32, device=feats.device))
     return torch.cat(out_v), torch.cat(out_i)
+
+
+def topk_softmax_plain(feats: torch.Tensor, weights: torch.Tensor, k: int,
+                       scale: float = 100.0, chunk_rows: int = 4096):
+    """The kernel's contract in plain PyTorch, on any device: (m [N],
+    s [N], vals [N, k], idx [N, k] int32), the row's logit max, its sum of
+    exp(logit - m), and the top-k raw scaled logits (a stable descending
+    sort: ties keep the lowest index)."""
+    w = weights.float()
+    parts = []
+    for lo in range(0, feats.shape[0], chunk_rows):
+        logits = scale * torch.matmul(feats[lo:lo + chunk_rows].float(), w)
+        vals, idx = torch.sort(logits, dim=1, descending=True, stable=True)
+        m = logits.max(dim=1).values
+        parts.append((m, torch.exp(logits - m[:, None]).sum(dim=1),
+                      vals[:, :k], idx[:, :k].to(torch.int32)))
+    if not parts:
+        z = torch.empty(0, device=feats.device)
+        return (z, z, torch.empty(0, k, device=feats.device),
+                torch.empty(0, k, dtype=torch.int32, device=feats.device))
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def classify_topk_sharded(feats, weights, k: int, mesh, scale: float = 100.0,
+                          apply_softmax: bool = True,
+                          model_axis: str = "model"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vocabulary-sharded top-k (``scd_tpu/ops/topk.py:79-153``): weights
+    [D, V] split over the mesh's ``model_axis`` (V must divide by its
+    size).  ``feats`` [N, D] and ``weights`` are the same full value on
+    every rank; each rank takes its contiguous [D, V/s] columns.
+
+    Per rank: the kernel (k <= 16 on a card; the plain version on the CPU
+    and, counted in ``classify_topk.matmul_calls``, past 16 on a card)
+    returns the row max ``m``, the sum ``s`` and the raw top-k of its
+    slice.  The candidates merge on RAW logits (softmaxed values saturate
+    to exact zeros for dominated candidates) by ``all_gather``, the lowest
+    global index first on ties, and the softmax values come from the
+    exact global normaliser ``M = max m_r``, ``S = sum s_r exp(m_r - M)``.
+    Returns (values [N, k] f32, indices [N, k] int32), the same on every
+    rank."""
+    from scd_tpu_torch.core.multihost import all_gather, put_global
+
+    n_shards = mesh.axis_size(model_axis)
+    v = weights.shape[1]
+    if v % n_shards:
+        raise ValueError(f"V={v} not divisible by {n_shards} shards")
+    w_local = put_global(weights, mesh, model_axis, dim=1).float()
+    f = torch.as_tensor(feats).to(mesh.device).float().contiguous()
+    v_local = w_local.shape[1]
+    if v_local < k:
+        raise ValueError(f"classify_topk_sharded requires V/shards >= k "
+                         f"(V/shards={v_local}, k={k})")
+    if f.is_cuda and k <= KERNEL_MAX_K:
+        m, s, vals, idx = topk_softmax_cuda(f, w_local, k, scale=scale)
+    else:
+        if f.is_cuda:
+            classify_topk.matmul_calls += 1
+        m, s, vals, idx = topk_softmax_plain(f, w_local, k, scale)
+    idx = idx + mesh.axis_index(model_axis) * v_local
+    if n_shards > 1:
+        group = mesh.group(model_axis)
+        packed = all_gather(torch.cat([vals, m[:, None], s[:, None]], 1),
+                            group=group)
+        all_i = torch.cat(all_gather(idx, group=group), 1)
+        all_v = torch.cat([p[:, :k] for p in packed], 1)
+        ms = torch.stack([p[:, k] for p in packed], 1)
+        m = ms.max(dim=1).values
+        s = sum(p[:, k + 1] * torch.exp(p[:, k] - m) for p in packed)
+        # lowest global index first among equal logits, then by value
+        by_idx = torch.argsort(all_i, dim=1, stable=True)
+        all_v, all_i = all_v.gather(1, by_idx), all_i.gather(1, by_idx)
+        order = torch.argsort(all_v, dim=1, descending=True,
+                              stable=True)[:, :k]
+        vals, idx = all_v.gather(1, order), all_i.gather(1, order)
+    if apply_softmax:
+        vals = torch.exp(vals - m[:, None]) / s[:, None]
+    return vals, idx
 
 
 def topk_softmax_cuda(feats: torch.Tensor, weights: torch.Tensor, k: int,

@@ -1,11 +1,19 @@
 """Shared pipeline stages for the unsup and ptsup entry points.
 
-Port of the single-device parts of ``scd_tpu/pipelines/common.py``: the
-artifact cache and its keys, feature extraction (one dataset pass feeding
-both image towers, built lazily so a fully cached run loads no weights),
-the zero-shot vocabulary build, clustering (KM, SSKM, ConSSKM, FINCH) and
-the metric printout.  Every stage goes through the ``ArtifactCache`` under the JAX
-package's keys, so either package re-enters the other's caches.
+Port of ``scd_tpu/pipelines/common.py``: the artifact cache and its keys,
+feature extraction (one dataset pass feeding both image towers, built
+lazily so a fully cached run loads no weights), the zero-shot vocabulary
+build, clustering (KM, SSKM, ConSSKM, FINCH) and the metric printout.
+Every stage goes through the ``ArtifactCache`` under the JAX package's
+keys, so either package re-enters the other's caches.
+
+Over several ranks (``torchrun``; ``core/multihost.py``) the pipeline's
+mesh (:func:`_pipeline_mesh`) shards the heavy stages, as the JAX
+package's multi-controller path does: each rank decodes and encodes its
+contiguous share of the dataset (:func:`extract_features_pod` through
+:func:`make_sharded_image_encoder`), KM / SSKM take each rank's share of
+the unlabelled rows (:func:`_pod_shard`), the vocabulary build shards the
+names; every rank ends each stage holding the same full result.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from scd_tpu_torch.core.config import PipelineConfig, config_hash
 from scd_tpu_torch.cluster.constrained import fit_constrained
 from scd_tpu_torch.cluster.finch import finch_fit
 from scd_tpu_torch.cluster.kmeans import fit_kmeans, fit_sskm
+from scd_tpu_torch.core import multihost
 from scd_tpu_torch.data.loader import iterate_batches
 from scd_tpu_torch.metrics import (
     evaluate_semantic_acc,
@@ -50,6 +59,39 @@ def _prefetched(batches, depth: int = 2, stage_fn=None):
             q.append(stage(item))
             break
         yield out
+
+
+def make_sharded_image_encoder(encode: Callable, mesh):
+    """Data-parallel image encoder over a mesh
+    (``scd_tpu/pipelines/common.py:66-157``, its multi-controller
+    contract): ``encode(images)`` takes THIS RANK's rows of a batch, each
+    rank runs its own copy of the tower (``encode``, an
+    ``_image_encoder``-style callable returning [n, D] features), and the
+    features of every rank's rows come back on every rank, in rank order
+    (one ``all_gather``).  Ragged shares pad to a common width and the pad
+    rows are dropped after (``core.multihost.rows_from_process_local``);
+    ``encode.stage`` does that padding (and the inner encoder's device
+    staging) for ``_prefetched``.  ``encode.mesh`` is set: consumers
+    (serving) read it."""
+    inner_stage = getattr(encode, "stage", None)
+
+    def stage(images):
+        local, valid = multihost.rows_from_process_local(
+            mesh, images if isinstance(images, torch.Tensor)
+            else np.asarray(images), pad=True, device="cpu")
+        return (inner_stage(local) if inner_stage is not None
+                else local.numpy()), valid
+
+    def encode_sharded(images):
+        staged, valid = images if isinstance(images, tuple) else \
+            stage(images)
+        f = torch.as_tensor(np.asarray(encode(staged), np.float32))
+        full = multihost.host_fetch(f, mesh)
+        return full if valid is None else full[valid]
+
+    encode_sharded.stage = stage
+    encode_sharded.mesh = mesh
+    return encode_sharded
 
 
 def _normalized(f: np.ndarray, normalize: bool) -> np.ndarray:
@@ -107,6 +149,82 @@ def extract_features_multi(encoders: Dict[str, Callable], dataset,
             for k, v in feats.items()}
 
 
+class _RowRange:
+    """Index-window view over a 3/4-tuple dataset (decode-on-access)."""
+
+    def __init__(self, ds, lo: int, hi: int):
+        self._ds, self._lo, self._hi = ds, lo, hi
+
+    def __len__(self) -> int:
+        return self._hi - self._lo
+
+    def __getitem__(self, i: int):
+        return self._ds[self._lo + i]
+
+
+def extract_features_pod(encoders: Dict[str, Callable], dataset,
+                         train_classes: Sequence[int],
+                         batch_size: int = 256, num_workers: int = 8,
+                         normalize: bool = True
+                         ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Extraction over ranks (``scd_tpu/pipelines/common.py:252-326``):
+    each rank DECODES only its contiguous share of the dataset and the
+    mesh encoders (:func:`make_sharded_image_encoder`) gather every rank's
+    features of each batch; features and metadata come back the same on
+    every rank, row-aligned with the single-process extraction order.
+    Metadata comes from the dataset's host arrays, which every rank holds
+    in full (only decoding is sharded)."""
+    mesh = next(iter(encoders.values())).mesh
+    rank, n_proc = mesh.data_index, mesh.n_data
+    n = len(dataset)
+    share = -(-n // n_proc)  # contiguous equal shares; tail ranks ragged
+    lo, hi = multihost.share_bounds(n, n_proc, rank)
+    n_batches = -(-share // batch_size)
+
+    # per-(batch, rank) real row counts, the same on every rank
+    starts = np.minimum(np.arange(n_proc) * share, n)
+    stops = np.minimum(starts + share, n)
+    counts = np.clip((stops - starts)[None, :]
+                     - np.arange(n_batches)[:, None] * batch_size,
+                     0, batch_size).astype(np.int64)
+
+    it = iter(iterate_batches(_RowRange(dataset, lo, hi), batch_size,
+                              num_workers=num_workers))
+    img_shape = None
+    feats: Dict[str, np.ndarray] = {}
+    for b in range(n_batches):
+        cnt = int(counts[b, rank])
+        if cnt:
+            images, _labels, _uq, _m = next(it)
+            assert len(images) == cnt, (len(images), cnt)
+            img_shape = images.shape[1:]
+        else:
+            if img_shape is None:  # this rank owns no rows at all
+                img_shape = np.asarray(dataset[0][0]).shape
+            images = np.zeros((0,) + tuple(img_shape), np.float32)
+        # global row ids of this batch, in the gathered (rank-block) order
+        idxs = np.concatenate([
+            np.arange(starts[p] + b * batch_size,
+                      starts[p] + b * batch_size + counts[b, p])
+            for p in range(n_proc)])
+        for k, enc in encoders.items():
+            f = _normalized(np.asarray(enc(images), np.float32), normalize)
+            if k not in feats:
+                feats[k] = np.empty((n, f.shape[1]), np.float32)
+            feats[k][idxs] = f
+
+    targets = np.asarray(dataset.targets, np.int64)
+    mask_lab = (np.asarray(dataset.mask_lab, bool)
+                if hasattr(dataset, "mask_lab") else np.zeros(n, bool))
+    meta = {
+        "targets": targets.astype(np.float64),
+        "mask_lab": mask_lab,
+        # remapped ids: Old classes are 0..n_lab-1
+        "mask_cls": targets < len(train_classes),
+    }
+    return {k: {"all_feats": v, **meta} for k, v in feats.items()}
+
+
 def make_shared_extractor(feat_encode, clip_encode, dataset,
                           train_classes: Sequence[int], batch_size: int,
                           num_workers: int,
@@ -123,8 +241,16 @@ def make_shared_extractor(feat_encode, clip_encode, dataset,
             encoders = {k: by_key[k] for k in sorted(want)}
             if encoders.get("clip") is encoders.get("feat"):
                 encoders.pop("clip")  # same tower: run once, alias below
-            memo.update(extract_features_multi(
-                encoders, dataset, train_classes, batch_size, num_workers))
+            if multihost.is_multiprocess() and all(
+                    hasattr(e, "mesh") for e in encoders.values()):
+                # over ranks: each rank decodes only its dataset share
+                memo.update(extract_features_pod(
+                    encoders, dataset, train_classes, batch_size,
+                    num_workers))
+            else:
+                memo.update(extract_features_multi(
+                    encoders, dataset, train_classes, batch_size,
+                    num_workers))
             if "clip" in want and "clip" not in memo:
                 memo["clip"] = memo["feat"]
         return memo[key]
@@ -196,11 +322,11 @@ def pipeline_transform(cfg: PipelineConfig):
 
 
 def load_zeroshot_weights(cfg: PipelineConfig, cache: ArtifactCache,
-                          encode_text, nouns) -> np.ndarray:
+                          encode_text, nouns, mesh=None) -> np.ndarray:
     """[D, V] zero-shot weights: an explicit ``--zeroshot_weights`` file
     (the reference's precomputed ``zeroshot_weights/*.pt``,
     ``main_unsup.py:387-395``), else the cached build through the CLIP
-    text tower."""
+    text tower (its names sharded over ``mesh``)."""
     from scd_tpu_torch.naming.templates import IMAGENET_TEMPLATES
     from scd_tpu_torch.naming.zeroshot import build_zeroshot_weights
 
@@ -211,15 +337,45 @@ def load_zeroshot_weights(cfg: PipelineConfig, cache: ArtifactCache,
     return cache.load_or_compute(
         "zeroshot", feature_cache_key(cfg, f"zw_{cfg.naming.corpus}"),
         lambda: {"weights": build_zeroshot_weights(
-            encode_text, nouns, IMAGENET_TEMPLATES)})["weights"]
+            encode_text, nouns, IMAGENET_TEMPLATES, mesh=mesh)})["weights"]
+
+
+def _pipeline_mesh(cfg: PipelineConfig):
+    """The pipeline's mesh (``scd_tpu/pipelines/common.py:462-471``): None
+    on one rank that asks for no more (the single-device path), else
+    ``make_mesh(cfg.mesh)`` over the world's ranks (which raises when the
+    config asks for more ranks than were launched)."""
+    if not multihost.is_multiprocess() and cfg.mesh.data <= 1 \
+            and cfg.mesh.model <= 1:
+        return None
+    from scd_tpu_torch.core.mesh import make_mesh
+
+    return make_mesh(cfg.mesh)
+
+
+def _pod_shard(x, mesh):
+    """THIS RANK's contiguous share of a value that every rank holds in
+    full (the slicing half of the mesh fitters' contract: a row input is
+    the rank's shard; the full array would count every row once per
+    rank).  Ragged tails are fine: the fitters pad and mask."""
+    if mesh is None:
+        return x
+    lo, hi = multihost.share_bounds(len(x), mesh.n_data, mesh.data_index)
+    return x[lo:hi]
 
 
 def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],
-                   device="cuda") -> Dict[str, np.ndarray]:
+                   device="cuda", mesh=None) -> Dict[str, np.ndarray]:
     """Cluster per config (reference ``main_unsup.py:334-364``) on
     ``device``.  Returns the reference's cluster_result contract as numpy:
     all_preds (-1 on the labelled rows for KM and FINCH; SSKM and ConSSKM
-    give the labelled rows their class ids), u_preds, u_targets, mask."""
+    give the labelled rows their class ids), u_preds, u_targets, mask.
+
+    With a ``mesh`` (``feats`` the same full dict on every rank) KM and
+    SSKM take this rank's share of the unlabelled rows (:func:`_pod_shard`)
+    and the labelled rows in full, and return the full result on every
+    rank; ConSSKM raises (not ported over ranks); FINCH runs on the full
+    unlabelled rows on every rank, as in the JAX package."""
     c = cfg.cluster
     mask_lab = feats["mask_lab"].astype(bool)
     mask_cls = feats["mask_cls"].astype(bool)
@@ -230,20 +386,28 @@ def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],
     if c.algorithm not in ("KM", "SSKM", "ConSSKM", "FINCH"):
         raise ValueError(f"unknown cluster algorithm {c.algorithm!r}")
 
-    all_feats = tensors_from_arrays({"all_feats": feats["all_feats"]},
-                                    device)["all_feats"]
-    lab_t = torch.as_tensor(mask_lab, device=all_feats.device)
-    u_feats = all_feats[~lab_t]
+    over_ranks = mesh is not None and mesh.size > 1
+    kw = {"mesh": mesh} if over_ranks and c.algorithm != "FINCH" else {}
+    if kw and c.algorithm != "ConSSKM":
+        # every rank holds the features: each takes its unlabelled share
+        all_np = feats["all_feats"]
+        u_feats = _pod_shard(all_np[~mask_lab], mesh)
+        l_feats = all_np[mask_lab]
+    else:  # ConSSKM raises under a mesh (fit_constrained)
+        all_feats = tensors_from_arrays({"all_feats": feats["all_feats"]},
+                                        device)["all_feats"]
+        lab_t = torch.as_tensor(mask_lab, device=all_feats.device)
+        u_feats, l_feats = all_feats[~lab_t], all_feats[lab_t]
     if c.algorithm in ("KM", "FINCH"):
         # the labelled rows keep -1
-        preds = (fit_kmeans(u_feats, c).labels if c.algorithm == "KM"
+        preds = (fit_kmeans(u_feats, c, **kw).labels if c.algorithm == "KM"
                  else finch_fit(u_feats, req_clust=c.n_clusters))
         preds = preds.astype(np.int64)
         all_preds = np.full(len(mask_lab), -1, np.int64)
         all_preds[~mask_lab] = preds
     else:
         fit = fit_sskm if c.algorithm == "SSKM" else fit_constrained
-        res = fit(u_feats, all_feats[lab_t], targets[mask_lab], c)
+        res = fit(u_feats, l_feats, targets[mask_lab], c, **kw)
         n_l = int(mask_lab.sum())
         all_preds = np.empty(len(mask_lab), np.int64)
         all_preds[mask_lab] = res.labels[:n_l]

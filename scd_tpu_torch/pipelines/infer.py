@@ -10,9 +10,11 @@ Per batch: uint8 images to the device, normalize there, the CLIP image
 tower (its attention through the ``csrc/attention.cu`` kernel on a CUDA
 device), then the head — L2-normalize, ``[B, D] @ [D, K]``, softmax and
 top-k in plain PyTorch, as the JAX package leaves them to XLA.  One
-device: ``cuda`` unless the caller passes ``--device cpu``;
-``--mesh_data`` above 1 raises (multi-device is ROADMAP queue 1's
-multi-device item).
+device per rank: ``cuda`` unless the caller passes ``--device cpu``.
+Under ``torchrun --nproc_per_node N ... --mesh_data N`` every batch splits
+over the ranks (``build_clip_encoder(mesh=...)``: each rank encodes its
+contiguous rows, the features gather on every rank) and rank 0 prints
+the names.  ``--mesh_data`` above the launched ranks raises.
 
 Run (asset-free smoke):
   python -m scd_tpu_torch.pipelines.infer --dataset_name synthetic --topk 3
@@ -99,11 +101,15 @@ def classifier_from_run(encode_image: Callable, zeroshot_weights,
                           logit_scale=logit_scale, device=device)
 
 
-def build_clip_encoder(variables, cfg, device="cuda") -> Callable:
+def build_clip_encoder(variables, cfg, device="cuda", mesh=None) -> Callable:
     """The serving image encoder: the CLIP image tower with ``variables``
     (a Flax-layout tree) on ``device``, normalizing uint8 NHWC batches
     there.  ``encode(images)`` returns the [B, D] f32 features on the
-    device."""
+    device.  With a ``mesh`` it takes the full batch on every rank, each
+    rank encodes its contiguous share of the rows
+    (``pipelines/common.py::make_sharded_image_encoder``) and every rank
+    gets the [B, D] features (host numpy); every rank's weights are
+    checked to be rank 0's."""
     from scd_tpu_torch.data.transforms import device_normalize_clip
     from scd_tpu_torch.models import CLIPModel, params_from_flax
 
@@ -116,7 +122,24 @@ def build_clip_encoder(variables, cfg, device="cuda") -> Callable:
         with torch.inference_mode():
             return model.encode_image(device_normalize_clip(x))
 
-    return encode
+    if mesh is None:
+        return encode
+    from scd_tpu_torch.core.multihost import replicate_to_mesh
+
+    replicate_to_mesh(mesh, model)
+    return _split_batches(lambda x: encode(x).float().cpu().numpy(), mesh)
+
+
+def _split_batches(encode: Callable, mesh) -> Callable:
+    """``encode`` over a mesh for full batches: every rank holds the batch,
+    encodes its contiguous share of the rows
+    (``pipelines/common.py::make_sharded_image_encoder``) and returns the
+    whole batch's features."""
+    from scd_tpu_torch.pipelines.common import (_pod_shard,
+                                                make_sharded_image_encoder)
+
+    sharded = make_sharded_image_encoder(encode, mesh)
+    return lambda images: sharded(_pod_shard(np.asarray(images), mesh))
 
 
 def _pad_tail(batch: np.ndarray, batch_size: int) -> np.ndarray:
@@ -230,16 +253,27 @@ def main(argv=None):
                         "ViT pos-embed grid is size-specific).")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="data-axis size; one device only here (a value "
-                        "above 1 raises)")
+                   help="data-axis size (0 = every launched rank; 1 "
+                        "disables the mesh path; above the launched "
+                        "ranks raises)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) | cpu")
     args = p.parse_args(argv)
-    if args.mesh_data > 1:
-        raise NotImplementedError(
-            "multi-device serving is not ported yet (ROADMAP queue 1: "
-            "multi-device); pass --mesh_data 0 or 1")
-    dev = resolve_device(args.device)
+    from scd_tpu_torch.core.multihost import maybe_initialize, rank0_stdout
+
+    dev = maybe_initialize(args.device)
+    mesh = None
+    if args.mesh_data != 1:
+        from scd_tpu_torch.core.config import MeshConfig, PipelineConfig
+        from scd_tpu_torch.pipelines.common import _pipeline_mesh
+
+        mesh = _pipeline_mesh(PipelineConfig(
+            mesh=MeshConfig(data=args.mesh_data, model=1)))
+    with rank0_stdout():
+        return _serve(args, dev, mesh)
+
+
+def _serve(args, dev, mesh):
 
     if args.dataset_name == "synthetic":
         from scd_tpu_torch.core.config import DataConfig
@@ -252,7 +286,9 @@ def main(argv=None):
         clip = SyntheticCLIP(extras["class_colors"], device=dev)
         names = sorted(extras["class_colors"])
         w = build_zeroshot_weights(clip.encode_text, names, ["{}"])
-        clf = NameClassifier(clip.encode_image, w, names, device=dev)
+        enc = clip.encode_image if mesh is None else _split_batches(
+            clip.encode_image, mesh)
+        clf = NameClassifier(enc, w, names, device=dev)
         imgs = np.stack([np.asarray(test_ds[i][0]) for i in range(16)])
         truth = [names[int(test_ds[i][1])] for i in range(16)]
         named, probs = clf.classify(imgs, topk=args.topk)
@@ -284,7 +320,7 @@ def main(argv=None):
             "size-specific); omit the flag or pass the native size")
     enc = build_clip_encoder(
         _load_clip_variables(args.clip_weights, cfg), cfg,
-        device=dev)
+        device=dev, mesh=mesh)
     clf = NameClassifier(enc, zw, names, device=dev)
 
     count, _ = serve_images(clf, args.images, args.batch_size, args.topk,

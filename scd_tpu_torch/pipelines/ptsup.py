@@ -13,7 +13,9 @@ Port of ``scd_tpu/pipelines/ptsup.py``: the unsupervised pipeline's stages
   over unlabelled clusters with known-name pruning
   (``main_ptsup.py:629-705``).
 
-The metric lines are byte-identical to the JAX package's.
+The metric lines are byte-identical to the JAX package's.  Over several
+ranks (``torchrun``) it shards as ``run_unsup`` does; ConSSKM raises there
+(not ported over ranks), FINCH runs on every rank on the full rows.
 
 Run: ``python -m scd_tpu_torch.pipelines.ptsup --dataset_name synthetic
 --cluster ConSSKM --n_cluster 10 --cluster_size_min 5 --cluster_size_max 50
@@ -31,7 +33,6 @@ import torch
 
 from scd_tpu_torch.core.cache import tensors_from_arrays
 from scd_tpu_torch.core.config import PipelineConfig
-from scd_tpu_torch.core.device import resolve_device
 from scd_tpu_torch.data import get_class_splits, get_datasets
 from scd_tpu_torch.metrics import name_set_iou, split_cluster_acc_v2
 from scd_tpu_torch.metrics.semantic import evaluate_soft_semantic_acc
@@ -154,8 +155,17 @@ def run_ptsup(cfg: PipelineConfig, device="cuda") -> Dict:
     the caller asks for ``"cpu"``; no card raises).  Returns the JAX
     package's result dict plus ``stage_seconds`` (host clock per stage;
     each stage ends in a host fetch, so the times include the device
-    work)."""
-    dev = resolve_device(device)
+    work).  Over several ranks as ``pipelines/unsup.py::run_unsup``."""
+    from scd_tpu_torch.core.multihost import maybe_initialize, rank0_stdout
+
+    dev = maybe_initialize(device)
+    with rank0_stdout():
+        return _run_ptsup(cfg, dev)
+
+
+def _run_ptsup(cfg: PipelineConfig, dev) -> Dict:
+    from scd_tpu_torch.pipelines.common import _pipeline_mesh
+
     stage_seconds: Dict[str, float] = {}
     t0 = time.perf_counter()
     cache = stage_cache(cfg)
@@ -164,8 +174,9 @@ def run_ptsup(cfg: PipelineConfig, device="cuda") -> Dict:
     train_merged, _test, _unlab, extras = get_datasets(
         cfg.data, train_transform=tf, test_transform=tf)
     # the encoders build lazily: a fully cached run loads no weights
+    mesh = _pipeline_mesh(cfg)
     feat_encode, clip_encode, encode_text = lazy_encoders(
-        lambda: build_encoders(cfg, extras, device=dev))
+        lambda: build_encoders(cfg, extras, device=dev, mesh=mesh))
     stage_seconds["load"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -176,7 +187,7 @@ def run_ptsup(cfg: PipelineConfig, device="cuda") -> Dict:
     t0 = time.perf_counter()
     cluster_result = cache.load_or_compute(
         "cluster", cluster_cache_key(cfg),
-        lambda: run_clustering(cfg, feats, device=dev),
+        lambda: run_clustering(cfg, feats, device=dev, mesh=mesh),
         refresh=cfg.run_cluster)
     stage_seconds["cluster"] = time.perf_counter() - t0
 
@@ -190,7 +201,7 @@ def run_ptsup(cfg: PipelineConfig, device="cuda") -> Dict:
     stage_seconds["vocabulary"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    zw_np = load_zeroshot_weights(cfg, cache, encode_text, nouns)
+    zw_np = load_zeroshot_weights(cfg, cache, encode_text, nouns, mesh=mesh)
     zw = tensors_from_arrays({"weights": zw_np}, dev)["weights"]
     cidx_to_cname = remap_cidx_to_cname(
         resolve_class_names(

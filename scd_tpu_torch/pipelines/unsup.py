@@ -14,6 +14,14 @@ assets.  ``--feat_model resnet50`` takes the ResNet-50 backbone
 off) the vocabulary build takes the prefix-KV route
 (``naming/zeroshot.py::build_zeroshot_weights_prefix``).
 
+Over several ranks (``torchrun --nproc_per_node N -m
+scd_tpu_torch.pipelines.unsup --mesh_data N ...``; one rank per device,
+``core/multihost.py``) the run is data-parallel as the JAX package's
+multi-controller run: each rank decodes and encodes its share of the
+dataset, clusters its share of the unlabelled rows (KM / SSKM) and
+encodes its share of the vocabulary's names; every rank ends each stage
+with the full result, and rank 0 alone prints the metric lines.
+
 Run: ``python -m scd_tpu_torch.pipelines.unsup --dataset_name synthetic
 --device cpu`` (asset-free), or ``... --dataset_name imagenet_100
 --root_dir ROOT --cache_dir CACHE --cluster SSKM --n_cluster 100 --corpus
@@ -105,10 +113,15 @@ def _image_encoder(model, normalize, dev):
     return encode
 
 
-def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
+def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda",
+                   mesh=None):
     """Returns (feat_encode_image, clip_encode_image, encode_text), the
     towers on ``device`` at bf16 compute with f32 LayerNorms (the JAX
     package's recipe), W8A8 qkv/fc1 under ``cfg.feature.dense_int8``.
+    With a ``mesh`` the image encoders are data-parallel over it
+    (``pipelines/common.py::make_sharded_image_encoder``) and every tower's
+    weights are checked to be the same on every rank
+    (``core.multihost.replicate_to_mesh``).
 
     ``encode_text`` also exposes ``forward(model, tokens)``, ``variables``
     (the CLIP model) and ``tokenize``, which the batched vocabulary build
@@ -135,7 +148,9 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
         from scd_tpu_torch.models.synthetic import SyntheticCLIP
 
         clip = SyntheticCLIP(extras["class_colors"], device=dev)
-        return clip.encode_image, clip.encode_image, clip.encode_text
+        feat, img = _image_encoders_over(
+            mesh, (clip.encode_image, clip.encode_image))
+        return feat, img, clip.encode_text
     vit_feat_cfgs = vit_feature_backbones()
     if name not in ("clip", "resnet50") and name not in vit_feat_cfgs:
         raise ValueError(f"unknown feat_model {name!r}")
@@ -186,8 +201,13 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
         encode_text.prefix_forward = text_prefix_forward
         encode_text.suffix_forward = text_suffix_forward
 
+    if mesh is not None:
+        from scd_tpu_torch.core.multihost import replicate_to_mesh
+
+        replicate_to_mesh(mesh, clip_model)
     if name == "clip":
-        return clip_encode_image, clip_encode_image, encode_text
+        img, = _image_encoders_over(mesh, (clip_encode_image,))
+        return img, img, encode_text
     if name == "resnet50":
         from scd_tpu_torch.data.transforms import device_normalize_imagenet
         from scd_tpu_torch.models import (ResNet50, ResNet50Config,
@@ -198,8 +218,12 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
         r50.load_state_dict(params_from_flax(load_resnet50_weights(
             torch.load(cfg.data.dino_weights, map_location="cpu"),
             r50_cfg)))
-        return _image_encoder(r50, device_normalize_imagenet, dev), \
-            clip_encode_image, encode_text
+        if mesh is not None:
+            replicate_to_mesh(mesh, r50)
+        feat, img = _image_encoders_over(mesh, (
+            _image_encoder(r50, device_normalize_imagenet, dev),
+            clip_encode_image))
+        return feat, img, encode_text
     path = (f"{cfg.data.gcd_weights_dir}/"
             f"{cfg.data.dataset_name}_model_best.pt"
             if name == "gcd" else cfg.data.dino_weights)
@@ -210,8 +234,11 @@ def build_encoders(cfg: PipelineConfig, extras: Dict, device="cuda"):
     dino = VisionTransformer(vit_cfg, device=dev).eval()
     dino.load_state_dict(params_from_flax(load_dino_weights(
         torch.load(path, map_location="cpu"), vit_cfg)))
-    return _image_encoder(dino, normalize, dev), clip_encode_image, \
-        encode_text
+    if mesh is not None:
+        replicate_to_mesh(mesh, dino)
+    feat, img = _image_encoders_over(mesh, (
+        _image_encoder(dino, normalize, dev), clip_encode_image))
+    return feat, img, encode_text
 
 
 def load_vocabulary(cfg: PipelineConfig, extras: Dict):
@@ -255,8 +282,22 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     """The unsupervised pipeline on ``device`` (``"cuda"`` unless the
     caller asks for ``"cpu"``; no card raises).  Returns the JAX package's
     result dict plus ``stage_seconds`` (host clock per stage; each stage
-    ends in a host fetch, so the times include the device work)."""
-    dev = resolve_device(device)
+    ends in a host fetch, so the times include the device work).
+
+    Launched over several ranks (``WORLD_SIZE`` > 1, or an initialized
+    process group), each rank runs on the device ``core.multihost``
+    bound and the stages shard over ``cfg.mesh`` (module docstring);
+    every rank returns the same result and rank 0 prints."""
+    from scd_tpu_torch.core.multihost import maybe_initialize, rank0_stdout
+
+    dev = maybe_initialize(device)
+    with rank0_stdout():
+        return _run_unsup(cfg, dev)
+
+
+def _run_unsup(cfg: PipelineConfig, dev) -> Dict:
+    from scd_tpu_torch.pipelines.common import _pipeline_mesh
+
     stage_seconds: Dict[str, float] = {}
     t0 = time.perf_counter()
     cache = stage_cache(cfg)
@@ -264,9 +305,10 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     tf = pipeline_transform(cfg)
     train_merged, _test, _unlab, extras = get_datasets(
         cfg.data, train_transform=tf, test_transform=tf)
+    mesh = _pipeline_mesh(cfg)
     # the encoders build lazily: a fully cached run loads no weights
     feat_encode, clip_encode, encode_text = lazy_encoders(
-        lambda: build_encoders(cfg, extras, device=dev))
+        lambda: build_encoders(cfg, extras, device=dev, mesh=mesh))
     stage_seconds["load"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -278,7 +320,7 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     t0 = time.perf_counter()
     cluster_result = cache.load_or_compute(
         "cluster", cluster_cache_key(cfg),
-        lambda: run_clustering(cfg, feats, device=dev),
+        lambda: run_clustering(cfg, feats, device=dev, mesh=mesh),
         refresh=cfg.run_cluster)
     stage_seconds["cluster"] = time.perf_counter() - t0
 
@@ -294,7 +336,7 @@ def run_unsup(cfg: PipelineConfig, device="cuda") -> Dict:
     stage_seconds["vocabulary"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    zw_np = load_zeroshot_weights(cfg, cache, encode_text, nouns)
+    zw_np = load_zeroshot_weights(cfg, cache, encode_text, nouns, mesh=mesh)
     zw = tensors_from_arrays({"weights": zw_np}, dev)["weights"]
     cidx_to_cname = remap_cidx_to_cname(
         resolve_class_names(
@@ -386,11 +428,28 @@ def build_argparser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--cache_dir", type=str, default="artifacts")
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="data-axis size (kept for config parity)")
+                   help="data-axis size (0 = every launched rank / model; "
+                        "launch one rank per device with torchrun "
+                        "--nproc_per_node N)")
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) | cpu")
     return p
+
+
+def _image_encoders_over(mesh, encoders):
+    """The image encoders data-parallel over ``mesh`` (None: as they are),
+    one sharded encoder per distinct tower."""
+    if mesh is None:
+        return encoders
+    from scd_tpu_torch.pipelines.common import make_sharded_image_encoder
+
+    out, done = [], {}
+    for enc in encoders:
+        if id(enc) not in done:
+            done[id(enc)] = make_sharded_image_encoder(enc, mesh)
+        out.append(done[id(enc)])
+    return out
 
 
 def config_from_args(args, partially_supervised: bool = False) -> PipelineConfig:

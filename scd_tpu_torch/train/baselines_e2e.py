@@ -30,8 +30,8 @@ Parameters start from Flax's default initializers
 ``heads.*``, ``heads_over.*``).
 
 Multi-device training (``mesh``, the JAX package's dp+tp shardings and
-its ``_put`` / ``_shard_setup`` staging) is not ported: a ``mesh``
-raises, as ``GCDTrainer``'s does.
+its ``_put`` / ``_shard_setup`` staging) is not ported: a ``mesh`` of
+more than one rank raises, as ``GCDTrainer``'s does.
 """
 
 from __future__ import annotations
@@ -72,10 +72,10 @@ def _swapped_loss_per_head(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (a mesh) is not ported; run on one "
-            "device")
+    from scd_tpu_torch.core.mesh import refuse_mesh
+
+    refuse_mesh(mesh, "the end-to-end baseline trainers",
+                "training over a mesh")
 
 
 def _run_epochs(epochs: int, epoch_fn, eval_fn, best_metric: str,

@@ -28,7 +28,8 @@ unlabelled sampling.
   from anchors, positives and denominators.
 
 Multi-device training (``mesh``, the JAX package's tensor-parallel
-specs and ``stage_pod_batch``) is not ported: a ``mesh`` raises.
+specs and ``stage_pod_batch``) is not ported: a ``mesh`` of more than one
+rank raises (``core.mesh.refuse_mesh``).
 """
 
 from __future__ import annotations
@@ -188,10 +189,9 @@ def make_gcd_state(vit_cfg: ViTConfig, cfg: TrainConfig, seed: int = 0,
                    total_steps: int = 10_000, device="cuda", mesh=None):
     """Build (model, optimizer, step).  ``step(model, optimizer, batch) ->
     metrics`` (0-d tensors on the device) takes one SGD step in place."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (a mesh) is not ported; run on one "
-            "device")
+    from scd_tpu_torch.core.mesh import refuse_mesh
+
+    refuse_mesh(mesh, "GCD training", "training over a mesh")
     dev = resolve_device(device)
     if cfg.int8_frozen and cfg.grad_from_block > 0:
         # the frozen blocks (< grad_from_block) never take a gradient:
@@ -230,6 +230,9 @@ class GCDTrainer:
     def __init__(self, vit_cfg: ViTConfig, cfg: TrainConfig,
                  seed: int = 0, total_steps: int = 10_000, mesh=None,
                  device="cuda"):
+        from scd_tpu_torch.core.mesh import refuse_mesh
+
+        refuse_mesh(mesh, "GCD training", "training over a mesh")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model, self.opt, self.step_fn = make_gcd_state(

@@ -1057,3 +1057,64 @@ def test_uno_e2e_step_card_matches_cpu(cuda):
         cos = (du * dw).sum() / (du.norm() * dw.norm())
         assert cos >= 0.999, (name, cos.item())
         assert (du - dw).abs().max() <= 1e-3 * dw.abs().max(), name
+
+
+# ------------------------------------------------------------------- mesh
+
+def _mesh_spec(tmp_path):
+    from scd_tpu_torch.testing.fabricate import (fabricate_imagenet100,
+                                                 imagenet100_config)
+
+    cfg = imagenet100_config(str(tmp_path / "in100"), n_init=3,
+                             max_iterations=5)
+    fabricate_imagenet100(cfg, seed=0, device="cuda", n_images=4_000,
+                          d_feat=64, d_clip=32, vocab=3_000, n_genus=20)
+    return {"cfg": cfg, "towers": "tiny", "images": 96, "batch": 32,
+            "names": 200, "topk_rows": 2_000, "k": 5, "seed": 0,
+            "bpe": None}
+
+
+def test_mesh_of_one_rank_over_nccl_matches_mesh_free(cuda, tmp_path):
+    """chip_smoke phase 13's first check at a small size: in a world of
+    one rank over NCCL, ``fit_sskm`` with an explicit mesh gives the
+    mesh-free call's labels and inertia, launching ``fused_em_step``."""
+    from scd_tpu_torch.testing.dist import spawn
+
+    ref, = spawn("scd_tpu_torch.testing.mesh_cases.mesh_stage_references",
+                 world=1, backend="nccl", device="cuda",
+                 args=(_mesh_spec(tmp_path),), timeout=300, threads=0)
+    assert ref["sskm"]["labels_equal"]
+    assert ref["sskm"]["inertia"][0] == ref["sskm"]["inertia"][1]
+    assert ref["launches_mesh1"]["fused_em_step"] > 0
+
+
+def test_mesh_of_two_ranks_on_one_card_matches_one_process(cuda, tmp_path):
+    """Phase 13's second check at a small size: two gloo ranks on the
+    card run the sharded encoders, clustering, vocabulary build and
+    top-k; each rank's outputs against the single-process run's (the
+    smoke's gates), each rank launching the three kernels."""
+    import importlib.util
+    import os
+
+    from scd_tpu_torch.testing.dist import spawn
+
+    spec = _mesh_spec(tmp_path)
+    ref, = spawn("scd_tpu_torch.testing.mesh_cases.mesh_stage_references",
+                 world=1, backend="nccl", device="cuda", args=(spec,),
+                 timeout=300, threads=0)
+    ranks = spawn("scd_tpu_torch.testing.mesh_cases.mesh_stages", world=2,
+                  backend="gloo", device="cuda", args=(spec,), timeout=300,
+                  threads=0)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    loader = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(smoke)
+    from scd_tpu_torch.pipelines.common import feature_cache_key, stage_cache
+
+    feats = stage_cache(spec["cfg"]).load(
+        "features", feature_cache_key(spec["cfg"], "feat"))
+    u_targets = feats["targets"].astype(np.int64)[
+        ~feats["mask_lab"].astype(bool)]
+    metrics = smoke.mesh_checks(ref, ranks, u_targets)
+    assert set(metrics) == {0, 1}

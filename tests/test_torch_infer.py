@@ -186,8 +186,10 @@ def test_main_returns_the_image_count_as_jax(tiny, tmp_path, monkeypatch):
 
 
 def test_mesh_request_raises():
+    """``--mesh_data 2`` in a process launched alone (no ``torchrun``)
+    asks for more ranks than the world has: it raises instead of serving
+    on one device (``tests/test_torch_mesh_pipeline.py`` serves over 2)."""
     from scd_tpu_torch.pipelines.infer import main
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: multi-device"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices"):
         main(["--mesh_data", "2", "--device", "cpu"])

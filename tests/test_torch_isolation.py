@@ -5,7 +5,8 @@ the tokenizer, the kernels' ops, the runners, the serving entry point, the
 ptsup entry point, the constrained and FINCH clusterers, the min-cost-flow
 bridge, the reference-cache importer, the training subpackages ``train``
 and ``utils`` (the runtime, log-parsing and plot modules too), the NCD
-baselines, WTA hashing and the ResNet towers among them) and
+baselines, WTA hashing and the ResNet towers among them, and the mesh
+modules ``core.mesh``, ``core.multihost`` and ``testing.dist``) and
 ``chip_smoke``, then looks at
 ``sys.modules``.  ``scd_tpu_torch`` itself
 starts with ``scd_tpu``, so the check matches the JAX package by exact name
@@ -51,5 +52,16 @@ def test_port_imports_no_jax_and_no_scd_tpu():
         "scd_tpu_torch.data.transforms", "scd_tpu_torch.ops.wta",
         "scd_tpu_torch.models.resnet", "scd_tpu_torch.models.resnet50",
         "scd_tpu_torch.utils.runtime", "scd_tpu_torch.utils.logparse",
-        "scd_tpu_torch.utils.plots"} <= \
+        "scd_tpu_torch.utils.plots", "scd_tpu_torch.core.mesh",
+        "scd_tpu_torch.core.multihost", "scd_tpu_torch.testing.dist"} <= \
         set(names.split(","))
+
+
+def test_spawned_ranks_import_no_jax():
+    """A rank started by ``testing/dist.py`` (two gloo ranks, from this
+    process, which has JAX loaded) holds neither JAX nor the JAX package
+    after making a mesh and running a collective."""
+    from scd_tpu_torch.testing.dist import spawn
+
+    assert spawn("scd_tpu_torch.testing.mesh_cases.foreign_modules",
+                 world=2, timeout=60) == [[], []]

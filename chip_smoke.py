@@ -86,8 +86,8 @@ Phases, each printing its own lines and seconds:
    [50, 1,200], n_init 10, max_iterations 10): every unlabelled cluster
    size within the bounds, its E-steps' count, seconds, dual iterations
    and MCF fallbacks printed.  Then the exact MCF track at full width
-   over the 97,536 unlabelled rows, cut to n_init 1 and max_iterations 2
-   (the host solver takes seconds an E-step at this shape), the solver's
+   over the 97,536 unlabelled rows, cut to n_init 1 and max_iterations 1
+   (the host solver takes ~47 s an E-step at this shape), the solver's
    and the device step's seconds per iteration; the MCF track on the
    card and the CPU from one set of centers at 4,000 x 64, K 20 (rounded
    costs at most 1 apart on at most 0.1% of entries, labels equal on >=
@@ -220,6 +220,27 @@ Phases, each printing its own lines and seconds:
    rank and of the single-process run are printed beside the card's name
    and power limit.  A rank that fails or passes the deadline fails the
    phase.
+14. the mesh: ConSSKM, estimate_k, training (``testing/mesh_cases.py::
+   mesh_training_stages``, phase 13's rig), at world size 1 over NCCL (the
+   single-process references; ConSSKM under an explicit mesh of one rank
+   must give the mesh-free fit's labels and inertia bits) and at world
+   size 2 over gloo with both ranks on the card: ``run_clustering`` with
+   phase 8's ConSSKM configuration (Sinkhorn track) on phase 3's features
+   (130,048 x 768, K 100; n_init cut to 1), every cluster size within
+   [50, 1200], no MCF fallback, ACC within MESH_CON_ACC and ARI >=
+   MESH_CON_ARI against one process; ``estimate_k`` (Brent, each probe's
+   k-means cut to one restart) over phase 7's kind of features (max_k
+   1,000): the same K and the objective within MESH_EK_OBJ; three GCD
+   steps of ViT-B/16 bf16 at 128 x 2 views: each loss within
+   MESH_GCD_RTOL, the trainable parameters at cosine >=
+   MESH_GCD_COS after the last step, the two ranks' parameters bitwise
+   equal after each step; UNO and AutoNovel at ViT-B/16 f32, 64 x 2
+   views, 2 steps each: losses within MESH_E2E_RTOL and the best head
+   equal; ``metric_learn.main --mesh_data 2`` (1 epoch of 2 steps) exits
+   and only rank 0 writes the run; each rank's seconds, E-steps, dual
+   iterations, ``fused_em_step`` and attention launches (counts set to 0
+   before each stage) and the augmentation's seconds a batch are printed
+   beside the card's name and power limit.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -237,7 +258,10 @@ and the f32 kernels at head_dim 64 of the attention
 phase 11's end-to-end mains and phase 5's times at B 128 x L 197; and a
 row, ``prefix_attention`` (no TPU kernel: the JAX package's prefix
 attention is plain XLA), with the ``mma.sync`` kernel's launches in phase
-12's prefix build and times at its first shape.
+12's prefix build and times at its first shape.  Phase 14's rank 0 adds
+its launches: ``fused_em_step`` in its ``estimate_k`` search, the
+attention and its gradient in its GCD steps, their f32 kernels in its
+end-to-end trainers.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 13 (each rank's) and
@@ -2320,7 +2344,7 @@ def sinkhorn_estep_profile(cfg, size_min, size_max):
     return wall, (busy or None), iters, top
 
 
-def mcf_full_width(cfg, device, size_min, size_max, n_init=1, max_iter=2):
+def mcf_full_width(cfg, device, size_min, size_max, n_init=1, max_iter=1):
     """``fit_constrained`` on the exact track over the root's clustering
     features (all unlabelled rows, the labelled ones pinned).  Returns
     (result, counts, seconds)."""
@@ -2470,14 +2494,15 @@ def phase_ptsup(seed: int, cfg, workdir: str):
     for name, ms, count in top:
         print(f"  {ms:.2f} ms in {count} launches of {name}")
 
-    # cut: n_init 1, max_iterations 2 (the host solver takes seconds per
-    # E-step at this shape)
+    # cut: n_init 1, max_iterations 1 (the host solver took 47.2 s an
+    # E-step at this shape on an H100's host; one keeps the smoke, phase
+    # 14 included, inside its time)
     t0 = time.perf_counter()
     res, counts, wall = mcf_full_width(cfg, "cuda", SIZE_MIN, SIZE_MAX)
     it = max(counts["mcf_iterations"], 1)
     sizes = np.bincount(res.labels[32_512:], minlength=K)
     print(f"ConSSKM (MCF track) N={N_IMAGES - 32_512} D={D_FEAT} K={K}, "
-          f"n_init 1, max_iterations 2: {counts['mcf_iterations']} "
+          f"n_init 1, max_iterations 1: {counts['mcf_iterations']} "
           f"iterations, solver {counts['mcf_seconds'][0] / it:.3f} s and "
           f"device step {counts['mcf_seconds'][1] / it:.4f} s per iteration "
           f"(device step with the costs' copy to the host); fit "
@@ -4427,6 +4452,271 @@ def phase_mesh(seed: int, cfg, workdir: str):
     return {r: got["launches"] for r, got in enumerate(ranks)}
 
 
+# ------------------------------------------------------------- phase 14
+
+# the second mesh phase's configurations, each at full width:
+# - ConSSKM: phase 8's (the Sinkhorn track, sizes in [SIZE_MIN,
+#   SIZE_MAX]) on phase 3's features (130,048 x 768, K 100), cut to
+#   MESH_CON_N_INIT restart of the config's 10 (each restart is 10 Lloyd
+#   iterations of one Sinkhorn E-step; 3 restarts took 38.6 s a rank at
+#   world size 2 on an H100, ~200 dual iterations an E-step, each with two
+#   gloo collectives staged through the host)
+# - estimate_k: phase 7's kind of features (RUNNER_N x D_FEAT), max_k
+#   MAX_K, the CLI's Brent search from MIN_K, each probe's k-means cut to
+#   MESH_EK_N_INIT restart of the objective's 3: with 3, the search took
+#   140.2 s a rank at world size 2 (22.5 s in one process) and the phase
+#   307.6 s; the halving search instead was slower still (its probes at
+#   K 1,000 and 505 draw the most k-means++ centers, each draw a gather
+#   and a broadcast through the host) and, its path turning on the
+#   objective at K > 500 where rounding moves it, chose K 505 over the
+#   ranks and 562 in one process
+# - GCD: phase 10's ViT-B/16 bf16 step (TRAIN_IMAGES x 2 views, the last
+#   block and the head trainable), MESH_GCD_STEPS fixed batches
+# - UNO and AutoNovel: phase 11's ViT-B/16 f32 trainers, E2E_BATCH x 2
+#   views, 2 epochs of one step each
+# - metric_learn.main over the ranks: 1 epoch of 2 steps on a fabricated
+#   root of MESH_ML_IMAGES train images, and MESH_AUG_STEPS batches of
+#   its augmentation timed alone
+MESH_CON_N_INIT = 1
+MESH_EK_METHOD, MESH_EK_N_INIT = "brent", 1
+MESH_GCD_STEPS = 3
+MESH_ML_IMAGES, MESH_AUG_STEPS = 1_000, 3
+# its gates, with their reasons:
+# - ConSSKM: the dual loop's column sums and the M-step's sums merge two
+#   ranks' partial sums (another f32 order), which may move a near-tie row
+MESH_CON_ACC, MESH_CON_ARI = 1e-3, 0.99
+# - estimate_k: the same K; the objective, an ACC over ~32,500 labelled
+#   rows, within MESH_EK_OBJ (phase 13's ACC bound).  Not 1e-6: the
+#   merged M-step sums (each rank's fused_em_step partial sums, added
+#   after) round otherwise than one process's sums over all rows, so
+#   near-tie rows flip: from the same centers on an H100, 50 EM
+#   iterations at K 99 over these features leave 9 of 130,048 labels
+#   apart (836 at K 300, where the later k-means++ draws differ too), and
+#   the search's objective at K 99 read 0.98876 over the ranks against
+#   0.98863 in one process
+MESH_EK_OBJ = 1e-3
+# - GCD: the bf16 towers run 64 rows a rank where one process runs 128
+#   (another tiling) and the summed gradients add in another order: each
+#   step's loss, and the trainable parameters after the last step
+MESH_GCD_RTOL, MESH_GCD_COS = 1e-3, 0.9999
+# - UNO and AutoNovel, f32: the JAX package's tolerance for its mesh runs
+MESH_E2E_RTOL = 2e-4
+MESH14_DEADLINE = 900
+
+
+def _mesh_training_spec(seed, cfg, workdir):
+    """What ``testing/mesh_cases.py::mesh_training_stages`` runs."""
+    import dataclasses
+
+    import torch
+
+    from scd_tpu_torch.testing.fabricate import (fabricate_imagenet_tree,
+                                                 imagenet100_config)
+
+    con = dataclasses.replace(cfg, cluster=dataclasses.replace(
+        cfg.cluster, algorithm="ConSSKM", size_min=SIZE_MIN,
+        size_max=SIZE_MAX, constrained_backend="sinkhorn",
+        n_init=MESH_CON_N_INIT))
+    ml = imagenet100_config(os.path.join(workdir, "in100_train"))
+    fabricate_imagenet_tree(ml, MESH_ML_IMAGES, TRAIN_ROOT_VOCAB, 20)
+    vit = dict(image_size=224, patch_size=16, width=768, depth=12, heads=12)
+    return {
+        "cfg": con, "seed": seed,
+        "estimate_k": {"path": write_features_packed(
+            seed, os.path.join(workdir, "features_packed.npz")),
+            "min_k": MIN_K, "max_k": MAX_K, "method": MESH_EK_METHOD,
+            "n_init": MESH_EK_N_INIT},
+        "gcd": {"vit": dict(vit, compute_dtype=torch.bfloat16),
+                "train": dict(lr=0.1, sup_con_weight=0.35,
+                              grad_from_block=GRAD_FROM_BLOCK,
+                              n_views=TRAIN_VIEWS, proj_dim=PROJ_DIM,
+                              batch_size=TRAIN_IMAGES),
+                "total_steps": 20, "global_batch": TRAIN_IMAGES,
+                "steps": MESH_GCD_STEPS, "seed": seed, "image_size": 224,
+                "views": TRAIN_VIEWS, "return_params": True},
+        "e2e": {"vit": vit, "images": E2E_BATCH, "seed": seed + 5,
+                "n_labeled": BASELINE_LABELED, "num_heads": 4,
+                "overcluster_factor": 3,
+                "kw": {m: dict(epochs=2, batch_size=E2E_BATCH)
+                       for m in ("uno", "autonovel")}},
+        "augment": {"root": ml.data.root_dir, "image_size": 224,
+                    "batch": TRAIN_IMAGES, "steps": MESH_AUG_STEPS,
+                    "workers": 8, "seed": seed},
+        "metric_learn": [
+            "--dataset_name", "imagenet_100", "--root_dir", ml.data.root_dir,
+            "--vit", "base", "--image_size", "224", "--batch_size",
+            str(TRAIN_IMAGES), "--grad_from_block", str(GRAD_FROM_BLOCK),
+            "--proj_dim", str(PROJ_DIM), "--epochs", "1",
+            "--steps_per_epoch", "2", "--max_kmeans_iter", "10",
+            "--exp_root", os.path.join(workdir, "runs"), "--device",
+            "cuda"]}
+
+
+def _cos64(a, b) -> float:
+    import numpy as np
+
+    a = np.ravel(a).astype(np.float64)
+    b = np.ravel(b).astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def mesh_training_checks(ref, ranks, u_targets):
+    """Hold every rank's phase-14 stages against the single-process ones
+    (raises on a failed gate); returns {rank: {metric: value}}."""
+    import numpy as np
+
+    from scd_tpu_torch.metrics import cluster_acc
+
+    out = {}
+    acc_ref = cluster_acc(u_targets, ref["consskm"]["u_preds"])
+    g_ref = ref["gcd"]
+    for r, got in enumerate(ranks):
+        m = {}
+        con = got["consskm"]
+        sizes = np.bincount(con["u_preds"], minlength=K)
+        check(sizes.min() >= SIZE_MIN and sizes.max() <= SIZE_MAX,
+              f"rank {r}: ConSSKM sizes [{sizes.min()}, {sizes.max()}]")
+        check(con["counters"]["mcf_fallbacks"] == 0,
+              f"rank {r}: ConSSKM went on to the MCF track")
+        m["con_ari"] = adjusted_rand_score(ref["consskm"]["u_preds"],
+                                           con["u_preds"])
+        m["con_acc"] = float(cluster_acc(u_targets, con["u_preds"]))
+        check(m["con_ari"] >= MESH_CON_ARI,
+              f"rank {r}: ConSSKM ARI {m['con_ari']} < {MESH_CON_ARI}")
+        check(abs(m["con_acc"] - acc_ref) <= MESH_CON_ACC,
+              f"rank {r}: ConSSKM ACC {m['con_acc']} against {acc_ref}")
+        ek, ek_ref = got["estimate_k"]["best"], ref["estimate_k"]["best"]
+        check(ek[0] == ek_ref[0] and abs(ek[1] - ek_ref[1]) <= MESH_EK_OBJ,
+              f"rank {r}: estimate_k {ek} against {ek_ref}")
+        check(got["estimate_k"]["fused_em_step"] > 0,
+              f"rank {r}: fused_em_step never launched in estimate_k")
+        g = got["gcd"]
+        m["gcd_loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(g["losses"], g_ref["losses"]))
+        check(m["gcd_loss_rel"] <= MESH_GCD_RTOL,
+              f"rank {r}: GCD losses {g['losses']} against "
+              f"{g_ref['losses']}")
+        check(g["digests"] == ranks[0]["gcd"]["digests"],
+              f"rank {r}: the ranks' parameters differ after a step")
+        check(g["launches"]["attention"] > 0
+              and g["launches"]["attention_bwd"] > 0,
+              f"rank {r}: GCD launches {g['launches']}")
+        for method in ("uno", "autonovel"):
+            e, e_ref = got["e2e"][method], ref["e2e"][method]
+            rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b
+                      in zip(e["history"], e_ref["history"]))
+            m[f"{method}_loss_rel"] = rel
+            check(rel <= MESH_E2E_RTOL and len(e["history"]) == 2,
+                  f"rank {r}: {method} losses {e['history']} against "
+                  f"{e_ref['history']}")
+            check(e["best_head"] == e_ref["best_head"],
+                  f"rank {r}: {method} best head {e['best_head']} against "
+                  f"{e_ref['best_head']}")
+            check(all(v > 0 for v in e["launches"].values()),
+                  f"rank {r}: {method} launches {e['launches']}")
+        out[r] = m
+    for other in ranks[1:]:
+        check(np.array_equal(other["consskm"]["u_preds"],
+                             ranks[0]["consskm"]["u_preds"]),
+              "the ranks' ConSSKM labels differ")
+    p, p_ref = ranks[0]["gcd"]["params"], g_ref["params"]
+    check(set(p) == set(p_ref), "the trainable sets differ")
+    cos = {k: _cos64(p[k], p_ref[k]) for k in p}
+    # a leaf no loss moves (a zero update in one process) has no cosine
+    upd = {k: _cos64(p[k] - g_ref["params0"][k],
+                     p_ref[k] - g_ref["params0"][k]) for k in p
+           if np.any(p_ref[k] != g_ref["params0"][k])}
+    worst = min(cos, key=cos.get)
+    check(cos[worst] >= MESH_GCD_COS,
+          f"GCD: {worst} at cosine {cos[worst]} to one process")
+    out["con_acc_one_process"] = float(acc_ref)
+    out["gcd_param_cos_min"] = cos[worst]
+    out["gcd_update_cos_min"] = min(upd.values())
+    return out
+
+
+def phase_mesh_training(seed: int, cfg, workdir: str):
+    """Phase 14: ConSSKM, estimate_k and data-parallel training over
+    ranks, at world size 1 over NCCL (the references; ConSSKM under an
+    explicit mesh of one rank against the mesh-free fit) and at world
+    size 2 over gloo with both ranks on the card."""
+    import numpy as np
+
+    from scd_tpu_torch.pipelines.common import feature_cache_key, stage_cache
+    from scd_tpu_torch.testing.dist import spawn
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    spec = _mesh_training_spec(seed, cfg, workdir)
+    t0 = time.perf_counter()
+    ref, = spawn("scd_tpu_torch.testing.mesh_cases.mesh_training_stages",
+                 world=1, backend="nccl", device="cuda", args=(spec,),
+                 timeout=MESH14_DEADLINE, threads=0)
+    t_ref = time.perf_counter() - t0
+    m1 = ref["consskm"]["mesh1"]
+    print(f"world 1 (nccl): fit_constrained (ConSSKM, Sinkhorn, n_init "
+          f"{MESH_CON_N_INIT}) with a mesh of one rank against the "
+          f"mesh-free call: labels equal {m1['labels_equal']}, inertia "
+          f"{m1['inertia'][0]!r} / {m1['inertia'][1]!r}, "
+          f"{m1['seconds']:.3f} s / {ref['consskm']['seconds']:.3f} s")
+    check(m1["labels_equal"] and m1["inertia"][0] == m1["inertia"][1],
+          "world 1: the ConSSKM mesh fit differs from the mesh-free fit")
+    t0 = time.perf_counter()
+    ranks = spawn("scd_tpu_torch.testing.mesh_cases.mesh_training_stages",
+                  world=2, backend="gloo", device="cuda", args=(spec,),
+                  timeout=MESH14_DEADLINE, threads=0)
+    t_mesh = time.perf_counter() - t0
+    for name, got in [("world 1", ref)] + [(f"world 2 rank {r}", g)
+                                            for r, g in enumerate(ranks)]:
+        con, ek, g = got["consskm"], got["estimate_k"], got["gcd"]
+        print(f"{name} ({smi}): ConSSKM {con['counters']['e_steps']} "
+              f"E-steps, {con['counters']['dual_iterations']} dual "
+              f"iterations, {con['counters']['repair_passes']} repair "
+              f"passes, {con['seconds']:.3f} s; estimate_k "
+              f"({MESH_EK_METHOD}) K {ek['best'][0]} objective "
+              f"{ek['best'][1]:.6f}, {ek['seconds']:.3f} s, fused_em_step "
+              f"{ek['fused_em_step']} launches; GCD "
+              + ", ".join(f"{1e3 * s:.1f}" for s in g["seconds"])
+              + f" ms a step, losses {g['losses']}, launches "
+              f"{json.dumps(g['launches'])}; "
+              + "; ".join(
+                  f"{mth} {e['seconds']:.3f} s, losses "
+                  f"{[h['loss'] for h in e['history']]}, best head "
+                  f"{e['best_head']}, launches {json.dumps(e['launches'])}"
+                  for mth, e in got["e2e"].items())
+              + "; augmentation "
+              + ", ".join(f"{1e3 * s:.1f}" for s in got["augment"]["seconds"])
+              + f" ms a batch of {got['augment']['rows']} rows")
+    print(f"phase 14 calls: world 1 {t_ref:.1f} s, world 2 {t_mesh:.1f} s; "
+          f"metric_learn.main --mesh_data 2 "
+          + " / ".join(f"{g['metric_learn']['seconds']:.1f}" for g in ranks)
+          + " s a rank")
+    feats = stage_cache(cfg).load("features", feature_cache_key(cfg, "feat"))
+    u_targets = feats["targets"].astype(np.int64)[
+        ~feats["mask_lab"].astype(bool)]
+    metrics = mesh_training_checks(ref, ranks, u_targets)
+    ml_dirs = os.listdir(os.path.join(workdir, "runs", "metric_learn", "log"))
+    r0, r1 = (got["metric_learn"] for got in ranks)
+    check(len(ml_dirs) == 1 and r0["log_dir"] == r1["log_dir"]
+          and "ckpt_0.pt" in r0["files"] and r0["last"] == r1["last"]
+          and all(math.isfinite(float(v)) for v in r0["last"].values()),
+          f"metric_learn over the ranks: run dirs {ml_dirs}, files "
+          f"{r0['files']}, last {r0['last']} / {r1['last']}")
+    print(f"metric_learn.main --mesh_data 2 (1 epoch of 2 steps, "
+          f"{MESH_ML_IMAGES} train images): one run directory, rank 0's "
+          f"checkpoints {r0['files']}; last {json.dumps(r0['last'])}")
+    print(f"world 2 against world 1: {json.dumps(metrics)}")
+    g, e = ranks[0]["gcd"]["launches"], ranks[0]["e2e"]
+    return {"fused_em_step": ranks[0]["estimate_k"]["fused_em_step"],
+            "attention": g["attention"], "attention_bwd": g["attention_bwd"],
+            "attention_f32": sum(e[m]["launches"]["attention_f32"]
+                                 for m in e),
+            "attention_bwd_f32": sum(e[m]["launches"]["attention_bwd_f32"]
+                                     for m in e)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4536,9 +4826,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         mesh_launches = phase_mesh(args.seed, in100, workdir)
-    in100_dir.cleanup()  # phases 8 and 13 read phase 3's root
     print(f"launches in phase 13's ranks: {json.dumps(mesh_launches)}")
-    print(f"phase 13 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 13 {time.perf_counter() - t0:.1f} s")
+    section("phase 14: the mesh: ConSSKM, estimate_k, training (NCCL at "
+            "world size 1, gloo at world size 2 on one card)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        train_mesh = phase_mesh_training(args.seed, in100, workdir)
+    in100_dir.cleanup()  # phases 8, 13 and 14 read phase 3's root
+    for key, n in train_mesh.items():
+        launches[key] += n
+    print(f"launches in phase 14's rank 0: {json.dumps(train_mesh)}")
+    print(f"phase 14 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

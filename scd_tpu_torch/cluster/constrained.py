@@ -34,13 +34,30 @@ Two E-step tracks, chosen by ``ClusterConfig.constrained_backend``:
 Seeds come from a ``torch.Generator`` seeded with ``ClusterConfig.seed``
 (each track starts its own, as each JAX track splits the same key).
 Device: as the k-means fitters (``cluster/kmeans.py::_device_f32``).
+
+Over a ``mesh`` (``scd_tpu/cluster/constrained.py:248-336``, its
+multi-controller contract) ``u_feats`` is THIS RANK's shard of the
+unlabelled rows and the labelled set is the same full value on every rank
+(checked): the shard pads to the ranks' common width and the pads are
+masked (``cluster.kmeans._Shard``); k-means++ draws are distributed
+(both seeders, ``ops/kpp.py``); each E-step is the Sinkhorn assignment
+over the ranks (``ops/sinkhorn.py``: pad rows take the sentinel label k);
+each Lloyd iteration merges the M-step sums, counts and inertia in ONE
+packed ``all_reduce``, so every rank ranks the restarts by the same
+(feasible, inertia) bits; the labels come back on every rank, labelled
+first, then the unlabelled in shard order, pads removed.  Over more than
+one rank the exact track needs the whole cost matrix on one host, so
+``constrained_backend="mcf"`` and an infeasible Sinkhorn result raise the
+JAX package's ``RuntimeError`` (it raises in the same places); a mesh of
+one rank runs the mesh code on all rows and may go on to the exact
+track.
 """
 
 from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -48,6 +65,7 @@ import torch
 from scd_tpu_torch.cluster.kmeans import (KMeansResult, _device_f32,
                                           _generator)
 from scd_tpu_torch.core.config import ClusterConfig
+from scd_tpu_torch.core.mesh import check_mesh
 from scd_tpu_torch.ops.distance import pairwise_sqdist
 from scd_tpu_torch.ops.kpp import (kmeans_plus_plus,
                                    kmeans_plus_plus_local_trials)
@@ -63,12 +81,15 @@ def _resolve_local_trials(cfg: ClusterConfig, k: int) -> int:
     return (2 + int(np.log(k))) if t < 0 else t
 
 
-def _seed_centers(x, k, generator, local_trials: int, pre_centers=None):
+def _seed_centers(x, k, generator, local_trials: int, pre_centers=None,
+                  shard=None):
+    kw = {} if shard is None else {"n_valid": shard.local_mask,
+                                   "mesh": shard.mesh}
     if local_trials > 0:
         return kmeans_plus_plus_local_trials(
             x, k, generator, n_local_trials=local_trials,
-            pre_centers=pre_centers)
-    return kmeans_plus_plus(x, k, generator, pre_centers=pre_centers)
+            pre_centers=pre_centers, **kw)
+    return kmeans_plus_plus(x, k, generator, pre_centers=pre_centers, **kw)
 
 
 class _Labelled:
@@ -92,6 +113,11 @@ def _mstep(u, labels, centers, lab: _Labelled, k: int):
     """(new centers, shift^2): labelled + unlabelled sums; an empty
     cluster keeps its center."""
     sums, counts = segment_sums(u, labels, k)
+    return _mstep_from(sums, counts, centers, lab)
+
+
+def _mstep_from(sums, counts, centers, lab: _Labelled):
+    """:func:`_mstep` from the unlabelled sums and counts."""
     sums = sums + lab.sums
     counts = counts + lab.counts
     new = sums / counts.clamp_min(1.0)[:, None]
@@ -100,8 +126,41 @@ def _mstep(u, labels, centers, lab: _Labelled, k: int):
     return new, shift * shift
 
 
+def _sinkhorn_estep(u, centers, lab: _Labelled, k: int,
+                    cfg: ClusterConfig, shard=None):
+    """(labels [n] int32, inertia, new centers, shift^2 tensor,
+    feasible) of one Lloyd iteration on the Sinkhorn E-step.  Over a mesh
+    (``shard``) the labels are the rank's rows (k on its pads) and the
+    M-step sums, counts and inertia merge in one packed ``all_reduce``."""
+    d = pairwise_sqdist(u, centers)
+    mesh, row_w = (None, None) if shard is None else (shard.mesh,
+                                                      shard.row_w)
+    assign = sinkhorn_constrained_assign(
+        torch.sqrt(d), k, cfg.size_min, cfg.size_max,
+        eps=cfg.sinkhorn_epsilon, iters=cfg.sinkhorn_iters,
+        row_mask=None if row_w is None else row_w > 0, mesh=mesh)
+    # pads carry the sentinel k: clamp the gather, weight them 0
+    lab_ix = assign.labels.long().clamp_max(k - 1)
+    picked = d.gather(1, lab_ix[:, None])[:, 0]
+    if row_w is not None:
+        picked = picked * row_w
+    sums, counts = segment_sums(u, lab_ix, k, weights=row_w)
+    part = picked.sum()
+    if mesh is not None:
+        from scd_tpu_torch.core.multihost import all_reduce
+
+        packed = all_reduce(torch.cat([sums.reshape(-1), counts,
+                                       part.reshape(1)]),
+                            group=mesh.data_group)
+        sums, counts, part = (packed[:-k - 1].view_as(sums),
+                              packed[-k - 1:-1], packed[-1])
+    inertia = float(part + lab.inertia(centers))
+    new_centers, shift_t = _mstep_from(sums, counts, centers, lab)
+    return assign.labels, inertia, new_centers, shift_t, assign.feasible
+
+
 def _sinkhorn_restart(u, centers, lab: _Labelled, k: int,
-                      cfg: ClusterConfig):
+                      cfg: ClusterConfig, shard=None):
     """One restart's Lloyd loop on the Sinkhorn E-step.  Returns (labels,
     inertia, centers, n_iter, feasible) of its best iteration, ranked
     lexicographically by (feasible, inertia): an infeasible E-step tends
@@ -111,27 +170,22 @@ def _sinkhorn_restart(u, centers, lab: _Labelled, k: int,
             float("inf"), centers, False)
     it, shift_sq = 0, float("inf")
     while it < cfg.max_iterations and shift_sq >= tol32:
-        d = pairwise_sqdist(u, centers)
-        assign = sinkhorn_constrained_assign(
-            torch.sqrt(d), k, cfg.size_min, cfg.size_max,
-            eps=cfg.sinkhorn_epsilon, iters=cfg.sinkhorn_iters)
-        labels = assign.labels.long()
-        picked = d.gather(1, labels[:, None])[:, 0]
-        inertia = float(picked.sum() + lab.inertia(centers))
-        new_centers, shift_t = _mstep(u, labels, centers, lab, k)
-        rank_new = inertia if assign.feasible else float("inf")
+        labels, inertia, new_centers, shift_t, feasible = _sinkhorn_estep(
+            u, centers, lab, k, cfg, shard)
+        rank_new = inertia if feasible else float("inf")
         rank_old = best[1] if best[3] else float("inf")
         better = (inertia < best[1]) if rank_new == rank_old \
             else rank_new < rank_old
         if better:
-            best = (assign.labels, inertia, new_centers, assign.feasible)
+            best = (labels, inertia, new_centers, feasible)
         shift_sq = float(shift_t)
         centers = new_centers
         it += 1
     return best[0], best[1], best[2], it, best[3]
 
 
-def _fit_sinkhorn(u, lab: _Labelled, k: int, cfg: ClusterConfig):
+def _fit_sinkhorn(u, lab: _Labelled, k: int, cfg: ClusterConfig,
+                  shard=None):
     """Restarts one after another; the feasible restart of least inertia,
     or the least inertia of all when none is feasible (first on ties)."""
     gen = _generator(cfg, u.device)
@@ -139,8 +193,8 @@ def _fit_sinkhorn(u, lab: _Labelled, k: int, cfg: ClusterConfig):
     runs = []
     for _ in range(cfg.n_init):
         centers0 = _seed_centers(u, k, gen, local_trials,
-                                 pre_centers=lab.centers)
-        runs.append(_sinkhorn_restart(u, centers0, lab, k, cfg))
+                                 pre_centers=lab.centers, shard=shard)
+        runs.append(_sinkhorn_restart(u, centers0, lab, k, cfg, shard))
     feas = [r[4] for r in runs]
     ranked = [r[1] if (r[4] or not any(feas)) else float("inf")
               for r in runs]
@@ -229,21 +283,31 @@ def _check_bounds(n: int, k: int, cfg: ClusterConfig, what: str) -> None:
         raise ValueError(what)
 
 
-def _fit(u, lab: _Labelled, k: int, cfg: ClusterConfig
+def _fit(u, lab: _Labelled, k: int, cfg: ClusterConfig, shard=None
          ) -> Tuple[np.ndarray, np.ndarray, float, int]:
     """Either track; the Sinkhorn track goes on to the exact one when its
-    chosen restart is infeasible.  Returns host (labels, centers, inertia,
-    n_iter)."""
+    chosen restart is infeasible (over more than one rank it raises).
+    Returns host (labels, centers, inertia, n_iter); over a mesh the
+    labels of every rank's real rows."""
+    over_ranks = shard is not None and shard.mesh.size > 1
     if cfg.constrained_backend == "sinkhorn":
         labels, inertia, centers, n_iter, feasible = _fit_sinkhorn(
-            u, lab, k, cfg)
+            u, lab, k, cfg, shard)
         if feasible:
-            return (labels.cpu().numpy(), centers.cpu().numpy(), inertia,
-                    n_iter)
+            labels = (labels.cpu().numpy() if shard is None
+                      else shard.fetch(labels))
+            return labels, centers.cpu().numpy(), inertia, n_iter
+        if over_ranks:
+            raise RuntimeError(
+                "constrained sinkhorn E-step infeasible under "
+                "multi-controller execution; the exact MCF fallback needs "
+                "the full cost matrix on one host — loosen size bounds or "
+                "raise sinkhorn_iters")
         fit_constrained.mcf_fallbacks += 1
     elif cfg.constrained_backend != "mcf":
         raise ValueError(f"unknown constrained_backend "
                          f"{cfg.constrained_backend!r}")
+    # a mesh of one rank holds every row and no pad
     labels, inertia, centers, n_iter = _fit_mcf(u, lab, k, cfg)
     return labels, centers.cpu().numpy(), inertia, n_iter
 
@@ -256,20 +320,30 @@ def fit_constrained(u_feats, l_feats, l_targets, cfg: ClusterConfig,
     Returned labels follow the reference contract: labelled instances
     first (remapped class ids from ``np.unique``), then the unlabelled
     assignments.  ``device`` as in ``fit_sskm``, decided by ``u_feats``.
-    A ``mesh`` of more than one rank raises: ConSSKM over a mesh is not
-    ported yet (``core.mesh.refuse_mesh``).
+    With a ``mesh`` (see the module docstring) ``u_feats`` is this rank's
+    shard of the unlabelled rows and ``l_feats`` / ``l_targets`` the same
+    full labelled set on every rank.
     """
-    from scd_tpu_torch.core.mesh import refuse_mesh
+    from scd_tpu_torch.cluster.kmeans import _rows_in
 
-    refuse_mesh(mesh, "ConSSKM (fit_constrained)",
-                "ConSSKM over a mesh, next")
-    u = _device_f32(u_feats, device)
+    mesh = check_mesh(mesh)
+    if (mesh is not None and mesh.size > 1
+            and cfg.constrained_backend != "sinkhorn"):
+        raise RuntimeError(
+            "multi-controller fit_constrained supports only the sinkhorn "
+            "backend (the exact MCF solver is a host algorithm over the "
+            "full cost matrix); mesh=None stays a process-local run")
+    u, shard = _rows_in(u_feats, device, mesh)
     dev = u.device
     l = _device_f32(l_feats, dev)
+    l_targets = np.asarray(l_targets).astype(np.int64)
+    if shard is not None:
+        from scd_tpu_torch.core.multihost import replicate_to_mesh
+
+        replicate_to_mesh(shard.mesh, [l, l_targets])
     k = cfg.n_clusters
-    n_u = u.shape[0]
-    classes, l_mapped = np.unique(np.asarray(l_targets).astype(np.int64),
-                                  return_inverse=True)
+    n_u = u.shape[0] if shard is None else shard.n_valid
+    classes, l_mapped = np.unique(l_targets, return_inverse=True)
     n_l_classes = len(classes)
     if k < n_l_classes:
         raise ValueError(f"n_clusters={k} < labelled classes {n_l_classes}")
@@ -279,7 +353,7 @@ def fit_constrained(u_feats, l_feats, l_targets, cfg: ClusterConfig,
                   f"size_max={cfg.size_max}")
     lab = _Labelled(l, torch.as_tensor(l_mapped.astype(np.int64),
                                        device=dev), k, n_l_classes)
-    labels, centers, inertia, n_iter = _fit(u, lab, k, cfg)
+    labels, centers, inertia, n_iter = _fit(u, lab, k, cfg, shard)
     all_labels = np.concatenate([l_mapped.astype(np.int32),
                                  labels.astype(np.int32)])
     return KMeansResult(all_labels, centers, float(inertia), int(n_iter))

@@ -14,9 +14,19 @@ probe runs the ``fused_em_step`` kernel (``csrc/fused_em.cu``) at K =
 ``max_k`` on a CUDA device, and the plain version on the CPU.  The
 restarts run one after another on one ``torch.Generator`` seeded from the
 objective's ``seed``, made afresh for every probe, as every JAX probe
-starts from ``PRNGKey(seed)``.  A ``mesh`` of more than one rank raises
-(``core.mesh.refuse_mesh``): estimate_k's mesh path is not ported yet; a
-mesh of one rank runs the single-device path.
+starts from ``PRNGKey(seed)``.
+
+Over a ``mesh`` (``scd_tpu/cluster/estimate_k.py:163-214, 288-297``)
+the feature rows are THIS RANK's shard (ragged shares pad to a common
+width, the pads masked out of seeding and sums: ``cluster.kmeans.
+_Shard``), staged and normalised once for the whole search; the seeding
+is the distributed k-means++ draw from every rank's copy of the same
+generator (``ops/kpp.py``), each EM iteration is ``fused_em_step`` on the
+rank's rows at ``max_k`` slots merged by ``ops.em.em_iteration_sharded``
+(one ``all_reduce`` of the ``k_active`` live slots' sums and counts: the
+sentinels' are zero on every rank), and the labels come back on every
+rank in shard order, so ``targets`` / ``mask_lab`` are the global
+arrays.
 
 ``python -m scd_tpu_torch.cluster.estimate_k`` takes the JAX CLI's flags
 plus ``--device`` (``cuda`` unless asked for ``cpu``).
@@ -31,57 +41,76 @@ import torch
 
 from scd_tpu_torch.cluster.kmeans import _device_f32, fit_kmeans
 from scd_tpu_torch.core.config import ClusterConfig
+from scd_tpu_torch.core.mesh import check_mesh, single_rank
 from scd_tpu_torch.metrics.cluster import cluster_acc
-from scd_tpu_torch.ops.em import em_iteration
+from scd_tpu_torch.ops.em import em_iteration_sharded
 from scd_tpu_torch.ops.kpp import kmeans_plus_plus
 
 SENTINEL = 1e12
 
 
-def _no_mesh(mesh) -> None:
-    from scd_tpu_torch.core.mesh import refuse_mesh
-
-    refuse_mesh(mesh, "estimate_k", "estimate_k's mesh, after ConSSKM's")
-
-
 def _kpp_masked(x: torch.Tensor, k_active: int, max_k: int,
-                generator: torch.Generator) -> torch.Tensor:
+                generator: torch.Generator, shard=None) -> torch.Tensor:
     """k-means++ over ``max_k`` slots [max_k, D]: the first ``k_active``
-    are the draws of :func:`kmeans_plus_plus`, the rest a far sentinel
-    (1e12 in every coordinate) so the E-step never assigns to them.  The
-    JAX loop also runs the steps ``k_active..max_k-1`` to keep one compiled
-    shape, but they change neither the centers nor the distances, so this
-    one stops at ``k_active``."""
+    are the draws of :func:`kmeans_plus_plus` (over a mesh, ``shard``: the
+    distributed draws, pads never drawn), the rest a far sentinel (1e12 in
+    every coordinate) so the E-step never assigns to them.  The JAX loop
+    also runs the steps ``k_active..max_k-1`` to keep one compiled shape,
+    but they change neither the centers nor the distances, so this one
+    stops at ``k_active``."""
     k = min(max(int(k_active), 1), max_k)
     centers = torch.full((max_k, x.shape[1]), SENTINEL, dtype=torch.float32,
                          device=x.device)
-    centers[:k] = kmeans_plus_plus(x, k, generator)
+    kw = {} if shard is None else {"n_valid": shard.local_mask,
+                                   "mesh": shard.mesh}
+    centers[:k] = kmeans_plus_plus(x, k, generator, **kw)
     return centers
 
 
 def _dynk_run(x: torch.Tensor, k_active: int, max_k: int,
-              max_iterations: int, n_init: int, generator: torch.Generator
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              max_iterations: int, n_init: int, generator: torch.Generator,
+              shard=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(labels [N] int32, inertia 0-d, centers [max_k, D]) of the best of
     ``n_init`` restarts, on ``x``'s device.  Each restart runs exactly
     ``max_iterations`` EM iterations (the JAX ``fori_loop``: no tolerance
     exit); an empty slot keeps its center.  Labels and inertia are those of
     the last iteration, computed before its update.  The best restart is
     the first at the lowest inertia.  Each iteration is one
-    ``em_iteration``: the kernel on a CUDA device, the plain version on the
-    CPU.  Nothing is read to the host."""
+    ``em_iteration_sharded`` (``em_iteration`` without a mesh): the kernel
+    on a CUDA device, the plain version on the CPU; over a mesh
+    (``shard``) on the rank's rows, merged (the labels stay the rank's,
+    the inertia is global).  Nothing is read to the host."""
+    live = min(max(int(k_active), 1), max_k)  # the rest stay sentinels
     runs = []
     for _ in range(n_init):
-        centers = _kpp_masked(x, k_active, max_k, generator)
+        centers = (_kpp_masked(x, k_active, max_k, generator)
+                   if shard is None else
+                   _kpp_masked(x, k_active, max_k, generator, shard))
         labels = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
         inertia = torch.zeros((), dtype=torch.float32, device=x.device)
         for _ in range(max_iterations):
-            labels, sums, counts, inertia = em_iteration(x, centers, max_k)
+            labels, sums, counts, inertia = em_iteration_sharded(
+                x, centers, None if shard is None else shard.row_w,
+                None if shard is None else shard.mesh, live=live)
             means = sums / counts.clamp_min(1.0)[:, None]
             centers = torch.where((counts > 0)[:, None], means, centers)
         runs.append((labels, inertia, centers))
     best = int(torch.argmin(torch.stack([r[1] for r in runs])))
     return runs[best]
+
+
+def _staged(x, device, mesh):
+    """(f32 rows on the device, shard or None): the rank's padded shard
+    over a mesh of more than one rank, else every row."""
+    from scd_tpu_torch.cluster.kmeans import _Shard
+
+    mesh = check_mesh(mesh)
+    if single_rank(mesh):
+        return _device_f32(x, device), None
+    if isinstance(x, _Shard):
+        return x.x, x
+    shard = _Shard(x, mesh, device)
+    return shard.x, shard
 
 
 def fit_kmeans_dynamic_k(generator: torch.Generator, x, k_active: int,
@@ -93,12 +122,14 @@ def fit_kmeans_dynamic_k(generator: torch.Generator, x, k_active: int,
     Returns (labels [N] numpy, inertia).  ``x`` is numpy or a tensor;
     ``device`` as in ``cluster.kmeans.fit_kmeans`` (a tensor stays where it
     is, numpy goes to the card); the draws come from ``generator``, which
-    must live on that device."""
-    _no_mesh(mesh)
-    x_t = _device_f32(x, device)
+    must live on that device.  Over a ``mesh`` ``x`` is this rank's shard
+    (or a staged ``cluster.kmeans._Shard``) and the labels cover every
+    rank's rows, in shard order, on every rank."""
+    x_t, shard = _staged(x, device, mesh)
     labels, inertia, _ = _dynk_run(x_t, k_active, max_k, max_iterations,
-                                   n_init, generator)
-    return labels.cpu().numpy(), float(inertia)
+                                   n_init, generator, shard)
+    lab = labels.cpu().numpy() if shard is None else shard.fetch(labels)
+    return lab, float(inertia)
 
 
 def _normalized_device(all_feats, device=None) -> torch.Tensor:
@@ -116,16 +147,21 @@ def labelled_acc_objective_dynamic(all_feats, targets: np.ndarray,
     """Objective(K) = ACC on the labelled rows after
     :func:`fit_kmeans_dynamic_k` with K live slots of ``max_k``.  The
     features are normalised and staged on ``device`` once; each probe
-    reads the labels back once."""
-    _no_mesh(mesh)
-    x = _normalized_device(all_feats, device)
+    reads the labels back once.  Over a ``mesh`` ``all_feats`` is this
+    rank's row shard, staged and normalised once for the whole search,
+    and ``targets`` / ``mask_lab`` are the global arrays."""
+    x, shard = _staged(all_feats, device, mesh)
+    x = x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    if shard is not None:
+        shard.x = x
     mask_lab = np.asarray(mask_lab, bool)
     targets = np.asarray(targets, np.int64)
 
     def objective(k: int) -> float:
         labels, _inertia = fit_kmeans_dynamic_k(
-            torch.Generator(device=x.device).manual_seed(seed), x, int(k),
-            max_k, n_init=n_init, max_iterations=max_iterations)
+            torch.Generator(device=x.device).manual_seed(seed),
+            x if shard is None else shard, int(k), max_k, n_init=n_init,
+            max_iterations=max_iterations, mesh=mesh)
         return float(cluster_acc(targets[mask_lab], labels[mask_lab]))
 
     return objective
@@ -208,12 +244,16 @@ def estimate_k(all_feats, targets: np.ndarray, mask_lab: np.ndarray,
                objective: Optional[Callable[[int], float]] = None,
                dynamic_k: bool = True, mesh=None,
                device=None) -> Tuple[int, float]:
-    _no_mesh(mesh)
+    """The best K in [min_k, max_k] by ``method`` ("binary" | "brent")
+    and its objective.  With a ``mesh`` (dynamic K only) ``all_feats`` is
+    this rank's row shard and ``targets`` / ``mask_lab`` the global
+    arrays; every rank returns the same (K, objective)."""
     if objective is not None:
         obj = objective
     elif dynamic_k:
         obj = labelled_acc_objective_dynamic(all_feats, targets, mask_lab,
-                                             max_k=max_k, device=device)
+                                             max_k=max_k, mesh=mesh,
+                                             device=device)
     else:
         obj = labelled_acc_objective(all_feats, targets, mask_lab,
                                      device=device)

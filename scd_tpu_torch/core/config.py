@@ -6,8 +6,8 @@ both derive the same artifact-cache keys and each re-enters the other's
 caches.  Every knob and every filesystem location lives in one typed
 dataclass tree; a stable hash of the tree keys the artifact cache.
 
-Some fields only steer code that is not ported yet (the mesh and
-training); they stay so that the hashes agree.
+Some fields steer code the port does not have yet (the ``model`` mesh
+axis, tensor parallelism); they stay so that the hashes agree.
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def config_hash(cfg: Any, extra: Optional[dict] = None) -> str:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout (the multi-device slice is not ported yet).
+    """Device mesh layout (``core/mesh.py``: one rank per device; a
+    ``model`` axis above 1 reaches only the vocabulary top-k).
 
     ``data`` shards the instance axis (images / feature rows); ``model``
     shards wide axes (vocabulary columns, MLP hidden, attention heads).

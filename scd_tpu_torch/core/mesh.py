@@ -130,8 +130,9 @@ def check_mesh(mesh) -> Optional[MeshContext]:
     if mesh is None or isinstance(mesh, MeshContext):
         return mesh
     raise NotImplementedError(
-        f"a mesh must be a scd_tpu_torch.core.mesh.MeshContext "
-        f"(make_mesh), not {type(mesh).__name__}")
+        f"a mesh must be a scd_tpu_torch.core.mesh.MeshContext (make_mesh: "
+        f"multi-device runs over torch.distributed ranks), not "
+        f"{type(mesh).__name__}")
 
 
 def refuse_mesh(mesh, what: str, later: str) -> None:
@@ -143,6 +144,19 @@ def refuse_mesh(mesh, what: str, later: str) -> None:
             f"{what} over a mesh of more than one rank is not ported yet "
             f"(multi-device: {later}, ROADMAP queue 1); run it with "
             "mesh=None or on one rank")
+
+
+def data_parallel(mesh, what: str) -> Optional[MeshContext]:
+    """The mesh a data-parallel trainer runs over: None for no mesh or a
+    mesh of one rank (the single-device path), else ``mesh``.  A ``model``
+    axis above 1 (tensor parallelism) raises through :func:`refuse_mesh`:
+    it is the next slice."""
+    mesh = check_mesh(mesh)
+    if mesh is not None and mesh.n_model > 1:
+        refuse_mesh(mesh, f"{what} with a 'model' axis of {mesh.n_model} "
+                    "(tensor parallelism)", "tensor parallelism, the next "
+                    "slice")
+    return None if single_rank(mesh) else mesh
 
 
 def pad_to_multiple(n: int, m: int) -> int:

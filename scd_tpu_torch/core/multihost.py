@@ -17,9 +17,12 @@ always what the JAX package calls multi-controller:
 ``testing/dist.py``).  It binds ``cuda:LOCAL_RANK`` on a card and uses
 ``nccl`` there and ``gloo`` on the CPU; ``backend="gloo"`` on a card runs
 several ranks on one device.  The only collectives are ``all_reduce``,
-``all_gather`` (the list form), ``broadcast`` and ``barrier``; under gloo
-a CUDA tensor is staged through host memory, under nccl a host tensor
-through the rank's card.
+``all_gather`` (the list form), ``broadcast`` and ``barrier``, and what
+is built on them for data-parallel training: ``all_gather_rows`` (a
+gather whose backward keeps this rank's slice) and ``all_reduce_grads``
+(every gradient in one packed ``all_reduce``); under gloo a CUDA tensor
+is staged through host memory, under nccl a host tensor through the
+rank's card.
 """
 
 from __future__ import annotations
@@ -163,6 +166,63 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
 
 def barrier(group=None) -> None:
     dist.barrier(group=group)
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """A small picklable value as global rank ``src`` holds it, on every
+    rank (a run id, a path)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's ``x`` stacked [W, ...] in group-rank order; the
+    backward keeps only this rank's slice of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.index = dist.get_rank(group)
+        return torch.stack(all_gather(x.detach(), group=group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.index], None
+
+
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) stacked along a new leading axis
+    [W, ...], in group-rank order, differentiable.
+
+    Every rank then computes the same global loss from the gathered rows,
+    so the backward returns ONLY this rank's slice of the gradient (not
+    the sum of the W ranks' copies, which
+    ``torch.distributed.nn.functional.all_gather`` returns): the parameter
+    gradients each rank accumulates are its own rows' contribution, and
+    :func:`all_reduce_grads` sums them into the one-process gradient."""
+    return _GatherRows.apply(x, group)
+
+
+def all_reduce_grads(params, group=None) -> None:
+    """Sum the ``.grad`` of every parameter in ``params`` over ``group``,
+    in place, through ONE packed ``all_reduce`` (a flat f32 buffer staged
+    where the backend reads it).  A parameter without a gradient counts
+    as zeros and keeps ``grad`` None when every rank's is None."""
+    params = [p for p in params if p.requires_grad]
+    if not params:
+        return
+    dev = params[0].device
+    has = torch.tensor([float(p.grad is not None) for p in params])
+    flat = torch.cat([
+        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+        .to(dev, torch.float32) for p in params] + [has.to(dev)])
+    flat = all_reduce(flat, group=group)
+    has, off = flat[-len(params):].cpu(), 0
+    for p, h in zip(params, has):
+        n = p.numel()
+        if h > 0:
+            p.grad = flat[off:off + n].view_as(p).to(p.dtype)
+        off += n
 
 
 # ------------------------------------------------------- the row contract

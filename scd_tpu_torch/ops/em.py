@@ -85,7 +85,8 @@ def em_iteration_plain(x: torch.Tensor, centers: torch.Tensor, k: int,
 def em_iteration_sharded(x: torch.Tensor, centers: torch.Tensor,
                          row_w: Optional[torch.Tensor], mesh,
                          estep_passes: int = 3, x_bf16: bool = False,
-                         fused: Optional[bool] = None) -> EMResult:
+                         fused: Optional[bool] = None,
+                         live: Optional[int] = None) -> EMResult:
     """One EM iteration over a mesh (``scd_tpu/ops/em.py:70-128``).
 
     ``x`` [n, D] is THIS rank's row shard (padded rows weighted 0 in
@@ -94,7 +95,10 @@ def em_iteration_sharded(x: torch.Tensor, centers: torch.Tensor,
     the plain version on the CPU) on its rows; the [K, D] sums, [K] counts
     and the inertia go as one packed f32 [K*D + K + 1] vector through ONE
     ``all_reduce`` over the data axis, so every rank holds the same merged
-    values.  Labels stay local ([n], this rank's rows)."""
+    values.  Labels stay local ([n], this rank's rows).  ``live``: the
+    centers at or past it are far sentinels no row takes (estimate_k's
+    dynamic K), so their sums and counts are zero on every rank and only
+    the first ``live`` go through the ``all_reduce``."""
     from scd_tpu_torch.core.multihost import all_reduce
 
     k, d = centers.shape
@@ -103,11 +107,15 @@ def em_iteration_sharded(x: torch.Tensor, centers: torch.Tensor,
         x_bf16=x_bf16)
     if mesh is None:
         return labels, sums, counts, inertia
-    packed = all_reduce(torch.cat([sums.reshape(-1), counts,
+    m = k if live is None else live
+    packed = all_reduce(torch.cat([sums[:m].reshape(-1), counts[:m],
                                    inertia.reshape(1)]),
                         group=mesh.data_group)
-    return labels, packed[:k * d].view(k, d), packed[k * d:k * d + k], \
-        packed[-1]
+    sums_m, counts_m = packed[:m * d].view(m, d), packed[m * d:m * d + m]
+    if m < k:
+        sums_m = torch.cat([sums_m, sums[m:]])
+        counts_m = torch.cat([counts_m, counts[m:]])
+    return labels, sums_m, counts_m, packed[-1]
 
 
 class EMPlan(NamedTuple):

@@ -11,9 +11,9 @@ Over several ranks (``torchrun``; ``core/multihost.py``) the pipeline's
 mesh (:func:`_pipeline_mesh`) shards the heavy stages, as the JAX
 package's multi-controller path does: each rank decodes and encodes its
 contiguous share of the dataset (:func:`extract_features_pod` through
-:func:`make_sharded_image_encoder`), KM / SSKM take each rank's share of
-the unlabelled rows (:func:`_pod_shard`), the vocabulary build shards the
-names; every rank ends each stage holding the same full result.
+:func:`make_sharded_image_encoder`), KM / SSKM / ConSSKM take each rank's
+share of the unlabelled rows (:func:`_pod_shard`), the vocabulary build
+shards the names; every rank ends each stage holding the same full result.
 """
 
 from __future__ import annotations
@@ -371,11 +371,11 @@ def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],
     all_preds (-1 on the labelled rows for KM and FINCH; SSKM and ConSSKM
     give the labelled rows their class ids), u_preds, u_targets, mask.
 
-    With a ``mesh`` (``feats`` the same full dict on every rank) KM and
-    SSKM take this rank's share of the unlabelled rows (:func:`_pod_shard`)
-    and the labelled rows in full, and return the full result on every
-    rank; ConSSKM raises (not ported over ranks); FINCH runs on the full
-    unlabelled rows on every rank, as in the JAX package."""
+    With a ``mesh`` (``feats`` the same full dict on every rank) KM, SSKM
+    and ConSSKM take this rank's share of the unlabelled rows
+    (:func:`_pod_shard`) and the labelled rows in full, and return the
+    full result on every rank; FINCH runs on the full unlabelled rows on
+    every rank, as in the JAX package."""
     c = cfg.cluster
     mask_lab = feats["mask_lab"].astype(bool)
     mask_cls = feats["mask_cls"].astype(bool)
@@ -388,12 +388,12 @@ def run_clustering(cfg: PipelineConfig, feats: Dict[str, np.ndarray],
 
     over_ranks = mesh is not None and mesh.size > 1
     kw = {"mesh": mesh} if over_ranks and c.algorithm != "FINCH" else {}
-    if kw and c.algorithm != "ConSSKM":
+    if kw:
         # every rank holds the features: each takes its unlabelled share
         all_np = feats["all_feats"]
         u_feats = _pod_shard(all_np[~mask_lab], mesh)
         l_feats = all_np[mask_lab]
-    else:  # ConSSKM raises under a mesh (fit_constrained)
+    else:
         all_feats = tensors_from_arrays({"all_feats": feats["all_feats"]},
                                         device)["all_feats"]
         lab_t = torch.as_tensor(mask_lab, device=all_feats.device)

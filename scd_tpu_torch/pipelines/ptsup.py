@@ -14,8 +14,9 @@ Port of ``scd_tpu/pipelines/ptsup.py``: the unsupervised pipeline's stages
   (``main_ptsup.py:629-705``).
 
 The metric lines are byte-identical to the JAX package's.  Over several
-ranks (``torchrun``) it shards as ``run_unsup`` does; ConSSKM raises there
-(not ported over ranks), FINCH runs on every rank on the full rows.
+ranks (``torchrun``) it shards as ``run_unsup`` does, ConSSKM included
+(Sinkhorn track; the exact MCF track raises over ranks, as in the JAX
+package); FINCH runs on every rank on the full rows.
 
 Run: ``python -m scd_tpu_torch.pipelines.ptsup --dataset_name synthetic
 --cluster ConSSKM --n_cluster 10 --cluster_size_min 5 --cluster_size_max 50

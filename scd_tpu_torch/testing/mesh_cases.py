@@ -1,6 +1,6 @@
 """Functions each rank of a world runs (``testing/dist.py::spawn``): the
 mesh paths of the port at small sizes, for the CPU tests
-(``tests/test_torch_mesh*.py``) and ``chip_smoke.py``'s phase 13.
+(``tests/test_torch_mesh*.py``) and ``chip_smoke.py``'s phases 13 and 14.
 
 Every function takes plain data (numpy arrays, configs), runs on the
 device ``core.multihost.initialize`` bound (``multihost.local_device``),
@@ -55,9 +55,24 @@ def _row_contracts(mesh) -> Dict:
                 mesh, ragged))}
 
 
+def _raised(fn):
+    """(exception type name, message) of what ``fn()`` raises, or
+    ("", result) when it returns."""
+    try:
+        return "", fn()
+    except Exception as e:  # noqa: BLE001 - the exception is the result
+        return type(e).__name__, str(e)
+
+
 def _refusals(mesh, data) -> Dict:
-    """Each path this slice does not port over ranks, called with a mesh of
-    more than one rank: the exception it raises."""
+    """The paths that refused a mesh before they ran over ranks, each with
+    what it gives now:
+    the four trainers under a mesh of ``data`` 1 x ``model`` world raise
+    the tensor-parallel refusal; ``fit_constrained`` with the exact MCF
+    backend over the world's ``data`` axis raises the JAX package's
+    RuntimeError; ``estimate_k`` and ``fit_kmeans_dynamic_k`` over it
+    return their results (each rank passes its share of 40 rows).
+    {path: (exception type name or "", message or result)}."""
     import importlib
 
     from scd_tpu_torch.cluster.constrained import fit_constrained
@@ -68,23 +83,25 @@ def _refusals(mesh, data) -> Dict:
     x = data["x"][:40]
     y = data["y"][:40]
     cfg = ClusterConfig(n_clusters=4, n_init=1, max_iterations=2,
-                        size_min=1, size_max=40)
+                        size_min=1, size_max=40, constrained_backend="mcf")
+    tp = make_mesh(MeshConfig(data=1, model=mesh.size))
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
     out = {
-        "fit_constrained": _raises(lambda: fit_constrained(
-            x[20:], x[:20], y[:20], cfg, mesh=mesh)),
-        "estimate_k": _raises(lambda: ek.estimate_k(
-            x, y, np.ones(40, bool), 2, 8, mesh=mesh)),
-        "fit_kmeans_dynamic_k": _raises(lambda: ek.fit_kmeans_dynamic_k(
-            torch.Generator(), x, 2, 8, mesh=mesh)),
-        "make_gcd_state": _raises(lambda: gcd.make_gcd_state(
-            None, None, mesh=mesh)),
-        "GCDTrainer": _raises(lambda: GCDTrainer(
-            None, None, mesh=mesh, device=mesh.device)),
+        "fit_constrained": _raised(lambda: fit_constrained(
+            _share(x[20:], mesh), x[:20], y[:20], cfg, mesh=mesh)),
+        "estimate_k": _raised(lambda: ek.estimate_k(
+            _share(x, mesh), y, np.ones(40, bool), 2, 8, mesh=mesh)),
+        "fit_kmeans_dynamic_k": _raised(lambda: ek.fit_kmeans_dynamic_k(
+            gen, _share(x, mesh), 2, 8, mesh=mesh)),
+        "make_gcd_state": _raised(lambda: gcd.make_gcd_state(
+            None, None, mesh=tp)),
+        "GCDTrainer": _raised(lambda: GCDTrainer(
+            None, None, mesh=tp, device=mesh.device)),
     }
     for name in ("train_uno_e2e", "train_autonovel_e2e"):
         fn = getattr(baselines_e2e, name)
-        out[name] = _raises(lambda: fn(None, 0, None, None, None, None,
-                                       mesh=mesh))
+        out[name] = _raised(lambda: fn(None, 0, None, None, None, None,
+                                       mesh=tp))
     return out
 
 
@@ -616,4 +633,472 @@ def mesh_stages(spec: Dict) -> Dict:
     out["topk"] = (vals.cpu().numpy(), idx.cpu().numpy())
     out["launches"] = _launches()
     out["seconds"] = sec
+    return out
+
+
+# ------------------------------------ ConSSKM, estimate_k and training
+#
+# Each function below runs at any world size: over a mesh of the world's
+# ranks when there are several, on the single-device path in a world of
+# one (``chip_smoke.py``'s phase 14 reference over NCCL) or with no
+# process group at all (the CPU tests' one-process reference).  Row inputs
+# arrive in full and each rank takes its contiguous share.
+
+def _world_mesh(model: int = 1):
+    world = multihost.process_count()
+    if world == 1:
+        return None
+    return make_mesh(MeshConfig(data=world // model, model=model))
+
+
+def _device(mesh):
+    return mesh.device if mesh is not None else multihost.local_device()
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _seconds(fn, dev):
+    import time
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _constrained_counters() -> Dict:
+    from scd_tpu_torch.cluster.constrained import fit_constrained
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign as sk
+
+    return {"e_steps": sk.calls, "dual_iterations": sk.dual_iterations,
+            "repair_passes": sk.repair_passes,
+            "mcf_fallbacks": fit_constrained.mcf_fallbacks}
+
+
+def _reset_constrained() -> None:
+    from scd_tpu_torch.cluster.constrained import reset_counters
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign as sk
+
+    reset_counters()
+    sk.calls = sk.dual_iterations = sk.repair_passes = 0
+
+
+def constrained_fit(spec: Dict) -> Dict:
+    """``fit_constrained`` on ``spec``'s (x_u, x_l, y_l, cfg), over the
+    world's ranks (each its share of x_u) or alone: labels, centers,
+    inertia, iterations, the Sinkhorn counters and seconds; with
+    ``spec["mesh1"]`` also the same fit under an explicit mesh of this
+    world's one rank (a world of one only)."""
+    from scd_tpu_torch.cluster.constrained import fit_constrained
+
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    x_u, x_l, y_l, cfg = (spec[k] for k in ("x_u", "x_l", "y_l", "cfg"))
+    out = {}
+    runs = [("fit", mesh)]
+    if spec.get("mesh1"):
+        runs.append(("mesh1", make_mesh(MeshConfig(data=1, model=1))))
+    for name, m in runs:
+        _reset_constrained()
+        res, sec = _seconds(lambda: fit_constrained(
+            x_u if m is None else _share(x_u, m), x_l, y_l, cfg,
+            device=dev, mesh=m), dev)
+        out[name] = {"labels": res.labels, "centers": res.centers,
+                     "inertia": res.inertia, "n_iter": res.n_iter,
+                     "counters": _constrained_counters(), "seconds": sec}
+    return out
+
+
+def sinkhorn_rows(cost: np.ndarray, row_mask: np.ndarray, k: int,
+                  size_min: int, size_max: int, eps: float) -> Dict:
+    """``sinkhorn_constrained_assign`` on a padded cost [N, K] whose rows
+    the world's ranks split in equal blocks (``row_mask`` marks the real
+    rows): every rank's labels gathered in order, the duals, the flag."""
+    from scd_tpu_torch.ops.sinkhorn import sinkhorn_constrained_assign
+
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    width = len(cost) // (1 if mesh is None else mesh.n_data)
+    lo = 0 if mesh is None else mesh.data_index * width
+    got = sinkhorn_constrained_assign(
+        torch.as_tensor(cost[lo:lo + width], device=dev), k, size_min,
+        size_max, eps=eps,
+        row_mask=torch.as_tensor(row_mask[lo:lo + width], device=dev),
+        mesh=mesh)
+    return {"labels": multihost.host_fetch(got.labels, mesh),
+            "duals": got.col_duals.cpu().numpy(), "feasible": got.feasible}
+
+
+def estimate_k_search(spec: Dict) -> Dict:
+    """``estimate_k`` over ``spec``'s features (``x``, or ``path`` to a
+    features_packed.npz), each rank its share, ``spec["n_init"]``
+    restarts a probe when given: (K, objective), the
+    ``fused_em_step`` launches, seconds; and ``fit_kmeans_dynamic_k`` at
+    ``spec["k_fit"]`` (labels, inertia) when asked."""
+    import importlib
+
+    ek = importlib.import_module("scd_tpu_torch.cluster.estimate_k")
+    from scd_tpu_torch.ops import em
+
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    if "path" in spec:
+        with np.load(spec["path"]) as z:
+            x, y, mask = z["features"], z["targets"], z["mask_lab"]
+    else:
+        x, y, mask = spec["x"], spec["y"], spec["mask_lab"]
+    mask = mask.astype(bool)
+    mine = x if mesh is None else _share(x, mesh)
+    em.fused_em_step_cuda.launches = 0
+
+    def search():
+        # spec["n_init"]: the objective's restarts a probe (default 3)
+        obj = None if "n_init" not in spec else \
+            ek.labelled_acc_objective_dynamic(
+                mine, y, mask, spec["max_k"], n_init=spec["n_init"],
+                mesh=mesh, device=dev)
+        return ek.estimate_k(mine, y, mask, spec["min_k"], spec["max_k"],
+                             method=spec["method"], objective=obj,
+                             mesh=mesh, device=dev)
+
+    best, sec = _seconds(search, dev)
+    out = {"best": best, "seconds": sec,
+           "fused_em_step": em.fused_em_step_cuda.launches}
+    if "k_fit" in spec:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out["dynamic_k"] = ek.fit_kmeans_dynamic_k(
+            gen, mine, spec["k_fit"], spec["max_k"], mesh=mesh, device=dev)
+    return out
+
+
+def _state_from(params: Dict) -> Dict:
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}
+
+
+def _gcd_batch(spec: Dict, step: int, lo: int, hi: int) -> Dict:
+    """Rows [lo, hi) of the global GCD batch of ``step``: ``spec
+    ["batches"][step]`` sliced, or images made per row from the seed (so
+    a rank makes only its own rows): view-major images, labels, mask."""
+    if "batches" in spec:
+        b = spec["batches"][step]
+        n = len(b["labels"])
+        v = len(b["images"]) // n
+        images = np.concatenate([b["images"][i * n + lo:i * n + hi]
+                                 for i in range(v)])
+        return {"images": images, "labels": b["labels"][lo:hi],
+                "mask_lab": b["mask_lab"][lo:hi]}
+    size, views = spec["image_size"], spec["views"]
+    per_view = [[], []]
+    labels, mask = [], []
+    for i in range(lo, hi):
+        g = torch.Generator().manual_seed(spec["seed"] * 1_000_003
+                                          + step * 10_007 + i)
+        img = torch.randn((views, size, size, 3), generator=g)
+        for v in range(views):
+            per_view[v].append(img[v].numpy())
+        labels.append(int(torch.randint(0, 50, (1,), generator=g)))
+        mask.append(bool(torch.rand((1,), generator=g) < 0.5))
+    return {"images": np.concatenate([np.stack(p) for p in per_view]),
+            "labels": np.asarray(labels, np.int64),
+            "mask_lab": np.asarray(mask, bool)}
+
+
+def _digest_params(model) -> str:
+    return digest(*[p.detach().cpu().float().numpy()
+                    for p in model.parameters() if p.requires_grad])
+
+
+def gcd_steps(spec: Dict) -> Dict:
+    """Steps of ``make_gcd_state`` (through ``GCDTrainer``) over the
+    world's ranks, each its block of every global batch of
+    ``spec["global_batch"]`` images, or alone on the whole batch: each
+    step's loss, a digest of the trainable parameters after each step,
+    the trainable parameters at the start and the end
+    (``spec["return_params"]``; rank 0 only), seconds a step and the
+    attention launches."""
+    from scd_tpu_torch.core.config import TrainConfig
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.ops import attention
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    vit = ViTConfig(**spec["vit"])
+    cfg = TrainConfig(**spec["train"])
+    tr = GCDTrainer(vit, cfg, seed=spec.get("init_seed", 0),
+                    total_steps=spec["total_steps"], device=dev, mesh=mesh)
+    if "params" in spec:
+        tr.model.load_state_dict(_state_from(spec["params"]))
+    p0 = _trainable(tr.model) if spec.get("return_params") else None
+    n = spec["global_batch"]
+    lo, hi = (0, n) if mesh is None else multihost.share_bounds(
+        n, mesh.n_data, mesh.data_index)
+    losses, digests, seconds = [], [], []
+    attention.attention_cuda.launches = 0
+    attention.qkv_attention_bwd_cuda.launches = 0
+    for step in range(spec["steps"]):
+        batch = tr.to_device(_gcd_batch(spec, step, lo, hi))
+        metrics, sec = _seconds(
+            lambda: tr.step_fn(tr.model, tr.opt, batch), dev)
+        losses.append(float(metrics["loss"]))
+        digests.append(_digest_params(tr.model))
+        seconds.append(sec)
+    out = {"losses": losses, "digests": digests, "seconds": seconds,
+           "launches": {"attention": attention.attention_cuda.launches,
+                        "attention_bwd":
+                        attention.qkv_attention_bwd_cuda.launches}}
+    if spec.get("return_params") and (mesh is None or mesh.data_index == 0):
+        out["params0"] = p0
+        out["params"] = _trainable(tr.model)
+    return out
+
+
+def _trainable(model) -> Dict:
+    return {k: p.detach().float().cpu().numpy()
+            for k, p in model.named_parameters() if p.requires_grad}
+
+
+def e2e_runs(spec: Dict) -> Dict:
+    """``train_uno_e2e`` and ``train_autonovel_e2e`` over the world's ranks
+    or alone, from ``spec["inits"][method]`` (state dicts, or the port's
+    seeded init when absent) on the in-memory ``views`` / ``labels`` /
+    ``mask_lab`` (or images made from ``spec["seed"]``), with each
+    method's keyword arguments ``spec["kw"][method]``: each method's
+    history, best head, predictions on the first view, seconds and f32
+    attention launches."""
+    import contextlib
+
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.ops import attention
+    from scd_tpu_torch.train import baselines as B
+    from scd_tpu_torch.train import baselines_e2e as E
+
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    if "views" in spec:
+        views, labels, mask = spec["views"], spec["labels"], spec["mask_lab"]
+    else:
+        rng = np.random.default_rng(spec["seed"])
+        n, size = spec["images"], spec["vit"]["image_size"]
+        views = rng.standard_normal((2, n, size, size, 3)).astype(np.float32)
+        labels = rng.integers(0, spec["n_labeled"] * 2, n)
+        mask = (labels < spec["n_labeled"]) & (rng.random(n) < 0.5)
+        mask[0], labels[0] = True, 3  # one labelled row at least
+    vit = ViTConfig(**spec["vit"])
+    nl = spec["n_labeled"]
+
+    def kw(method):
+        return dict(spec["kw"][method], device=dev, mesh=mesh)
+
+    runs = {"uno": lambda: E.train_uno_e2e(
+                0, views, labels, mask, nl, nl, vit,
+                num_heads=spec["num_heads"],
+                overcluster_factor=spec.get("overcluster_factor", 0),
+                **kw("uno")),
+            "autonovel": lambda: E.train_autonovel_e2e(
+                1, views[0], views[1], labels, mask, nl, nl, vit,
+                **kw("autonovel"))}
+    out = {}
+    for method, run in runs.items():
+        inits = spec.get("inits", {})
+        patch = contextlib.nullcontext()
+        if method in inits:
+            state = _state_from(inits[method])
+            patch = _patched(B, "_init_params", lambda model, _seed: (
+                model.load_state_dict(state), model)[1])
+        attention.attention_cuda.f32_wgmma_launches = 0
+        attention.qkv_attention_bwd_cuda.f32_wgmma_launches = 0
+        with patch:
+            (st, predict, hist), sec = _seconds(run, dev)
+        out[method] = {
+            "history": hist, "best_head": st.get("best_head"),
+            "preds": predict(views[0]), "seconds": sec,
+            "launches": {
+                "attention_f32": attention.attention_cuda.f32_wgmma_launches,
+                "attention_bwd_f32":
+                attention.qkv_attention_bwd_cuda.f32_wgmma_launches}}
+    return out
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def metric_learn_run(argv, image_seed=None) -> Dict:
+    """``metric_learn.main(argv)`` (with ``--mesh_data`` the world's
+    size), images fabricated from ``image_seed`` when given: the last
+    epoch's metrics, the run directory and what it holds, this rank's
+    printed lines and seconds."""
+    import time
+
+    from scd_tpu_torch.testing.fabricate import fabricated_images
+    from scd_tpu_torch.train import metric_learn
+
+    ctx = (fabricated_images(image_seed, size=256) if image_seed is not None
+           else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with ctx:
+        res, lines = _lines(metric_learn.main, list(argv))
+    ckpt = res["ckpt"].directory
+    return {"last": res["last"], "log_dir": res["log_dir"],
+            "files": sorted(os.listdir(ckpt)) if os.path.isdir(ckpt)
+            else [], "lines": lines, "seconds": time.perf_counter() - t0}
+
+
+def train_cases(data: Dict) -> Dict:
+    """The training paths over the world's ranks (CPU tests): GCD steps,
+    the e2e trainers, ``metric_learn.main`` and ``run_baseline_e2e.main``
+    with ``--mesh_data``, and the tensor-parallel refusals under a mesh of
+    ``data`` 1 x ``model`` world."""
+    from scd_tpu_torch.train import gcd, metric_learn, run_baseline_e2e
+
+    world = multihost.process_count()
+    out = {"gcd": gcd_steps(data["gcd"]), "e2e": e2e_runs(data["e2e"])}
+    mesh_flags = ["--mesh_data", str(world), "--device",
+                  multihost.local_device().type]
+    out["metric_learn"] = metric_learn_run(data["metric_learn"] + mesh_flags)
+    _res, out["run_baseline_e2e"] = _lines(
+        run_baseline_e2e.main, data["run_baseline_e2e"] + mesh_flags)
+    tp = make_mesh(MeshConfig(data=1, model=world))
+    out["tp"] = {
+        "make_gcd_state": _raised(lambda: gcd.make_gcd_state(
+            None, None, mesh=tp)),
+        "metric_learn": _raised(lambda: metric_learn.main(
+            data["metric_learn"] + ["--mesh_data", "1", "--mesh_model",
+                                    str(world), "--device",
+                                    multihost.local_device().type]))}
+    return out
+
+
+def cluster_cases(data: Dict) -> Dict:
+    """ConSSKM, the Sinkhorn assignment and estimate_k over the world's
+    ranks (CPU tests): each fit of ``data["fits"]``, ``run_clustering``
+    with ConSSKM, the padded Sinkhorn rows, the searches, and the two
+    raises (the exact MCF backend; an infeasible Sinkhorn result)."""
+    from scd_tpu_torch.cluster.constrained import fit_constrained
+    from scd_tpu_torch.pipelines.common import run_clustering
+
+    mesh = _world_mesh()
+    out = {name: constrained_fit(spec)["fit"]
+           for name, spec in data["fits"].items()}
+    out["run_clustering"] = run_clustering(
+        data["pipeline_cfg"], data["feats"], device=mesh.device,
+        mesh=mesh)["u_preds"]
+    out["sinkhorn"] = sinkhorn_rows(*data["sinkhorn"])
+    out["estimate_k"] = estimate_k_search(data["estimate_k"])
+    for name in ("mcf", "infeasible"):
+        x_u, x_l, y_l, cfg = (data[name][k]
+                              for k in ("x_u", "x_l", "y_l", "cfg"))
+        out[name] = _raised(lambda: fit_constrained(
+            _share(x_u, mesh), x_l, y_l, cfg, mesh=mesh))
+    return out
+
+
+# ------------------------------------------------------- phase 14, on the card
+#
+# ``chip_smoke.py``'s phase 14 runs ``mesh_training_stages`` in a world of
+# one over NCCL (the single-process references, and ConSSKM under an
+# explicit mesh of one rank against the mesh-free fit) and in a world of
+# two over gloo with both ranks on the card.  ``spec`` sizes it:
+#   cfg         phase 3's warm root, its cluster config ConSSKM
+#   estimate_k  estimate_k_search's spec (``path`` to the features)
+#   gcd         gcd_steps' spec (ViT-B/16 bf16, images from the seed)
+#   e2e         e2e_runs' spec (ViT-B/16 f32, images from the seed)
+#   augment     augmentation_seconds' spec
+#   metric_learn  metric_learn.main's argv (run over the ranks only), seed
+
+def _consskm_stage(cfg, mesh, dev) -> Dict:
+    """ConSSKM on the root's features: over the ranks ``run_clustering``
+    (each rank its share of the unlabelled rows); alone the mesh-free fit
+    and the same fit under an explicit mesh of one rank.  u_preds, the
+    Sinkhorn counters, seconds."""
+    from scd_tpu_torch.pipelines.common import (feature_cache_key,
+                                                run_clustering, stage_cache)
+
+    feats = stage_cache(cfg).load("features", feature_cache_key(cfg, "feat"))
+    if mesh is not None:
+        _reset_constrained()
+        res, sec = _seconds(lambda: run_clustering(
+            cfg, feats, device=dev, mesh=mesh), dev)
+        return {"u_preds": res["u_preds"], "seconds": sec,
+                "counters": _constrained_counters()}
+    mask = feats["mask_lab"].astype(bool)
+    x = feats["all_feats"]
+    fits = constrained_fit({"x_u": x[~mask], "x_l": x[mask],
+                            "y_l": feats["targets"][mask].astype(np.int64),
+                            "cfg": cfg.cluster, "mesh1": True})
+    n_l = int(mask.sum())
+    return {"u_preds": fits["fit"]["labels"][n_l:].astype(np.int64),
+            "seconds": fits["fit"]["seconds"],
+            "counters": fits["fit"]["counters"],
+            "mesh1": {"labels_equal": bool(np.array_equal(
+                          fits["fit"]["labels"], fits["mesh1"]["labels"])),
+                      "inertia": (fits["mesh1"]["inertia"],
+                                  fits["fit"]["inertia"]),
+                      "seconds": fits["mesh1"]["seconds"]}}
+
+
+def augmentation_seconds(spec: Dict) -> Dict:
+    """Host seconds of each of ``spec["steps"]`` batches of
+    ``metric_learn.balanced_batches`` (decode, the two-view train
+    transform, collation: what bounds ``metric_learn``), over the ranks
+    each rank's block of the batch, alone the whole batch, on the root
+    ``spec["root"]`` with images fabricated from ``spec["seed"]``."""
+    import time
+
+    from scd_tpu_torch.core.config import DataConfig
+    from scd_tpu_torch.data import get_datasets, get_transform
+    from scd_tpu_torch.data.augment import ContrastiveViewGenerator
+    from scd_tpu_torch.testing.fabricate import fabricated_images
+    from scd_tpu_torch.train.metric_learn import balanced_batches
+
+    mesh = _world_mesh()
+    size = spec["image_size"]
+    dcfg = DataConfig(dataset_name="imagenet_100", root_dir=spec["root"],
+                      image_size=size, prop_train_labels=0.5)
+    tf = ContrastiveViewGenerator(get_transform(
+        "imagenet", image_size=size, train=True, seed=spec["seed"]),
+        n_views=2)
+    seconds, rows = [], 0
+    # the readers take their loader when the dataset is made
+    with fabricated_images(spec["seed"], size=256):
+        merged = get_datasets(dcfg, train_transform=tf, test_transform=(
+            get_transform("imagenet", image_size=size)))[0]
+        it = balanced_batches(merged, spec["batch"], 2, seed=spec["seed"],
+                              steps_per_epoch=spec["steps"],
+                              num_workers=spec["workers"], mesh=mesh)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            seconds.append(time.perf_counter() - t0)
+            rows = len(batch["labels"])
+    return {"seconds": seconds, "rows": rows}
+
+
+def mesh_training_stages(spec: Dict) -> Dict:
+    """Phase 14's stages in this world (see the section's comment): each
+    rank's results, launches and seconds."""
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    out = {"consskm": _consskm_stage(spec["cfg"], mesh, dev),
+           "estimate_k": estimate_k_search(spec["estimate_k"]),
+           "gcd": gcd_steps(spec["gcd"]), "e2e": e2e_runs(spec["e2e"]),
+           "augment": augmentation_seconds(spec["augment"])}
+    if mesh is not None:
+        out["metric_learn"] = metric_learn_run(
+            list(spec["metric_learn"]) + ["--mesh_data",
+                                          str(mesh.n_data)],
+            image_seed=spec["seed"])
     return out

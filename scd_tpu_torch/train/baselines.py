@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scd_tpu_torch.core import multihost
 from scd_tpu_torch.core.device import resolve_device
 from scd_tpu_torch.models.params import flax_init_
 from scd_tpu_torch.models.vit import Dense, _param
@@ -380,9 +381,16 @@ def _fill_grads(opt: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
-def _sgd_step(opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def _sgd_step(opt: torch.optim.Optimizer, loss: torch.Tensor,
+              mesh=None) -> None:
+    """backward, then SGD; over a ``mesh`` (data parallel) the ranks'
+    gradients are summed first, in one packed ``all_reduce``."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        multihost.all_reduce_grads(
+            [p for g in opt.param_groups for p in g["params"]],
+            group=mesh.data_group)
     _fill_grads(opt)
     opt.step()
 

@@ -29,9 +29,24 @@ Parameters start from Flax's default initializers
 (``baselines._init_params``), under the JAX tree's names (``backbone.*``,
 ``heads.*``, ``heads_over.*``).
 
-Multi-device training (``mesh``, the JAX package's dp+tp shardings and
-its ``_put`` / ``_shard_setup`` staging) is not ported: a ``mesh`` of
-more than one rank raises, as ``GCDTrainer``'s does.
+Over a ``mesh`` (``scd_tpu/train/baselines_e2e.py:119-129, 256-300,
+408-432``: data parallel over the ``data`` axis, one rank per device)
+every rank builds the same parameters, draws the same batch indices and
+runs the backbone on its contiguous block of each batch
+(:func:`_mesh_batch_size` rounds the batch down to a multiple of the
+axis).  In-memory arrays are the full data on every rank; a streamed
+``views`` / ``images`` callable yields THIS RANK's block of each batch.
+What stays global: UNO's Sinkhorn pseudo-labels (the detached head
+logits are gathered, ``uno_targets`` runs on the global batch and each
+rank keeps its rows; the swapped cross-entropy is the local rows' sum
+over the global batch size, and the per-head losses, hence
+``best_head``, are all-reduced), AutoNovel's pairwise ranking statistics
+(the detached backbone features are gathered; ``output1`` /
+``output1_bar`` are gathered with their gradient,
+``core.multihost.all_gather_rows``, for the pairwise BCE).  The gradients
+are summed in one packed ``all_reduce`` before each SGD step, and each
+predictor splits its batches over the ranks, as serving does.  A
+``model`` axis above 1 (tensor parallelism) raises: it is the next slice.
 """
 
 from __future__ import annotations
@@ -43,8 +58,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scd_tpu_torch.core import multihost
 from scd_tpu_torch.core.device import resolve_device
+from scd_tpu_torch.core.mesh import data_parallel
 from scd_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from scd_tpu_torch.pipelines.common import _pod_shard
 from scd_tpu_torch.train import baselines as B
 from scd_tpu_torch.train.gcd import ScheduledSGD
 from scd_tpu_torch.train.schedulers import (cosine_warmup_schedule,
@@ -52,10 +70,13 @@ from scd_tpu_torch.train.schedulers import (cosine_warmup_schedule,
 
 
 def _swapped_loss_per_head(logits: torch.Tensor, targets: torch.Tensor,
-                           temperature: float) -> torch.Tensor:
+                           temperature: float,
+                           n_rows: Optional[int] = None) -> torch.Tensor:
     """Per-head swapped-prediction CE: logits/targets [V, H, B, C] ->
     [H].  The reference accumulates exactly this into ``loss_per_head``
-    for best-head selection (``uno_v2.py:133``)."""
+    for best-head selection (``uno_v2.py:133``).  ``n_rows``: divide the
+    sum over these B rows by the global batch instead of taking their
+    mean (one rank's share of a data-parallel batch)."""
     v = logits.shape[0]
     logp = F.log_softmax(logits / temperature, dim=-1)
     per_head = torch.zeros(logits.shape[1], dtype=torch.float32,
@@ -65,17 +86,32 @@ def _swapped_loss_per_head(logits: torch.Tensor, targets: torch.Tensor,
         for other in range(v):
             if other != view:
                 # mean over batch, sum over classes; keep the head axis
-                per_head = per_head - (targets[view] * logp[other]).sum(
-                    -1).mean(-1)
+                rows = (targets[view] * logp[other]).sum(-1)
+                per_head = per_head - (rows.mean(-1) if n_rows is None
+                                       else rows.sum(-1) / n_rows)
                 n_terms += 1
     return per_head / n_terms
 
 
-def _no_mesh(mesh) -> None:
-    from scd_tpu_torch.core.mesh import refuse_mesh
+def _mesh_batch_size(batch_size: int, mesh, n: int) -> int:
+    """Largest batch <= batch_size that splits evenly over the data axis;
+    a batch below the axis size raises."""
+    batch_size = min(batch_size, n)
+    if mesh is None:
+        return batch_size
+    d = mesh.n_data
+    if batch_size < d:
+        raise ValueError(f"batch_size {batch_size} < data-axis size {d}")
+    return batch_size - batch_size % d
 
-    refuse_mesh(mesh, "the end-to-end baseline trainers",
-                "training over a mesh")
+
+def _gathered(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order, no
+    gradient (the identity without a mesh)."""
+    if mesh is None:
+        return t
+    return torch.cat(multihost.all_gather(t.detach(), group=mesh.data_group),
+                     dim=dim)
 
 
 def _run_epochs(epochs: int, epoch_fn, eval_fn, best_metric: str,
@@ -137,18 +173,25 @@ class AutoNovelModel(nn.Module):
         self.heads = B.TwoHeadClassifier(feat_dim, n_labeled, n_unlabeled)
 
 
-def _predictor(forward, dev):
+def _predictor(forward, dev, mesh=None):
     """``predict(images, batch=256) -> numpy``: ``forward`` over batches
-    of host images, no graph."""
+    of host images, no graph.  Over a ``mesh`` (the images the same on
+    every rank) each rank runs its share of each batch and the
+    predictions are gathered, in order, on every rank."""
+
+    def run(x: np.ndarray) -> np.ndarray:
+        if mesh is None:
+            return forward(torch.as_tensor(x).to(dev)).cpu().numpy()
+        local, valid = multihost.rows_from_process_local(
+            mesh, _pod_shard(x, mesh), pad=True, device=dev)
+        full = multihost.host_fetch(forward(local), mesh)
+        return full if valid is None else full[valid]
 
     def predict(images, batch: int = 256) -> np.ndarray:
         images = np.asarray(images, np.float32)
-        out = []
         with torch.no_grad():
-            for s in range(0, len(images), batch):
-                x = torch.as_tensor(images[s:s + batch]).to(dev)
-                out.append(forward(x).cpu().numpy())
-        return np.concatenate(out)
+            return np.concatenate([run(images[s:s + batch])
+                                   for s in range(0, len(images), batch)])
 
     return predict
 
@@ -175,8 +218,9 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
     ``views``: [V, N, H, W, C] float image views held in memory, OR a
     callable ``views(epoch, rng) -> iterator of (batch_views [V, B, ...],
     labels [B], mask_lab [B])`` (pass ``steps_per_epoch`` for the LR
-    schedule).  The backbone runs once a step over the flattened [V*B,
-    ...] views.  ``eval_fn(predict, epoch) -> dict`` runs every epoch; the
+    schedule; over a ``mesh`` it yields this rank's block of each batch).
+    The backbone runs once a step over the flattened [V*B, ...] views.
+    ``eval_fn(predict, epoch) -> dict`` runs every epoch; the
     best epoch by ``best_metric`` is tracked.
 
     ``overcluster_factor`` > 0 adds the reference's overclustering heads
@@ -187,8 +231,9 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
     Returns ``(state, predict_fn, history)``: ``state`` holds the model,
     the optimizer, the best-head index, the best epoch and ``step(views,
     labels, mask_lab) -> (loss, per-head loss)``, one SGD step on device
-    tensors; ``predict_fn(images) -> labels`` (numpy) uses the best head."""
-    _no_mesh(mesh)
+    tensors; ``predict_fn(images) -> labels`` (numpy) uses the best head.
+    Over a ``mesh``: see the module docstring."""
+    mesh = data_parallel(mesh, "the end-to-end baseline trainers")
     dev = resolve_device(device)
     if callable(views):
         if not steps_per_epoch:
@@ -198,13 +243,14 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
     else:
         views = np.asarray(views, np.float32)
         n = views.shape[1]
-        batch_size = min(batch_size, n)
+        batch_size = _mesh_batch_size(batch_size, mesh, n)
         labels = np.asarray(labels)
         mask_lab = np.asarray(mask_lab)
         steps_per_epoch = steps_per_epoch or max(n // batch_size, 1)
 
         def batches(_epoch, rng):
             for idx in B._batched(rng, n, batch_size):
+                idx = _pod_shard(idx, mesh)
                 yield views[:, idx], labels[idx], mask_lab[idx]
 
     n_over = (n_labeled + n_unlabeled * overcluster_factor
@@ -223,13 +269,24 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
                        weight_decay)
 
     def head_loss(module, feats, lab, m_lab):
-        logits = torch.stack([module(f)[0] for f in feats])  # [V, H, B, C]
-        targets = B.uno_targets(logits[..., n_labeled:].detach(), lab,
-                                m_lab, n_labeled, sk_iters, sk_epsilon)
-        return _swapped_loss_per_head(logits, targets, temperature)
+        """``lab`` / ``m_lab``: the global batch's (over a mesh)."""
+        logits = torch.stack([module(f)[0] for f in feats])  # [V, H, b, C]
+        unlab = logits[..., n_labeled:].detach()
+        if mesh is None:
+            targets = B.uno_targets(unlab, lab, m_lab, n_labeled, sk_iters,
+                                    sk_epsilon)
+            return _swapped_loss_per_head(logits, targets, temperature)
+        # the pseudo-labels of the global batch; this rank keeps its rows
+        b = logits.shape[2]
+        lo = mesh.data_index * b
+        targets = B.uno_targets(_gathered(unlab, mesh, dim=2), lab, m_lab,
+                                n_labeled, sk_iters, sk_epsilon)
+        return _swapped_loss_per_head(logits, targets[:, :, lo:lo + b],
+                                      temperature, n_rows=len(lab))
 
     def step(batch_views, lab, m_lab):
         n_v, vb = batch_views.shape[:2]
+        lab, m_lab = _gathered(lab, mesh), _gathered(m_lab, mesh)
         flat = batch_views.reshape((-1,) + tuple(batch_views.shape[2:]))
         feats = model.backbone(flat).reshape(n_v, vb, -1)
         per_head = head_loss(model.heads, feats, lab, m_lab)
@@ -239,9 +296,15 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
             loss = (loss + head_loss(model.heads_over, feats, lab,
                                      m_lab).mean()) / 2
         loss.backward()
+        out = torch.cat([loss.detach().reshape(1), per_head.detach()])
+        if mesh is not None:
+            multihost.all_reduce_grads(opt.sgd.param_groups[0]["params"],
+                                       group=mesh.data_group)
+            # this rank's share of the loss and of each head's: summed
+            out = multihost.all_reduce(out, group=mesh.data_group)
         B._fill_grads(opt.sgd)
         opt.step()
-        return loss.detach(), per_head.detach()
+        return out[0], out[1:]
 
     state = {"model": model, "optimizer": opt, "best_head": 0, "step": step}
 
@@ -249,7 +312,7 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
         logits, _ = model.heads(model.backbone(images))  # [H, B, C]
         return torch.argmax(logits[state["best_head"]], dim=-1)
 
-    predict = _predictor(forward, dev)
+    predict = _predictor(forward, dev, mesh)
     rng = np.random.default_rng(seed)
 
     def epoch_fn(epoch):
@@ -300,13 +363,15 @@ def train_autonovel_e2e(init_seed: int, images,
     step_size)``, torch's last_epoch semantics), per-epoch eval.
 
     ``images`` may instead be a callable ``images(epoch, rng) -> iterator
-    of (x [B, ...], x_bar [B, ...], labels [B], mask_lab [B])``.  Returns
+    of (x [B, ...], x_bar [B, ...], labels [B], mask_lab [B])`` (over a
+    ``mesh`` this rank's block of each batch; see the module docstring).
+    Returns
     ``(state, predict_fn, history)``: ``state`` holds the model, the
     optimizer, the best epoch and ``step(x, x_bar, labels, mask_lab, w) ->
     loss``, one SGD step on device tensors; ``predict_fn`` maps images to
     all-classes-head argmax ids (labelled classes first, as the
     reference's eval on ``output1.max(1)``)."""
-    _no_mesh(mesh)
+    mesh = data_parallel(mesh, "the end-to-end baseline trainers")
     dev = resolve_device(device)
     if callable(images):
         batches = images
@@ -314,12 +379,13 @@ def train_autonovel_e2e(init_seed: int, images,
         images = np.asarray(images, np.float32)
         images_bar = np.asarray(images_bar, np.float32)
         n = images.shape[0]
-        batch_size = min(batch_size, n)
+        batch_size = _mesh_batch_size(batch_size, mesh, n)
         labels = np.asarray(labels)
         mask_lab = np.asarray(mask_lab)
 
         def batches(_epoch, rng):
             for idx in B._batched(rng, n, batch_size):
+                idx = _pod_shard(idx, mesh)
                 yield images[idx], images_bar[idx], labels[idx], mask_lab[idx]
 
     model = B._trainable(B._init_params(AutoNovelModel(
@@ -333,17 +399,23 @@ def train_autonovel_e2e(init_seed: int, images,
         feats_bar = model.backbone(x_bar)
         o1, _o2, _ = model.heads(feats)
         o1b, _, _ = model.heads(feats_bar)
+        if mesh is not None:  # the global batch's pairs and statistics
+            group = mesh.data_group
+            o1 = multihost.all_gather_rows(o1, group).flatten(0, 1)
+            o1b = multihost.all_gather_rows(o1b, group).flatten(0, 1)
+            feats, lab, m_lab = (_gathered(t, mesh)
+                                 for t in (feats, lab, m_lab))
         # ranking stats on the DETACHED trunk features of the current
         # model (reference ``rank_feat = feat.detach()``)
         loss = B.autonovel_loss(o1, o1b, feats.detach(), lab, m_lab, w,
                                 topk=topk)["loss"]
-        B._sgd_step(opt, loss)
+        B._sgd_step(opt, loss, mesh)
         return loss.detach()
 
     state = {"model": model, "optimizer": opt, "step": step}
     predict = _predictor(
         lambda x: torch.argmax(model.heads(model.backbone(x))[0], dim=-1),
-        dev)
+        dev, mesh)
     rng = np.random.default_rng(seed)
 
     def epoch_fn(epoch):

@@ -15,6 +15,12 @@ blob differs: the JAX package writes one flax msgpack per step
 model, head and optimizer state dicts plus the step), with every tensor
 moved to the host.  The port does not read the JAX package's blobs, nor
 the JAX package the port's.
+
+Over several ranks (``core.multihost``; data-parallel training holds the
+same state on every rank) every rank calls :meth:`CheckpointManager.save`
+and keeps the manifest in memory, rank 0 alone writes and prunes the
+files, and a ``barrier`` after each save publishes them before any rank
+reads on, as ``core/cache.py`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from scd_tpu_torch.core import multihost
 
 
 def _to_host(tree):
@@ -48,7 +56,9 @@ class CheckpointManager:
         self.keep = keep
         self.best_metric = best_metric
         self.mode = mode
-        os.makedirs(directory, exist_ok=True)
+        self._writer = multihost.process_index() == 0
+        if self._writer:
+            os.makedirs(directory, exist_ok=True)
         self._manifest_path = os.path.join(directory, "manifest.json")
         if os.path.exists(self._manifest_path):
             with open(self._manifest_path) as f:
@@ -67,12 +77,14 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any,
              metrics: Optional[Dict[str, float]] = None) -> str:
-        """Write checkpoint ``step``; update best; prune old non-best."""
+        """Write checkpoint ``step``; update best; prune old non-best.
+        Over several ranks rank 0 writes and every rank waits for it."""
         path = self._blob(step)
-        torch.save(_to_host(state), path + ".tmp")
-        os.replace(path + ".tmp", path)  # atomic: no torn blob on a crash
-        with open(self._meta(step), "w") as f:
-            json.dump({"step": step, "metrics": metrics or {}}, f)
+        if self._writer:
+            torch.save(_to_host(state), path + ".tmp")
+            os.replace(path + ".tmp", path)  # atomic: no torn blob
+            with open(self._meta(step), "w") as f:
+                json.dump({"step": step, "metrics": metrics or {}}, f)
 
         if step not in self._manifest["steps"]:
             self._manifest["steps"].append(step)
@@ -85,14 +97,18 @@ class CheckpointManager:
             if improved:
                 self._manifest["best_step"] = step
                 self._manifest["best_value"] = v
-                shutil.copyfile(path, os.path.join(self.directory,
-                                                   "ckpt_best.pt"))
-                with open(os.path.join(self.directory, "ckpt_best.json"),
-                          "w") as f:
-                    json.dump({"step": step, "metrics": metrics}, f)
+                if self._writer:
+                    shutil.copyfile(path, os.path.join(self.directory,
+                                                       "ckpt_best.pt"))
+                    with open(os.path.join(self.directory,
+                                           "ckpt_best.json"), "w") as f:
+                        json.dump({"step": step, "metrics": metrics}, f)
         self._prune()
-        with open(self._manifest_path, "w") as f:
-            json.dump(self._manifest, f)
+        if self._writer:
+            with open(self._manifest_path, "w") as f:
+                json.dump(self._manifest, f)
+        if multihost.is_multiprocess():
+            multihost.barrier()
         return path
 
     def _prune(self):
@@ -100,7 +116,7 @@ class CheckpointManager:
         excess = steps[:-self.keep] if self.keep else []
         for s in excess:
             for p in (self._blob(s), self._meta(s)):
-                if os.path.exists(p):
+                if self._writer and os.path.exists(p):
                     os.remove(p)
             self._manifest["steps"].remove(s)
 

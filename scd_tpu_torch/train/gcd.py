@@ -27,9 +27,17 @@ unlabelled sampling.
 - SupCon's labelled-only subset is a mask: unlabelled rows are excluded
   from anchors, positives and denominators.
 
-Multi-device training (``mesh``, the JAX package's tensor-parallel
-specs and ``stage_pod_batch``) is not ported: a ``mesh`` of more than one
-rank raises (``core.mesh.refuse_mesh``).
+Over a ``mesh`` (``scd_tpu/train/gcd.py:171-260``, data parallel over
+the ``data`` axis, one rank per device) every rank builds the same
+parameters from the seed and takes ITS block of each global batch
+(:func:`stage_pod_batch`); it runs the tower on its rows, the projections
+are gathered with their gradient (``core.multihost.all_gather_rows``)
+into the global view-major order (view, then rank block, then row: the
+JAX layout of ``stage_pod_batch``), so both losses see the global batch
+and the metrics are global; the trainable gradients are summed in one
+packed ``all_reduce`` and :class:`ScheduledSGD` steps identically on
+every rank.  A ``model`` axis above 1 (the JAX package's tensor-parallel
+specs, ``_tp_spec``) raises: tensor parallelism is the next slice.
 """
 
 from __future__ import annotations
@@ -44,6 +52,10 @@ import torch.nn.functional as F
 
 from scd_tpu_torch.core.config import TrainConfig
 from scd_tpu_torch.core.device import resolve_device
+from scd_tpu_torch.core.mesh import data_parallel
+from scd_tpu_torch.core.multihost import (all_gather, all_gather_rows,
+                                          all_reduce_grads,
+                                          rows_from_process_local)
 from scd_tpu_torch.models.params import flax_init_
 from scd_tpu_torch.models.vit import Dense, ViTConfig, VisionTransformer
 from scd_tpu_torch.train.losses import cross_entropy, info_nce_loss
@@ -161,15 +173,24 @@ class ScheduledSGD:
         self.count += 1
 
 
-def gcd_loss(model: GCDModel, cfg: TrainConfig, batch: Dict[str, torch.Tensor]
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def gcd_loss(model: GCDModel, cfg: TrainConfig, batch: Dict[str, torch.Tensor],
+             mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of one batch: ``images`` view-major [n_views*B, H,
-    W, C], ``labels`` [B], ``mask_lab`` [B] bool."""
+    W, C], ``labels`` [B], ``mask_lab`` [B] bool.  Over a ``mesh`` the
+    batch is this rank's block and the loss is the global batch's (see
+    the module docstring)."""
     images = batch["images"]
     if images.dim() == 5:  # [n_views, B, H, W, C]: back to view-major
         images = images.reshape((-1,) + tuple(images.shape[2:]))
     lab, mask_lab = batch["labels"], batch["mask_lab"]
     proj = _unit(model(images), -1)
+    if mesh is not None:
+        group = mesh.data_group
+        blocks = all_gather_rows(proj.reshape(cfg.n_views, lab.shape[0], -1),
+                                 group)  # [W, V, b, P]
+        proj = blocks.transpose(0, 1).reshape(-1, proj.shape[-1])
+        lab = torch.cat(all_gather(lab, group))
+        mask_lab = torch.cat(all_gather(mask_lab, group))
 
     logits, targets = info_nce_loss(proj, n_views=cfg.n_views,
                                     temperature=cfg.temperature)
@@ -188,10 +209,10 @@ def gcd_loss(model: GCDModel, cfg: TrainConfig, batch: Dict[str, torch.Tensor]
 def make_gcd_state(vit_cfg: ViTConfig, cfg: TrainConfig, seed: int = 0,
                    total_steps: int = 10_000, device="cuda", mesh=None):
     """Build (model, optimizer, step).  ``step(model, optimizer, batch) ->
-    metrics`` (0-d tensors on the device) takes one SGD step in place."""
-    from scd_tpu_torch.core.mesh import refuse_mesh
-
-    refuse_mesh(mesh, "GCD training", "training over a mesh")
+    metrics`` (0-d tensors on the device) takes one SGD step in place.
+    Over a ``mesh`` (data parallel; ``device`` the rank's own) the batch
+    is this rank's block (:func:`stage_pod_batch`)."""
+    mesh = data_parallel(mesh, "GCD training")
     dev = resolve_device(device)
     if cfg.int8_frozen and cfg.grad_from_block > 0:
         # the frozen blocks (< grad_from_block) never take a gradient:
@@ -214,12 +235,36 @@ def make_gcd_state(vit_cfg: ViTConfig, cfg: TrainConfig, seed: int = 0,
     opt = ScheduledSGD(trainable, schedule, cfg.momentum, cfg.weight_decay)
 
     def step(model, opt, batch):
-        loss, metrics = gcd_loss(model, cfg, batch)
+        loss, metrics = gcd_loss(model, cfg, batch, mesh)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(trainable, group=mesh.data_group)
         opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return model, opt, step
+
+
+def stage_pod_batch(mesh, batch: Dict, n_views: int,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The step's input from THIS RANK's block of a global batch
+    (``scd_tpu/train/gcd.py:204-225``): view-major images [n_views *
+    B_local, H, W, C] become [n_views, B_local, H, W, C] on the rank's
+    device, labels [B_local] int64 and mask_lab [B_local] bool.  Every
+    rank must hold the same B_local (``rows_from_process_local``'s exact
+    contract raises otherwise); the step gathers the ranks' blocks in
+    rank order, so rank r's block is rows [r B_local, (r+1) B_local) of
+    the global batch."""
+    dev = mesh.device if device is None else resolve_device(device)
+    imgs = torch.as_tensor(np.asarray(batch["images"]))
+    bl = imgs.shape[0] // n_views
+    labels, _ = rows_from_process_local(
+        mesh, np.asarray(batch["labels"], np.int64), device=dev)
+    mask, _ = rows_from_process_local(
+        mesh, np.asarray(batch["mask_lab"], bool), device=dev)
+    images = imgs.reshape((n_views, bl) + tuple(imgs.shape[1:])).to(
+        dev, torch.float32)
+    return {"images": images, "labels": labels, "mask_lab": mask}
 
 
 class GCDTrainer:
@@ -230,17 +275,20 @@ class GCDTrainer:
     def __init__(self, vit_cfg: ViTConfig, cfg: TrainConfig,
                  seed: int = 0, total_steps: int = 10_000, mesh=None,
                  device="cuda"):
-        from scd_tpu_torch.core.mesh import refuse_mesh
-
-        refuse_mesh(mesh, "GCD training", "training over a mesh")
+        self.mesh = data_parallel(mesh, "GCD training")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model, self.opt, self.step_fn = make_gcd_state(
-            vit_cfg, cfg, seed, total_steps, device=self.device, mesh=mesh)
+            vit_cfg, cfg, seed, total_steps, device=self.device,
+            mesh=self.mesh)
         self.metrics_log = []
 
     def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """A host batch (numpy arrays) on the trainer's device."""
+        """A host batch (numpy arrays) on the trainer's device; over a
+        mesh this rank's block, staged by :func:`stage_pod_batch`."""
+        if self.mesh is not None:
+            return stage_pod_batch(self.mesh, batch, self.cfg.n_views,
+                                   self.device)
         return {"images": torch.as_tensor(batch["images"]).to(
                     self.device, torch.float32),
                 "labels": torch.as_tensor(batch["labels"]).to(
@@ -250,9 +298,11 @@ class GCDTrainer:
 
     def train_epoch(self, batches) -> Dict[str, float]:
         """``batches``: iterable of dicts with images (view-major
-        [n_views*B, H, W, C]), labels [B], mask_lab [B].  Per-step metrics
-        stay on the device; at the end of the epoch their means are read
-        in one transfer, keyed in sorted order (the JAX step's)."""
+        [n_views*B, H, W, C]), labels [B], mask_lab [B]; over a mesh this
+        rank's block of each global batch.  Per-step metrics (global over
+        a mesh) stay on the device; at the end of the epoch their means
+        are read in one transfer, keyed in sorted order (the JAX
+        step's)."""
         device_metrics: Dict[str, list] = {}
         for batch in batches:
             metrics = self.step_fn(self.model, self.opt,

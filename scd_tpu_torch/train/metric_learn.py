@@ -12,8 +12,17 @@ test ACC (:320-338).
 Run: ``python -m scd_tpu_torch.train.metric_learn --dataset_name
 synthetic --epochs 1 --vit micro --image_size 32 [--device cpu]``; the
 JAX CLI's flags plus ``--device`` (``cuda`` unless asked for ``cpu``).
-``--mesh_data`` / ``--mesh_model`` other than 1 raise: multi-device
-training is not ported.
+
+Data parallel over ranks: ``torchrun --nproc_per_node N -m
+scd_tpu_torch.train.metric_learn --mesh_data N ...`` (0 = every launched
+rank; ``--device cpu`` runs gloo ranks).  Every rank draws the same
+global batch indices from the seeded sampler and decodes and augments
+only its own contiguous block of B / N rows (the host augmentation bounds
+this trainer), the step gathers the projections over the ranks
+(``train/gcd.py``), the per-epoch eval extracts each rank's share of the
+splits and gathers the features, and rank 0 alone prints and writes the
+run directory and the checkpoints.  ``--mesh_model`` above 1 (tensor
+parallelism) raises: it is the next slice.
 """
 
 from __future__ import annotations
@@ -26,15 +35,19 @@ import numpy as np
 import torch
 
 from scd_tpu_torch.cluster.runners import eval_kmeans, eval_kmeans_semi_sup
-from scd_tpu_torch.core.config import ClusterConfig, DataConfig, TrainConfig
-from scd_tpu_torch.core.device import resolve_device
+from scd_tpu_torch.core import multihost
+from scd_tpu_torch.core.config import (ClusterConfig, DataConfig, MeshConfig,
+                                       PipelineConfig, TrainConfig)
 from scd_tpu_torch.data import get_class_splits, get_datasets, get_transform
 from scd_tpu_torch.data.augment import ContrastiveViewGenerator
 from scd_tpu_torch.data.loader import iterate_batches
 from scd_tpu_torch.models.vit import ViTConfig
+from scd_tpu_torch.pipelines.common import (_pipeline_mesh, _pod_shard,
+                                            _RowRange)
 from scd_tpu_torch.train.checkpoint import CheckpointManager
 from scd_tpu_torch.train.gcd import GCDTrainer
-from scd_tpu_torch.utils.experiment import init_experiment
+from scd_tpu_torch.utils.experiment import (follow_experiment,
+                                            init_experiment)
 
 _VIT_SIZES = {
     "tiny": dict(width=192, depth=12, heads=3),
@@ -47,11 +60,13 @@ _VIT_SIZES = {
 
 def balanced_batches(merged, batch_size: int, n_views: int, seed: int,
                      steps_per_epoch: Optional[int] = None,
-                     num_workers: int = 8) -> Iterator[dict]:
+                     num_workers: int = 8, mesh=None) -> Iterator[dict]:
     """Sample labelled and unlabelled instances with equal total mass
     (reference ``WeightedRandomSampler`` balancing,
     ``learn_metric.py:496-500``; the JAX package's numpy draws) and
-    collate view-major batches."""
+    collate view-major batches.  Over a ``mesh`` every rank draws the
+    same global indices and collates only its contiguous block of them
+    (``batch_size`` must divide by the ``data`` axis)."""
     n = len(merged)
     lab_flags = merged.mask_lab  # MergedDataset is labelled-first
     n_lab = int(lab_flags.sum())
@@ -67,6 +82,7 @@ def balanced_batches(merged, batch_size: int, n_views: int, seed: int,
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
         for _ in range(steps):
             idxs = rng.choice(n, size=batch_size, p=w)
+            idxs = _pod_shard(idxs, mesh)
             items = list(pool.map(fetch, idxs))
             # view-major: all first views, then all second views, ...
             images = np.concatenate([
@@ -81,11 +97,13 @@ def run_metric_learn(args) -> dict:
     """Train, evaluate and checkpoint per ``args`` (the argparser's
     namespace).  Returns the last epoch's metrics, the log directory, the
     trainer and the checkpoint manager."""
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise NotImplementedError(
-            "multi-device training (--mesh_data / --mesh_model other than "
-            "1) is not ported")
-    device = resolve_device(args.device)
+    device = multihost.maybe_initialize(args.device)
+    mesh = _pipeline_mesh(PipelineConfig(
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model)))
+    if mesh is not None and args.batch_size % mesh.n_data:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"evenly over the {mesh.n_data} ranks of the data "
+                         "axis")
     data_cfg = DataConfig(dataset_name=args.dataset_name,
                           root_dir=args.root_dir,
                           image_size=args.image_size,
@@ -120,10 +138,18 @@ def run_metric_learn(args) -> dict:
                       batch_size=args.batch_size,
                       int8_frozen=bool(args.int8_frozen))
     trainer = GCDTrainer(vit_cfg, cfg, seed=args.seed,
-                         total_steps=steps * args.epochs, device=device)
+                         total_steps=steps * args.epochs, device=device,
+                         mesh=mesh)
 
-    ctx = init_experiment(vars(args), exp_root=args.exp_root,
-                          runner_name="metric_learn")
+    # rank 0 creates the run directory; the other ranks follow its id
+    ctx = None
+    if multihost.process_index() == 0:
+        ctx = init_experiment(vars(args), exp_root=args.exp_root,
+                              runner_name="metric_learn")
+    if mesh is not None:
+        exp_id = multihost.broadcast_object(ctx and ctx.exp_id)
+        ctx = ctx or follow_experiment(exp_id, args.exp_root,
+                                       "metric_learn")
     # best checkpoint by old-class TEST ACC, the reference's criterion
     # (learn_metric.py:328-338)
     ckpt = CheckpointManager(ctx.model_dir, keep=2,
@@ -133,18 +159,26 @@ def run_metric_learn(args) -> dict:
         return balanced_batches(merged, args.batch_size, args.n_views,
                                 seed=args.seed + epoch,
                                 steps_per_epoch=args.steps_per_epoch,
-                                num_workers=args.num_workers)
+                                num_workers=args.num_workers, mesh=mesh)
 
     def _extract(tr, ds):
+        """(features, targets, mask_lab) of every row of ``ds``; over a
+        mesh each rank extracts its contiguous share and the shares are
+        gathered, in order, on every rank."""
+        if mesh is not None:
+            ds = _RowRange(ds, *multihost.share_bounds(
+                len(ds), mesh.n_data, mesh.data_index))
         feats, targets, masks = [], [], []
         for images, labels, _uq, m in iterate_batches(
                 ds, args.batch_size, num_workers=args.num_workers):
             feats.append(tr.extract_features([images]))
             targets.append(labels)
             masks.append(m)
-        return (np.concatenate(feats),
-                np.concatenate(targets).astype(np.int64),
-                np.concatenate(masks).astype(bool))
+        out = (np.concatenate(feats),
+               np.concatenate(targets).astype(np.int64),
+               np.concatenate(masks).astype(bool))
+        return out if mesh is None else tuple(
+            _gather_rows(mesh, a) for a in out)
 
     def kmeans_cfg(epoch):
         return ClusterConfig(n_clusters=n_classes, n_init=3,
@@ -187,6 +221,15 @@ def run_metric_learn(args) -> dict:
             "ckpt": ckpt}
 
 
+def _gather_rows(mesh, local: np.ndarray) -> np.ndarray:
+    """Every rank's rows of ``local`` (ragged shares), in rank order, on
+    every rank."""
+    padded, valid = multihost.rows_from_process_local(mesh, local, pad=True,
+                                                      device="cpu")
+    full = multihost.host_fetch(padded, mesh)
+    return full if valid is None else full[valid]
+
+
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GCD contrastive finetuning")
     p.add_argument("--dataset_name", type=str, default="synthetic")
@@ -222,17 +265,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--exp_root", type=str, default="runs")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="data-parallel mesh axis size (only 1: not ported)")
+                   help="data-parallel mesh axis size")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel mesh axis size (only 1: not "
-                        "ported)")
+                   help="tensor-parallel mesh axis size")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     return p
 
 
 def main(argv=None):
-    return run_metric_learn(build_argparser().parse_args(argv))
+    args = build_argparser().parse_args(argv)
+    with multihost.rank0_stdout():
+        return run_metric_learn(args)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,16 @@ baselines through the backbone from a DataLoader (``uno_v2.py:96-160``,
 asked for ``cpu``); the same eval lines (``log_accs_from_preds`` every
 epoch over the unlabelled train images), epoch lines and ``best:`` line.
 ``--remat 1`` recomputes the trunk blocks' activations in the backward
-pass (``torch.utils.checkpoint``).  ``--mesh_data`` / ``--mesh_model``
-other than 1 raise: multi-device training is not ported.
+pass (``torch.utils.checkpoint``).
+
+Data parallel over ranks: ``torchrun --nproc_per_node N -m
+scd_tpu_torch.train.run_baseline_e2e --mesh_data N ...`` (0 = every
+launched rank; ``--device cpu`` runs gloo ranks).  The batch size rounds
+down to a multiple of N (printed, as the JAX CLI prints it), every rank
+draws the same batch indices and decodes only its contiguous block
+(``train/baselines_e2e.py`` holds the rest), and rank 0 alone prints.
+``--mesh_model`` above 1 (tensor parallelism) raises: it is the next
+slice.
 
 Run: ``python -m scd_tpu_torch.train.run_baseline_e2e --method uno
 --dataset_name synthetic --vit micro --image_size 32 --epochs 2
@@ -23,22 +31,25 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from scd_tpu_torch.core.config import DataConfig
-from scd_tpu_torch.core.device import resolve_device
+from scd_tpu_torch.core import multihost
+from scd_tpu_torch.core.config import DataConfig, MeshConfig, PipelineConfig
 from scd_tpu_torch.data import get_class_splits, get_datasets, get_transform
 from scd_tpu_torch.data.augment import ContrastiveViewGenerator
 from scd_tpu_torch.metrics.cluster import log_accs_from_preds
 from scd_tpu_torch.models.vit import ViTConfig
+from scd_tpu_torch.pipelines.common import _pipeline_mesh, _pod_shard
 from scd_tpu_torch.train.baselines_e2e import (train_autonovel_e2e,
                                                train_uno_e2e)
 from scd_tpu_torch.train.metric_learn import _VIT_SIZES
 
 
 def image_batches(merged, batch_size: int, n_views: int,
-                  steps: int, num_workers: int = 8):
+                  steps: int, num_workers: int = 8, mesh=None):
     """Batch factory for the streaming e2e trainers: yields view-stacked
     ``([V, B, H, W, C], labels [B], mask_lab [B])`` per step (the
-    reference's DataLoader contract without materializing the dataset)."""
+    reference's DataLoader contract without materializing the dataset);
+    over a ``mesh`` this rank's contiguous block of each batch's
+    indices, the same draws on every rank."""
 
     def fetch(i: int):
         views, label, _uq, m = merged[int(i)]
@@ -50,7 +61,8 @@ def image_batches(merged, batch_size: int, n_views: int,
         n = len(merged)
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
             for _ in range(steps):
-                idxs = rng.choice(n, size=min(batch_size, n), replace=False)
+                idxs = _pod_shard(rng.choice(n, size=min(batch_size, n),
+                                           replace=False), mesh)
                 items = list(pool.map(fetch, idxs))
                 views = np.stack([
                     np.stack([np.asarray(it[0][v], np.float32)
@@ -117,10 +129,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="recompute the trunk blocks' activations in the "
                         "backward pass (torch.utils.checkpoint)")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="data-parallel mesh axis size (only 1: not ported)")
+                   help="data-parallel axis size (>1 jits the train step "
+                        "with dp shardings; 0 = all visible devices)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel mesh axis size (only 1: not "
-                        "ported)")
+                   help="tensor-parallel axis size for the backbone")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) | cpu")
     return p
@@ -128,11 +140,20 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise NotImplementedError(
-            "multi-device training (--mesh_data / --mesh_model other than "
-            "1) is not ported")
-    dev = resolve_device(args.device)
+    dev = multihost.maybe_initialize(args.device)
+    with multihost.rank0_stdout():
+        return _run(args, dev)
+
+
+def _run(args, dev):
+    mesh = _pipeline_mesh(PipelineConfig(
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model)))
+    if mesh is not None:
+        d = mesh.n_data
+        if args.batch_size % d:
+            args.batch_size -= args.batch_size % d
+            print(f"[e2e] batch_size rounded to {args.batch_size} "
+                  f"(must split evenly over the {d}-way data axis)")
 
     data_cfg = DataConfig(dataset_name=args.dataset_name,
                           root_dir=args.root_dir,
@@ -162,7 +183,7 @@ def main(argv=None):
                         **_VIT_SIZES[args.vit])
     # sampling is driven by the trainer's rng (seeded via its seed kwarg)
     batches = image_batches(merged, args.batch_size, 2, steps,
-                            args.num_workers)
+                            args.num_workers, mesh)
     ckpt = None
     if args.ckpt_dir:
         from scd_tpu_torch.train.checkpoint import CheckpointManager
@@ -186,7 +207,7 @@ def main(argv=None):
             batch_size=args.batch_size, lr=args.lr,
             overcluster_factor=args.overcluster_factor,
             steps_per_epoch=steps, seed=args.seed, eval_fn=eval_fn,
-            log_fn=print, ckpt=ckpt, device=dev)
+            log_fn=print, ckpt=ckpt, mesh=mesh, device=dev)
     elif args.method == "autonovel":
         def an_batches(epoch, rng):
             for views, lab, m in batches(epoch, rng):
@@ -196,7 +217,8 @@ def main(argv=None):
             args.seed, an_batches, n_labeled=n_lab, n_unlabeled=n_unlab,
             vit_cfg=vit_cfg, epochs=args.epochs,
             batch_size=args.batch_size, lr=args.lr, seed=args.seed,
-            eval_fn=eval_fn, log_fn=print, ckpt=ckpt, device=dev)
+            eval_fn=eval_fn, log_fn=print, ckpt=ckpt, mesh=mesh,
+            device=dev)
     else:
         raise ValueError(f"unknown method {args.method!r}")
 

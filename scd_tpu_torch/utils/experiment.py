@@ -145,6 +145,34 @@ def init_experiment(config=None, exp_root: str = "runs",
                              logger=logger, config=cfg_dict or None)
 
 
+class _NullWriter:
+    """A :class:`MetricWriter` that writes nothing."""
+
+    def add_scalar(self, *_a, **_k) -> None:
+        pass
+
+    add_scalars = add_hparams = add_scalar
+
+    def close(self) -> None:
+        pass
+
+
+def follow_experiment(exp_id: str, exp_root: str = "runs",
+                      runner_name: str = "scd") -> ExperimentContext:
+    """The context of a run that another rank created with
+    :func:`init_experiment` (the same ``exp_id``): its paths, a writer and
+    a logger that write nothing, so a data-parallel run's ranks above 0
+    neither print nor write beside rank 0."""
+    log_dir = os.path.join(exp_root, runner_name, "log", exp_id)
+    logger = logging.getLogger(f"scd_tpu_torch.{exp_id}.follower")
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return ExperimentContext(exp_id=exp_id, log_dir=log_dir,
+                             model_dir=os.path.join(log_dir, "checkpoints"),
+                             writer=_NullWriter(), logger=logger)
+
+
 class AverageMeter:
     """Running average (reference ``cluster_utils.py:117-137``)."""
 

@@ -294,7 +294,8 @@ def test_run_baseline_e2e_main_prints_the_jax_eval_lines(jax_inits,
     assert got[-1].startswith("best: {")
     assert sorted(os.listdir(tmp_path / "t")) == sorted(
         f.replace(".msgpack", ".pt") for f in os.listdir(tmp_path / "j"))
-    with pytest.raises(NotImplementedError):
+    # a process launched alone (no torchrun) asking for two ranks
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices"):
         trun.main(argv + ["--device", "cpu", "--mesh_data", "2"])
 
 

@@ -21,8 +21,8 @@ Parity contract:
   by ARI and ACC (the seeds differ: threefry against ``torch.Generator``,
   a decision on record in ROADMAP.md);
 - every rank returns the same results;
-- under a mesh of 2, the paths not ported over ranks raise
-  ``NotImplementedError``.
+- the paths that refused a mesh before they ran over ranks give what
+  they give now (see ``test_not_ported_paths_refuse_a_mesh_of_two``).
 """
 
 import dataclasses
@@ -122,6 +122,15 @@ def single(data):
     vals, idx = classify_topk(torch.from_numpy(data["feats"]),
                               torch.from_numpy(data["zw"]), TOPK)
     out["topk"] = (vals.numpy(), idx.numpy())
+    import importlib
+
+    # the one-process results of _refusals' estimate_k calls
+    ek = importlib.import_module("scd_tpu_torch.cluster.estimate_k")
+    x40, y40 = x[:40], y[:40]
+    out["estimate_k"] = ek.estimate_k(x40, y40, np.ones(40, bool), 2, 8,
+                                      device="cpu")
+    out["fit_kmeans_dynamic_k"] = ek.fit_kmeans_dynamic_k(
+        torch.Generator().manual_seed(0), x40, 2, 8, device="cpu")
     return out
 
 
@@ -292,11 +301,31 @@ def test_whole_runs_match_jax_mesh_by_ari_and_acc(worlds, data, jax_runs,
 @pytest.mark.parametrize("path", [
     "fit_constrained", "estimate_k", "fit_kmeans_dynamic_k",
     "make_gcd_state", "GCDTrainer", "train_uno_e2e", "train_autonovel_e2e"])
-def test_not_ported_paths_refuse_a_mesh_of_two(worlds, path):
-    """No path runs rank-alone: ConSSKM, estimate_k, GCD training and the
-    end-to-end baselines raise under a mesh of two ranks."""
+def test_not_ported_paths_refuse_a_mesh_of_two(worlds, single, path):
+    """The paths that refused a mesh of two ranks before they were ported
+    over ranks, each with what it gives now: the four trainers under a
+    mesh of ``data`` 1 x ``model`` 2 raise the tensor-parallel refusal
+    (tensor parallelism is not ported); ConSSKM's exact MCF backend over
+    the ``data`` axis raises the JAX package's RuntimeError; estimate_k
+    and the dynamic-K fit over it return the one-process result (labels
+    equal, inertia within 1e-5 relative: per-rank sums merged)."""
     for rank in worlds[2]:
-        assert rank["refusals"][path] == "NotImplementedError"
+        kind, got = rank["refusals"][path]
+        if path == "fit_constrained":
+            assert kind == "RuntimeError"
+            assert got.startswith("multi-controller fit_constrained supports "
+                                  "only the sinkhorn backend")
+        elif path == "estimate_k":
+            assert kind == ""
+            assert got[0] == single[path][0]
+            assert got[1] == pytest.approx(single[path][1], abs=1e-6)
+        elif path == "fit_kmeans_dynamic_k":
+            assert kind == ""
+            np.testing.assert_array_equal(got[0], single[path][0])
+            assert got[1] == pytest.approx(single[path][1], rel=1e-5)
+        else:
+            assert kind == "NotImplementedError"
+            assert "tensor parallelism" in got
 
 
 @pytest.mark.parametrize("n,m", [(0, 4), (1, 4), (8, 4), (13, 3), (401, 8)])

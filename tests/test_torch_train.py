@@ -486,7 +486,8 @@ def test_metric_learn_main_matches_jax_entry(tmp_path):
     with open(os.path.join(tres["ckpt"].directory, "manifest.json")) as f:
         manifest = json.load(f)
     assert manifest["steps"] == [0] and manifest["best_step"] == 0
-    with pytest.raises(NotImplementedError):
+    # a process launched alone (no torchrun) asking for two ranks
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices"):
         tml.main(ENTRY_ARGV + ["--device", "cpu", "--mesh_data", "2"])
 
 

@@ -38,10 +38,11 @@ Phases, each printing its own lines and seconds:
    and text) weights and a BPE merges file fabricated from the seed;
    ``run_unsup`` with empty caches extracts features through both image
    towers, builds the vocabulary through the text tower, then clusters,
-   names and votes.  8 images' features and 16 names' columns are held
+   names and votes.  8 images' features and 8 names' columns are held
    against the same computed on the CPU (plain versions, f32), one DINO
    pass with ``pad_seq_to=0`` over 256 images drives ``w8a8_prequant``
-   and is held against the CPU too, and the int8 features' cosine to the
+   and is held against the CPU on its first 32, and the int8 features'
+   cosine to the
    bf16 towers' is printed;
 5. timing at the main paths' shapes: each kernel, its plain version and a
    yardstick PyTorch call, beside the least time the card could take (for
@@ -86,8 +87,9 @@ Phases, each printing its own lines and seconds:
    [50, 1,200], n_init 10, max_iterations 10): every unlabelled cluster
    size within the bounds, its E-steps' count, seconds, dual iterations
    and MCF fallbacks printed.  Then the exact MCF track at full width
-   over the 97,536 unlabelled rows, cut to n_init 1 and max_iterations 1
-   (the host solver takes ~47 s an E-step at this shape), the solver's
+   over half the 97,536 unlabelled rows, cut to n_init 1 and
+   max_iterations 1 (the host solver takes ~47 s an E-step over all of
+   them), the solver's
    and the device step's seconds per iteration; the MCF track on the
    card and the CPU from one set of centers at 4,000 x 64, K 20 (rounded
    costs at most 1 apart on at most 0.1% of entries, labels equal on >=
@@ -208,7 +210,7 @@ Phases, each printing its own lines and seconds:
    fabricated 224 px images through DINO and CLIP ViT-B/16 (bf16, weights
    fabricated from the seed; batches of 128 split over the ranks),
    ``run_clustering`` (SSKM) on phase 3's features, the name-sharded
-   vocabulary build of 8,000 fabricated names x 80 templates, and
+   vocabulary build of 4,000 fabricated names x 80 templates, and
    ``classify_topk_sharded`` over V 68,000 split over the two ranks' model
    axis (N 97,536, D 512, k 5).  Each rank's features and vocabulary
    columns must reach a minimum cosine of MESH_COS against the
@@ -229,8 +231,9 @@ Phases, each printing its own lines and seconds:
    (130,048 x 768, K 100; n_init cut to 1), every cluster size within
    [50, 1200], no MCF fallback, ACC within MESH_CON_ACC and ARI >=
    MESH_CON_ARI against one process; ``estimate_k`` (Brent, each probe's
-   k-means cut to one restart) over phase 7's kind of features (max_k
-   1,000): the same K and the objective within MESH_EK_OBJ; three GCD
+   k-means cut to one restart) over 65,024 rows of phase 7's kind of
+   features (max_k 1,000): the same K and the objective within
+   MESH_EK_OBJ; three GCD
    steps of ViT-B/16 bf16 at 128 x 2 views: each loss within
    MESH_GCD_RTOL, the trainable parameters at cosine >=
    MESH_GCD_COS after the last step, the two ranks' parameters bitwise
@@ -241,6 +244,32 @@ Phases, each printing its own lines and seconds:
    iterations, ``fused_em_step`` and attention launches (counts set to 0
    before each stage) and the augmentation's seconds a batch are printed
    beside the card's name and power limit.
+15. tensor parallelism in the trainers (``testing/mesh_cases.py::
+   tp_cases``; gloo ranks sharing the card, the one-process references at
+   world size 1 over NCCL): first each kernel of the path against its
+   plain version at a rank's shard shapes (attention and its gradient at
+   6 heads a rank, bf16 and f32; ``w8a8_fusedq`` at the qkv and fc1
+   column shards, F 1,152 and 1,536); (a) GCD at ``data`` 1 x ``model``
+   2, ViT-B/16 bf16, TP_GCD_IMAGES x 2 views, TP_GCD_STEPS steps, and
+   (a32) the same at f32 compute, TP_GCD32_STEPS steps: each loss within
+   MESH_GCD_RTOL, after the last step the gathered trainable parameters
+   at cosine >= MESH_GCD_COS (f32: each parameter; bf16: the whole update
+   and the worst parameter within TP_NOISE x the noise floor of one
+   process whose proj / fc2 products round otherwise, for the reason at
+   TP_GCD_IMAGES), the ranks'
+   gathered parameters bitwise equal after each step (the replicated
+   ones are each rank's own), each rank holding exactly half the one
+   process's bytes of tensor-parallel parameters; (b) UNO (2 steps) and
+   AutoNovel (1 step)
+   at ViT-B/16 f32, TP_E2E_IMAGES x 2 views: losses within MESH_E2E_RTOL,
+   the best head equal, the ranks' predictions equal; (c) one GCD step
+   on a 2 x 2 mesh (4 ranks) at full width, depth 2, under
+   ``--int8_frozen``, with (a)'s gates; before the worlds, fc2's bf16
+   product at (a)'s rows as one GEMM and as two f32 partial sums (the
+   share of elements apart printed); (d)
+   ``graft_entry.dryrun_multichip(8)`` on the card.  Each rank's ms a
+   step, bytes and launches are printed beside the card's name and power
+   limit.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -261,7 +290,9 @@ attention is plain XLA), with the ``mma.sync`` kernel's launches in phase
 12's prefix build and times at its first shape.  Phase 14's rank 0 adds
 its launches: ``fused_em_step`` in its ``estimate_k`` search, the
 attention and its gradient in its GCD steps, their f32 kernels in its
-end-to-end trainers.
+end-to-end trainers; so does phase 15's rank 0 (the attention and its
+gradient in (a) and (c), ``w8a8_fusedq`` in (c), the f32 kernels in
+(b)).
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 13 (each rank's) and
@@ -302,9 +333,13 @@ TOPK = 5
 # the cold path: images, vocabulary, extraction batch, padded ViT sequence
 COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
 # the zero-shot columns the cold path holds against the CPU's text tower
-# (80 prompts each through f32 CLIP on the CPU): 16, cut from 64, whose
-# 5,120 prompts took ~240 s of a ~880 s smoke on an H100's host
-COLD_CPU_COLUMNS = 16
+# (80 prompts each through f32 CLIP on the CPU): 8, cut from 64, whose
+# 5,120 prompts took ~240 s of a ~880 s smoke on an H100's host (16 took
+# 57.1 s with the 8 images' features, and the unpadded DINO pass's 256
+# images 50.0 s, on an H100 host whose smoke ran 1,197.6 s: the CPU side
+# of that pass holds its first COLD_CPU_PAD0_IMAGES)
+COLD_CPU_COLUMNS = 8
+COLD_CPU_PAD0_IMAGES = 32
 # a ViT-B/16 tower at image 256: 16 x 16 patches + class token
 IMAGE_LONG, L_257 = 256, 257
 # a GCD training step's batch: 2 views x 128 images
@@ -1532,14 +1567,16 @@ def phase_cold(seed: int, workdir: str):
           f"the unpadded tower did not run w8a8_prequant alone: {pad0}")
     t0 = time.perf_counter()
     _, cpu_dino0 = _towers(cfg, "cpu", torch.float32, True, pad_seq_to=0)
+    n0 = COLD_CPU_PAD0_IMAGES
     with torch.inference_mode():
-        ref0 = cpu_dino0(device_normalize_clip(torch.from_numpy(images)))
-    cos0 = _row_cos(f0.float().cpu(), ref0).min().item()
+        ref0 = cpu_dino0(device_normalize_clip(torch.from_numpy(images[:n0])))
+    cos0 = _row_cos(f0[:n0].float().cpu(), ref0).min().item()
     cos_pad = _row_cos(f0.float().cpu(), feats["all_feats"][:256]).min(
     ).item()
-    print(f"pad_seq_to=0 DINO (w8a8_prequant) vs CPU, min cosine over 256 "
-          f"images: {cos0:.6f} ({time.perf_counter() - t0:.1f} s on the "
-          f"CPU); vs the padded tower's cached features: {cos_pad:.6f}")
+    print(f"pad_seq_to=0 DINO (w8a8_prequant) vs CPU, min cosine over the "
+          f"first {n0} images: {cos0:.6f} ({time.perf_counter() - t0:.1f} s "
+          f"on the CPU); vs the padded tower's cached features over 256: "
+          f"{cos_pad:.6f}")
     check(cos0 >= TOWER_COS_TOL, "pad_seq_to=0 DINO: card disagrees with CPU")
     del dino0, cpu_dino0, cpu_clip, cpu_dino
 
@@ -2138,25 +2175,26 @@ def phase_serving(seed: int, workdir: str):
 
 # ------------------------------------------------------------- phase 7
 
-def write_features_packed(seed: int, path: str) -> str:
+def write_features_packed(seed: int, path: str, n: int = None) -> str:
     """Fabricated, L2-normalised ImageNet-100-scale features in the
-    runners' and ``estimate_k``'s ``features_packed.npz`` layout:
-    RUNNER_N rows, 768-d, 100 classes, the first 50 old, half their rows
-    labelled (``prop_train_labels`` 0.5)."""
+    runners' and ``estimate_k``'s ``features_packed.npz`` layout: ``n``
+    rows (RUNNER_N when None), 768-d, 100 classes, the first 50 old, half
+    their rows labelled (``prop_train_labels`` 0.5)."""
     import numpy as np
     import torch
 
     t0 = time.perf_counter()
+    n = RUNNER_N if n is None else n
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     cls = 3.0 * torch.randn(K, D_FEAT, generator=g, device="cuda")
-    targets = torch.randint(0, K, (RUNNER_N,), generator=g, device="cuda")
-    x = _unit(cls[targets] + 0.5 * torch.randn(RUNNER_N, D_FEAT, generator=g,
+    targets = torch.randint(0, K, (n,), generator=g, device="cuda")
+    x = _unit(cls[targets] + 0.5 * torch.randn(n, D_FEAT, generator=g,
                                                device="cuda"), 1)
-    lab = (targets < K // 2) & (torch.rand(RUNNER_N, generator=g,
+    lab = (targets < K // 2) & (torch.rand(n, generator=g,
                                            device="cuda") < 0.5)
     np.savez(path, features=x.cpu().numpy(), targets=targets.cpu().numpy(),
              mask_lab=lab.cpu().numpy())
-    print(f"fabricated N={RUNNER_N} D={D_FEAT} features of {K} classes in "
+    print(f"fabricated N={n} D={D_FEAT} features of {K} classes in "
           f"{time.perf_counter() - t0:.1f} s")
     return path
 
@@ -2196,6 +2234,7 @@ def phase_runners(seed: int, workdir: str):
 # main_unsup.py:219-220) at ImageNet-100 scale; on the small root, bounds
 # its ~3,000 unlabelled rows over 100 clusters can meet
 SIZE_MIN, SIZE_MAX, SMALL_SIZE_MIN, SMALL_SIZE_MAX = 50, 1_200, 5, 100
+MCF_ROWS = (N_IMAGES - 32_512) // 2  # the MCF track's unlabelled rows
 # the ptsup commands of scripts/smoke_all.sh (ConSSKM) and
 # scripts/evaluate_partial_supervised.sh (SSKM), asset-free
 SMOKE_PTSUP = ["--dataset_name", "synthetic", "--cluster", "ConSSKM",
@@ -2344,10 +2383,11 @@ def sinkhorn_estep_profile(cfg, size_min, size_max):
     return wall, (busy or None), iters, top
 
 
-def mcf_full_width(cfg, device, size_min, size_max, n_init=1, max_iter=1):
+def mcf_full_width(cfg, device, size_min, size_max, n_init=1, max_iter=1,
+                   rows=None):
     """``fit_constrained`` on the exact track over the root's clustering
-    features (all unlabelled rows, the labelled ones pinned).  Returns
-    (result, counts, seconds)."""
+    features (the first ``rows`` unlabelled rows, all when None; the
+    labelled ones pinned).  Returns (result, counts, seconds)."""
     import numpy as np
 
     from scd_tpu_torch.cluster.constrained import fit_constrained
@@ -2362,7 +2402,8 @@ def mcf_full_width(cfg, device, size_min, size_max, n_init=1, max_iter=1):
                          size_max=size_max, constrained_backend="mcf")
     _reset_constrained()
     t0 = time.perf_counter()
-    res = fit_constrained(x[~lab], x[lab], t[lab], ccfg, device=device)
+    res = fit_constrained(x[~lab][:rows], x[lab], t[lab], ccfg,
+                          device=device)
     wall = time.perf_counter() - t0
     sizes = np.bincount(res.labels[int(lab.sum()):],
                         minlength=ccfg.n_clusters)
@@ -2494,14 +2535,16 @@ def phase_ptsup(seed: int, cfg, workdir: str):
     for name, ms, count in top:
         print(f"  {ms:.2f} ms in {count} launches of {name}")
 
-    # cut: n_init 1, max_iterations 1 (the host solver took 47.2 s an
-    # E-step at this shape on an H100's host; one keeps the smoke, phase
-    # 14 included, inside its time)
+    # cut: n_init 1, max_iterations 1, half the unlabelled rows (the host
+    # solver took 47.2 s an E-step over all of them on an H100's host,
+    # 76.0 s on a slower H100 host; this keeps the smoke, phases 14-15
+    # included, inside its time)
     t0 = time.perf_counter()
-    res, counts, wall = mcf_full_width(cfg, "cuda", SIZE_MIN, SIZE_MAX)
+    res, counts, wall = mcf_full_width(cfg, "cuda", SIZE_MIN, SIZE_MAX,
+                                       rows=MCF_ROWS)
     it = max(counts["mcf_iterations"], 1)
     sizes = np.bincount(res.labels[32_512:], minlength=K)
-    print(f"ConSSKM (MCF track) N={N_IMAGES - 32_512} D={D_FEAT} K={K}, "
+    print(f"ConSSKM (MCF track) N={MCF_ROWS} D={D_FEAT} K={K}, "
           f"n_init 1, max_iterations 1: {counts['mcf_iterations']} "
           f"iterations, solver {counts['mcf_seconds'][0] / it:.3f} s and "
           f"device step {counts['mcf_seconds'][1] / it:.4f} s per iteration "
@@ -4308,7 +4351,7 @@ KERNELS = [
 # unlabelled CLIP rows against its V = 68,000 matrix
 MESH_IMAGES = 4_096
 MESH_BATCH = 128
-MESH_NAMES = 8_000
+MESH_NAMES = 4_000
 MESH_TOPK_ROWS = 97_536
 MESH_K = 5
 # its gates, with their reasons:
@@ -4461,7 +4504,7 @@ def phase_mesh(seed: int, cfg, workdir: str):
 #   iterations of one Sinkhorn E-step; 3 restarts took 38.6 s a rank at
 #   world size 2 on an H100, ~200 dual iterations an E-step, each with two
 #   gloo collectives staged through the host)
-# - estimate_k: phase 7's kind of features (RUNNER_N x D_FEAT), max_k
+# - estimate_k: phase 7's kind of features (MESH_EK_ROWS x D_FEAT), max_k
 #   MAX_K, the CLI's Brent search from MIN_K, each probe's k-means cut to
 #   MESH_EK_N_INIT restart of the objective's 3: with 3, the search took
 #   140.2 s a rank at world size 2 (22.5 s in one process) and the phase
@@ -4479,6 +4522,9 @@ def phase_mesh(seed: int, cfg, workdir: str):
 #   its augmentation timed alone
 MESH_CON_N_INIT = 1
 MESH_EK_METHOD, MESH_EK_N_INIT = "brent", 1
+# estimate_k's rows, cut from RUNNER_N (the search took 42.6 s a rank over
+# all of them on an H100 host whose smoke ran 1,197.6 s)
+MESH_EK_ROWS = 65_024
 MESH_GCD_STEPS = 3
 MESH_ML_IMAGES, MESH_AUG_STEPS = 1_000, 3
 # its gates, with their reasons:
@@ -4523,7 +4569,8 @@ def _mesh_training_spec(seed, cfg, workdir):
     return {
         "cfg": con, "seed": seed,
         "estimate_k": {"path": write_features_packed(
-            seed, os.path.join(workdir, "features_packed.npz")),
+            seed, os.path.join(workdir, "features_packed.npz"),
+            n=MESH_EK_ROWS),
             "min_k": MIN_K, "max_k": MAX_K, "method": MESH_EK_METHOD,
             "n_init": MESH_EK_N_INIT},
         "gcd": {"vit": dict(vit, compute_dtype=torch.bfloat16),
@@ -4717,6 +4764,289 @@ def phase_mesh_training(seed: int, cfg, workdir: str):
                                      for m in e)}
 
 
+# ------------------------------------------------------------- phase 15
+
+# the tensor-parallel phase's sizes (gloo ranks sharing the card move
+# every model-group collective through the host, ~0.4-0.5 GB/s on an
+# H100 host in phase 14, so the batches are small):
+#   (a) GCD at data 1 x model 2, ViT-B/16 bf16 at 224, grad_from_block
+#       11, TP_GCD_IMAGES images x 2 views a step, TP_GCD_STEPS steps;
+#   (b) UNO (2 steps) and AutoNovel (1 step) at ViT-B/16 f32,
+#       TP_E2E_IMAGES images x 2 views;
+#   (c) one GCD step on a 2 x 2 mesh (4 ranks) at full width, depth
+#       TP_MESH_DEPTH, under --int8_frozen (block 0 frozen: the fused W8A8
+#       kernel at the column shards, F 1,152 and 1,536), TP_MESH_IMAGES
+#       images x 2 views;
+#   (a32) (a) at f32 compute, TP_GCD32_STEPS steps;
+#   (d) dryrun_multichip over TP_DRYRUN_RANKS ranks.
+# The weights come from mesh_cases.quick_init_ (flax_init_'s truncated
+# normals take ~15 s a ViT-B/16 on the host, in every rank).  Gates, all
+# against the one process: phase 14's, MESH_GCD_RTOL on every loss, and
+# for UNO and AutoNovel MESH_E2E_RTOL and the best head.  Parameters: in
+# f32, (a32), phase 14's gate as it stands, every trainable parameter at
+# cosine >= MESH_GCD_COS.  In bf16, (a) and (c): a row-parallel layer's
+# output is an f32 sum in another order than one process's GEMM, so some
+# of its bf16 elements round 1 ulp apart (tp_parity prints the share at
+# fc2's shape; the column shards are bit-equal), and three steps of this
+# loss carry that into the updates.  So the one process runs once more
+# with only those roundings changed (mesh_cases' exact_rows: proj / fc2
+# from f32 sums, rounded once), and the ranks' distance to the one
+# process, 1 - cosine of the whole update (every trainable parameter's,
+# as one vector) and of the worst parameter, may be at most TP_NOISE times
+# that noise floor (twice its angle), or phase 14's 1 - MESH_GCD_COS
+# where the floor is below it.
+TP_GCD_IMAGES, TP_GCD_STEPS, TP_GCD32_STEPS = 32, 3, 2
+TP_NOISE = 4.0
+TP_E2E_IMAGES = 16
+TP_MESH_IMAGES, TP_MESH_DEPTH = 16, 2
+TP_DRYRUN_RANKS = 8
+TP_DEADLINE = 600
+
+
+def _tp_specs(seed):
+    """What ``testing/mesh_cases.py::tp_cases`` runs in each world: (a)
+    and (a32) by name, (c), and (b) as the e2e spec."""
+    import torch
+
+    vit = dict(image_size=224, patch_size=16, width=768, depth=12, heads=12)
+    train = dict(lr=0.1, sup_con_weight=0.35, n_views=TRAIN_VIEWS,
+                 proj_dim=PROJ_DIM)
+    gcd = {"vit": dict(vit, compute_dtype=torch.bfloat16),
+           "train": dict(train, grad_from_block=GRAD_FROM_BLOCK,
+                         batch_size=TP_GCD_IMAGES),
+           "total_steps": 20, "global_batch": TP_GCD_IMAGES,
+           "steps": TP_GCD_STEPS, "seed": seed, "image_size": 224,
+           "views": TRAIN_VIEWS, "return_params": True, "quick_init": True}
+    mesh22 = dict(gcd, vit=dict(gcd["vit"], depth=TP_MESH_DEPTH),
+                  train=dict(train, grad_from_block=1, int8_frozen=True,
+                             batch_size=TP_MESH_IMAGES),
+                  global_batch=TP_MESH_IMAGES, steps=1, seed=seed + 7)
+    gcd32 = dict(gcd, vit=dict(gcd["vit"], compute_dtype=torch.float32),
+                 steps=TP_GCD32_STEPS)
+    e2e = {"vit": vit, "images": TP_E2E_IMAGES, "seed": seed + 5,
+           "n_labeled": BASELINE_LABELED, "num_heads": 4,
+           "overcluster_factor": 3, "quick_init": True,
+           "kw": {"uno": dict(epochs=2, batch_size=TP_E2E_IMAGES),
+                  "autonovel": dict(epochs=1, batch_size=TP_E2E_IMAGES)}}
+    return {"a": gcd, "a32": gcd32}, mesh22, e2e
+
+
+def tp_parity(seed):
+    """Each kernel of the tensor-parallel path against its plain version
+    at a rank's shard shapes: attention and its gradient at 6 heads a rank
+    (bf16 at (a)'s 64 views, f32 at (b)'s 32), the fused W8A8 at (c)'s
+    rows (16 views x 208) and the qkv / fc1 column shards (F 1,152 and
+    1,536, not multiples of 256).  Returns {name: max abs err}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    heads, d = 6, 64
+    errs = {}
+    for dtype, b in ((torch.bfloat16, 2 * TP_GCD_IMAGES),
+                     (torch.float32, 2 * TP_E2E_IMAGES)):
+        tag = f"tp shard, {heads} heads a rank"
+        errs[f"attention {dtype}"] = attention_parity(
+            b, 197, heads, d, dtype, gen, tag=tag)
+        errs[f"attention_bwd {dtype}"] = attention_bwd_parity(
+            b, 197, heads, d, dtype, gen, tag=tag)
+    rows = TP_MESH_IMAGES // 2 * TRAIN_VIEWS * 208  # a data rank's, L 208
+    for f, what in ((3 * 768 // 2, "qkv"), (4 * 768 // 2, "fc1")):
+        errs[f"w8a8_fusedq {what}"] = fusedq_parity(
+            rows, 768, f, None, torch.bfloat16, gen, f"tp {what} shard")
+    # the bf16 layers at (a)'s rows: one process's GEMM against the shards'
+    n = 2 * TP_GCD_IMAGES * 197
+    x = torch.randn(n, 768, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(2304, 768, generator=gen, device="cuda")
+         * 768 ** -0.5).bfloat16()
+    h = torch.randn(n, 3072, generator=gen, device="cuda").bfloat16()
+    w2 = (torch.randn(768, 3072, generator=gen, device="cuda")
+          * 3072 ** -0.5).bfloat16()
+    lin = torch.nn.functional.linear
+    cols = torch.equal(lin(x, w)[:, :1152], lin(x, w[:1152]))
+    rows_tp = (lin(h[:, :1536].float(), w2[:, :1536].float())
+               + lin(h[:, 1536:].float(), w2[:, 1536:].float())).bfloat16()
+    apart = (lin(h, w2) != rows_tp).float().mean().item()
+    print(f"  bf16 at N {n}: qkv's column shard bit-equal to one process's "
+          f"columns {cols}; fc2's two f32 partial sums rounded once against "
+          f"one process's GEMM: {100 * apart:.3f}% of the elements apart")
+    check(cols, "a column shard's bf16 product differs from one process's")
+    return errs
+
+
+def _param_cosines(p, p_ref, p0):
+    """(the worst parameter, its cosine, the cosine of the whole update)
+    of trained parameters ``p`` against ``p_ref``, both from ``p0``."""
+    import numpy as np
+
+    cos = {k: _cos64(p[k], p_ref[k]) for k in p}
+    worst = min(cos, key=cos.get)
+    keys = sorted(p)
+    whole = _cos64(np.concatenate([(p[k] - p0[k]).ravel() for k in keys]),
+                   np.concatenate([(p_ref[k] - p0[k]).ravel() for k in keys]))
+    return worst, cos[worst], whole
+
+
+def tp_checks(ref, w2, w4):
+    """Hold phase 15's ranks against the one process (raises on a failed
+    gate); returns the figures to print."""
+    import numpy as np
+
+    out = {}
+    for case, ranks in (("a", w2), ("a32", w2), ("c", w4)):
+        want = ref["steps"][case]
+        for r, got in enumerate(ranks):
+            g = got["steps"][case]
+            rel = max(abs(x - y) / abs(y)
+                      for x, y in zip(g["losses"], want["losses"]))
+            out[f"{case}_loss_rel_rank{r}"] = rel
+            check(rel <= MESH_GCD_RTOL,
+                  f"({case}) rank {r}: GCD losses {g['losses']} against "
+                  f"{want['losses']}")
+            check(g["digests"] == ranks[0]["steps"][case]["digests"],
+                  f"({case}) rank {r}: the ranks' gathered parameters "
+                  "differ (a replicated parameter is not bitwise equal)")
+            check(g["launches"]["attention"] > 0
+                  and g["launches"]["attention_bwd"] > 0,
+                  f"({case}) rank {r}: launches {g['launches']}")
+        p, p_ref = ranks[0]["steps"][case]["params"], want["params"]
+        check(set(p) == set(p_ref), f"({case}) the trainable sets differ")
+        check(all(np.array_equal(ranks[0]["steps"][case]["params0"][k],
+                                 want["params0"][k]) for k in p),
+              f"({case}) the initial parameters differ")
+        p0 = want["params0"]
+        worst, cos, whole = _param_cosines(p, p_ref, p0)
+        out[f"{case}_param_cos_min"] = [worst, cos]
+        out[f"{case}_update_cos_whole"] = whole
+        if case == "a32":  # phase 14's gate as it stands
+            check(cos >= MESH_GCD_COS,
+                  f"({case}) {worst} at cosine {cos} to one process")
+            continue
+        floor = ref["steps"][f"{case}_exact"]
+        f_worst, f_cos, f_whole = _param_cosines(floor["params"], p_ref, p0)
+        out[f"{case}_floor_param_cos_min"] = [f_worst, f_cos]
+        out[f"{case}_floor_update_cos_whole"] = f_whole
+        for what, got, base in (("whole update", whole, f_whole),
+                                (f"worst parameter ({worst})", cos, f_cos)):
+            bound = max(1 - MESH_GCD_COS, TP_NOISE * (1 - base))
+            check(1 - got <= bound,
+                  f"({case}) {what} at cosine {got} to one process: beyond "
+                  f"{TP_NOISE} x the floor (one process with exact rows at "
+                  f"{base})")
+    for r, got in enumerate(w2):
+        bytes_ = got["steps"]["a"]["tp_bytes"]
+        check(2 * bytes_ == ref["steps"]["a"]["tp_bytes"],
+              f"(a) rank {r} holds {bytes_} bytes of tensor-parallel "
+              f"parameters against one process's "
+              f"{ref['steps']['a']['tp_bytes']}")
+    check(all(g["steps"]["c"]["launches"]["w8a8_fusedq"] > 0 for g in w4),
+          "(c) the fused W8A8 kernel never launched on a rank")
+    for method in ("uno", "autonovel"):
+        want = ref["e2e"][method]
+        for r, got in enumerate(w2):
+            e = got["e2e"][method]
+            rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b
+                      in zip(e["history"], want["history"]))
+            out[f"{method}_loss_rel_rank{r}"] = rel
+            check(rel <= MESH_E2E_RTOL
+                  and len(e["history"]) == len(want["history"]),
+                  f"(b) rank {r}: {method} losses {e['history']} against "
+                  f"{want['history']}")
+            check(e["best_head"] == want["best_head"],
+                  f"(b) rank {r}: {method} best head {e['best_head']} "
+                  f"against {want['best_head']}")
+            check(all(v > 0 for v in e["launches"].values()),
+                  f"(b) rank {r}: {method} launches {e['launches']}")
+            check(np.array_equal(e["preds"], w2[0]["e2e"][method]["preds"]),
+                  f"(b) rank {r}: {method} predictions differ between "
+                  "the ranks")
+    return out
+
+
+def phase_tensor_parallel(seed: int):
+    """Phase 15: tensor parallelism in the trainers (gloo ranks sharing
+    the card; the one-process references in this process, a world of one
+    over NCCL) and ``graft_entry.dryrun_multichip``; returns rank 0's
+    launches."""
+    from scd_tpu_torch.core import multihost
+    from scd_tpu_torch.graft_entry import dryrun_multichip
+    from scd_tpu_torch.testing.dist import spawn
+    from scd_tpu_torch.testing.mesh_cases import tp_cases
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"kernels at a rank's shard shapes ({smi}):")
+    tp_parity(seed)
+    gcd, mesh22, e2e = _tp_specs(seed)
+    fn = "scd_tpu_torch.testing.mesh_cases.tp_cases"
+    kw = dict(device="cuda", timeout=TP_DEADLINE, threads=0)
+    t0 = time.perf_counter()
+    floors = {f"{k}_exact": dict(v, exact_rows=True)
+              for k, v in (("a", gcd["a"]), ("c", mesh22))}
+    with tempfile.TemporaryDirectory() as store:
+        multihost.initialize(init_method=f"file://{store}/store",
+                             world_size=1, rank=0, backend="nccl",
+                             device="cuda")
+        try:
+            ref = tp_cases({"model": 2, "steps": dict(gcd, c=mesh22,
+                                                      **floors),
+                            "e2e": e2e})
+        finally:
+            multihost.shutdown()
+    t1 = time.perf_counter()
+    w2 = spawn(fn, world=2, backend="gloo", args=(
+        {"model": 2, "steps": gcd, "e2e": e2e},), **kw)
+    t2 = time.perf_counter()
+    w4 = spawn(fn, world=4, backend="gloo", args=(
+        {"model": 2, "steps": {"c": mesh22}},), **kw)
+    t3 = time.perf_counter()
+    one = ref["steps"]["a"]
+    for name, got in [("one process", ref)] + [
+            (f"data 1 x model 2 rank {r}", g) for r, g in enumerate(w2)]:
+        for case in ("a", "a32"):
+            a = got["steps"][case]
+            print(f"({case}) GCD, {name} ({smi}): "
+                  + ", ".join(f"{1e3 * x:.1f}" for x in a["seconds"])
+                  + " ms a step (one process "
+                  + ", ".join(f"{1e3 * x:.1f}"
+                              for x in ref["steps"][case]["seconds"])
+                  + f"), losses {a['losses']}, tensor-parallel parameters "
+                  f"{a['tp_bytes']} bytes (one process {one['tp_bytes']}), "
+                  f"launches {json.dumps(a['launches'])}")
+        for method, e in got["e2e"].items():
+            print(f"(b) {method}, {name} ({smi}): {e['seconds']:.3f} s, "
+                  f"losses {[h['loss'] for h in e['history']]}, best head "
+                  f"{e['best_head']}, launches {json.dumps(e['launches'])}")
+    for name, got in [("one process", ref)] + [
+            (f"data 2 x model 2 rank {r}", g) for r, g in enumerate(w4)]:
+        c = got["steps"]["c"]
+        print(f"(c) GCD --int8_frozen depth {TP_MESH_DEPTH}, {name} "
+              f"({smi}): {1e3 * c['seconds'][0]:.1f} ms, losses "
+              f"{c['losses']}, launches {json.dumps(c['launches'])}")
+    metrics = tp_checks(ref, w2, w4)
+    print(f"phase 15 against one process: {json.dumps(metrics)}")
+    t4 = time.perf_counter()
+    line = dryrun_multichip(TP_DRYRUN_RANKS, device="cuda",
+                            timeout=TP_DEADLINE)
+    check(line.startswith("dryrun_multichip ok: mesh={'data': "
+                          f"{TP_DRYRUN_RANKS // 2}, 'model': 2}}"),
+          f"dryrun_multichip: {line}")
+    print(f"phase 15 calls: one process {t1 - t0:.1f} s, data 1 x model 2 "
+          f"{t2 - t1:.1f} s, data 2 x model 2 {t3 - t2:.1f} s, "
+          f"dryrun_multichip({TP_DRYRUN_RANKS}) "
+          f"{time.perf_counter() - t4:.1f} s")
+    a, c = w2[0]["steps"]["a"]["launches"], w4[0]["steps"]["c"]["launches"]
+    a32, e = w2[0]["steps"]["a32"]["launches"], w2[0]["e2e"]
+    return {"attention": a["attention"] + c["attention"],
+            "attention_bwd": a["attention_bwd"] + c["attention_bwd"],
+            "w8a8_fusedq": c["w8a8_fusedq"],
+            "attention_f32": a32["attention_f32"] + sum(
+                e[m]["launches"]["attention_f32"] for m in e),
+            "attention_bwd_f32": a32["attention_bwd_f32"] + sum(
+                e[m]["launches"]["attention_bwd_f32"] for m in e)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4837,7 +5167,15 @@ def main(argv=None) -> int:
     for key, n in train_mesh.items():
         launches[key] += n
     print(f"launches in phase 14's rank 0: {json.dumps(train_mesh)}")
-    print(f"phase 14 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 14 {time.perf_counter() - t0:.1f} s")
+    section("phase 15: tensor parallelism in the trainers (gloo ranks "
+            "sharing the card) and graft_entry.dryrun_multichip")
+    t0 = time.perf_counter()
+    tp_launches = phase_tensor_parallel(args.seed)
+    for key, n in tp_launches.items():
+        launches[key] += n
+    print(f"launches in phase 15's rank 0: {json.dumps(tp_launches)}")
+    print(f"phase 15 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

@@ -5,20 +5,23 @@ package:
 
 - ``data``: shards instance rows (images, feature vectors, vocabulary
   names);
-- ``model``: shards wide columns (the vocabulary axis of [D, V]).
+- ``model``: shards wide columns (the vocabulary axis of [D, V]) and,
+  in the trainers, the tensor-parallel layers (``models/params.py::
+  tp_layout``: qkv and fc1 by columns, proj and fc2 by rows).
 
 One rank per device (``core/multihost.py``), so the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` of the world's ranks laid out
 data-major; :class:`MeshContext` exposes each axis's size, this rank's
 index on it, its process group and the global ranks in it.  Cross-rank
 reductions (EM sums, k-means++ potentials, top-k merges) are explicit
-collectives over one axis's group.
+collectives over one axis's group; :func:`model_group` is what a
+tensor-parallel layer carries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -146,17 +149,37 @@ def refuse_mesh(mesh, what: str, later: str) -> None:
             "mesh=None or on one rank")
 
 
-def data_parallel(mesh, what: str) -> Optional[MeshContext]:
-    """The mesh a data-parallel trainer runs over: None for no mesh or a
-    mesh of one rank (the single-device path), else ``mesh``.  A ``model``
-    axis above 1 (tensor parallelism) raises through :func:`refuse_mesh`:
-    it is the next slice."""
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """What a tensor-parallel layer carries: the process group of this
+    rank's ``model`` axis, its size and this rank's index on it."""
+
+    group: Any
+    size: int
+    index: int
+
+
+def train_mesh(mesh) -> Optional[MeshContext]:
+    """The mesh a trainer runs over, at any ``data x model``: None for no
+    mesh or a mesh of one rank (the single-device path), else ``mesh``."""
     mesh = check_mesh(mesh)
-    if mesh is not None and mesh.n_model > 1:
-        refuse_mesh(mesh, f"{what} with a 'model' axis of {mesh.n_model} "
-                    "(tensor parallelism)", "tensor parallelism, the next "
-                    "slice")
     return None if single_rank(mesh) else mesh
+
+
+def data_mesh(mesh) -> Optional[MeshContext]:
+    """``mesh`` when its ``data`` axis has more than one rank, else None:
+    the data-parallel collectives (row gathers, the gradient
+    ``all_reduce``) run over that axis only, and ranks that differ only
+    on the ``model`` axis hold the same rows."""
+    return mesh if mesh is not None and mesh.n_data > 1 else None
+
+
+def model_group(mesh) -> Optional[ModelGroup]:
+    """The tensor-parallel context of ``mesh``'s ``model`` axis, None
+    without a mesh or at a ``model`` axis of one rank."""
+    if mesh is None or mesh.n_model == 1:
+        return None
+    return ModelGroup(mesh.model_group, mesh.n_model, mesh.model_index)
 
 
 def pad_to_multiple(n: int, m: int) -> int:

@@ -18,9 +18,11 @@ always what the JAX package calls multi-controller:
 ``nccl`` there and ``gloo`` on the CPU; ``backend="gloo"`` on a card runs
 several ranks on one device.  The only collectives are ``all_reduce``,
 ``all_gather`` (the list form), ``broadcast`` and ``barrier``, and what
-is built on them for data-parallel training: ``all_gather_rows`` (a
-gather whose backward keeps this rank's slice) and ``all_reduce_grads``
-(every gradient in one packed ``all_reduce``); under gloo a CUDA tensor
+is built on them for training: ``all_gather_rows`` (a gather whose
+backward keeps this rank's slice), ``all_reduce_grads`` (every gradient
+in one packed ``all_reduce``), and the tensor-parallel pair
+``copy_to_model`` / ``reduce_from_model`` over a ``model`` group
+(``models/vit.py``); under gloo a CUDA tensor
 is staged through host memory, under nccl a host tensor through the
 rank's card.
 """
@@ -201,6 +203,48 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     gradients each rank accumulates are its own rows' contribution, and
     :func:`all_reduce_grads` sums them into the one-process gradient."""
     return _GatherRows.apply(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous(), group=ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous(), group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel layer (Megatron's pair, with
+    :func:`reduce_from_model`): ``x`` itself forward, replicated over the
+    ``model`` group; backward, the gradient each rank's column shard
+    sends back is summed over ``group``, so every rank holds the
+    gradient of the whole layer."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The output of a row-parallel layer: the ranks' partial products
+    summed over the ``model`` group forward (every rank the same bits);
+    backward, the gradient passes as it is, since each rank's partial
+    entered the sum once."""
+    return _ReduceFromModel.apply(x, group)
 
 
 def all_reduce_grads(params, group=None) -> None:

@@ -43,6 +43,15 @@ its gradient from ``csrc/attention_bwd.cu`` through
 needs a gradient in ``torch.utils.checkpoint`` (``nn.remat(Block)``); the
 int8 layers are for frozen blocks only (``dense_int8_until``), as
 quantization has no gradient.
+
+Tensor parallelism (``tp``, a ``core.mesh.ModelGroup``; the trainers
+under a ``model`` mesh axis, Megatron's layout): qkv and fc1 are
+column-parallel (``copy_to_model`` on the input; under ``dense_int8``
+the :class:`Int8Dense` sites too, whose per-row scales are those of the
+whole row, since x is replicated), proj and fc2 row-parallel
+(``reduce_from_model`` on the partial product, the bias added once
+after it).  Each rank attends over its own ``H / tp`` heads.  The text
+tower has no ``tp``: nothing trains it.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from scd_tpu_torch.core.multihost import copy_to_model, reduce_from_model
 from scd_tpu_torch.ops import w8a8
 from scd_tpu_torch.ops.attention import (_heads, prefix_attention,
                                          qkv_attention)
@@ -148,15 +158,67 @@ class Dense(nn.Module):
         self.bias = _param(features, device=device)
         self.compute_dtype = compute_dtype
         self._w = _CastCache(lambda p, dt: p.to(dt).t())
+        self._w32 = _CastCache(lambda p, dt: p.to(dt).float().t())
         self._b = _CastCache(lambda p, dt: p.to(dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if _in_graph(self.kernel):
             return F.linear(x.to(dt), self.kernel.to(dt).t(),
-                            self.bias.to(dt))
+                            self.cast_bias())
         return F.linear(x.to(dt), self._w.get(self.kernel, dt),
-                        self._b.get(self.bias, dt))
+                        self.cast_bias())
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ kernel`` without the bias, from the operands cast to the
+        compute dtype, summed and returned in f32 (a row-parallel shard's
+        partial, :func:`row_parallel`): the products of bf16 operands are
+        exact in f32, so the output is rounded to the compute dtype once,
+        after the sum over the ranks, as one process's ``forward``
+        rounds its f32 accumulator once."""
+        dt = self.compute_dtype
+        if _in_graph(self.kernel):
+            w = self.kernel.to(dt).float().t()
+        else:
+            w = self._w32.get(self.kernel, dt)
+        return F.linear(x.to(dt).float(), w)
+
+    def cast_bias(self) -> torch.Tensor:
+        """The bias at the compute dtype (in the graph when it trains)."""
+        dt = self.compute_dtype
+        if _in_graph(self.bias):
+            return self.bias.to(dt)
+        return self._b.get(self.bias, dt)
+
+
+def column_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a column-parallel layer (qkv, fc1) under ``tp`` (a
+    ``core.mesh.ModelGroup``, or None): ``core.multihost.copy_to_model``,
+    whose backward sums the input gradient over the ``model`` group."""
+    return x if tp is None else copy_to_model(x, tp.group)
+
+
+def row_parallel(dense: "Dense", x: torch.Tensor, tp) -> torch.Tensor:
+    """``dense(x)`` for a row-parallel layer (proj, fc2) whose kernel holds
+    this rank's rows: the f32 partial product (:meth:`Dense.partial`),
+    summed over the ``model`` group (``core.multihost.reduce_from_model``),
+    then the bias, added once after the reduction (the JAX spec keeps it
+    replicated), and one rounding to the compute dtype.  Without ``tp``,
+    ``dense(x)``."""
+    if tp is None:
+        return dense(x)
+    y = reduce_from_model(dense.partial(x), tp.group)
+    return (y + dense.cast_bias().float()).to(dense.compute_dtype)
+
+
+def tp_split(n: int, tp, what: str) -> int:
+    """``n`` over the ``model`` axis of ``tp`` (None: ``n``), which must
+    divide it."""
+    size = 1 if tp is None else tp.size
+    if n % size:
+        raise ValueError(f"{what} {n} does not split over the {size} ranks "
+                         "of the 'model' axis")
+    return n // size
 
 
 class Int8Dense(nn.Module):
@@ -231,10 +293,15 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: ViTConfig, device=None):
+    """fc1 -> GELU -> fc2; under ``tp`` fc1 holds this rank's columns of
+    the hidden layer and fc2 its rows (:func:`column_input`,
+    :func:`row_parallel`)."""
+
+    def __init__(self, cfg: ViTConfig, device=None, tp=None):
         super().__init__()
-        hidden = int(cfg.width * cfg.mlp_ratio)
+        hidden = tp_split(int(cfg.width * cfg.mlp_ratio), tp, "the MLP width")
         self.cfg = cfg
+        self.tp = tp
         act = ("quick_gelu" if cfg.quick_gelu
                else ("gelu_tanh" if cfg.gelu_tanh else None))
         # exact-erf GELU stays outside the kernel, as in the JAX package
@@ -249,13 +316,13 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        x = self.fc1(x).to(c.compute_dtype)
+        x = self.fc1(column_input(x, self.tp)).to(c.compute_dtype)
         if self.fused_act is None:
             if c.quick_gelu:
                 x = quick_gelu(x)
             else:
                 x = F.gelu(x, approximate="tanh" if c.gelu_tanh else "none")
-        return self.fc2(x).to(c.compute_dtype)
+        return row_parallel(self.fc2, x, self.tp).to(c.compute_dtype)
 
 
 class Attention(nn.Module):
@@ -267,43 +334,52 @@ class Attention(nn.Module):
     attention.prefix_attention`, prefix keys at or past ``p_valid`` masked.
     ``return_kv``: also return this layer's (k, v) head views [B, L, H,
     d], the cache a later prefix call feeds back in.  Both serve the
-    prefix-KV vocabulary build (``naming/zeroshot.py``)."""
+    prefix-KV vocabulary build (``naming/zeroshot.py``).
 
-    def __init__(self, cfg: ViTConfig, device=None):
+    Under ``tp`` (a ``core.mesh.ModelGroup``) the rank holds ``H / tp``
+    heads: qkv is column-parallel, its packed output ``[q | k | v]`` of
+    those heads (``models.params.tp_layout``), attention runs on them,
+    and proj, holding their rows, is row-parallel."""
+
+    def __init__(self, cfg: ViTConfig, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
-        self.qkv = _dense(cfg, cfg.width, 3 * cfg.width, device=device)
-        self.proj = _dense(cfg, cfg.width, cfg.width, int8_site=False,
+        self.tp = tp
+        self.heads = tp_split(cfg.heads, tp, "the head count")
+        width = self.heads * (cfg.width // cfg.heads)
+        self.qkv = _dense(cfg, cfg.width, 3 * width, device=device)
+        self.proj = _dense(cfg, width, cfg.width, int8_site=False,
                            device=device)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 real_len: Optional[int] = None, prefix_kv=None,
                 p_valid: Optional[int] = None, return_kv: bool = False):
         c = self.cfg
-        qkv = self.qkv(x).to(c.compute_dtype).contiguous()
+        qkv = self.qkv(column_input(x, self.tp)).to(
+            c.compute_dtype).contiguous()
         scale = float(c.width // c.heads) ** -0.5
         if prefix_kv is None and not return_kv:
-            out = qkv_attention(qkv, c.heads, scale, causal=causal,
+            out = qkv_attention(qkv, self.heads, scale, causal=causal,
                                 l_valid=real_len)
-            return self.proj(out).to(c.compute_dtype)
-        heads = _heads(qkv, c.heads)  # q, k, v [B, L, H, d] views
+            return row_parallel(self.proj, out, self.tp).to(c.compute_dtype)
+        heads = _heads(qkv, self.heads)  # q, k, v [B, L, H, d] views
         if prefix_kv is not None:
             out = prefix_attention(*heads, *prefix_kv, scale,
                                    p_valid).flatten(2)
         else:
-            out = qkv_attention(qkv, c.heads, scale, causal=causal,
+            out = qkv_attention(qkv, self.heads, scale, causal=causal,
                                 l_valid=real_len)
-        out = self.proj(out).to(c.compute_dtype)
+        out = row_parallel(self.proj, out, self.tp).to(c.compute_dtype)
         return (out, heads[1:]) if return_kv else out
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig, device=None):
+    def __init__(self, cfg: ViTConfig, device=None, tp=None):
         super().__init__()
         self.norm1 = LayerNorm(cfg.width, cfg.norm_eps, device=device)
-        self.attn = Attention(cfg, device=device)
+        self.attn = Attention(cfg, device=device, tp=tp)
         self.norm2 = LayerNorm(cfg.width, cfg.norm_eps, device=device)
-        self.mlp = Mlp(cfg, device=device)
+        self.mlp = Mlp(cfg, device=device, tp=tp)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 real_len: Optional[int] = None, prefix_kv=None,
@@ -413,9 +489,11 @@ class PatchEmbed(nn.Module):
 
 class VisionTransformer(nn.Module):
     """images [B, H, W, 3] (NHWC, normalized floats) -> features
-    [B, width or output_proj] f32."""
+    [B, width or output_proj] f32.  ``tp``: the blocks' tensor-parallel
+    context (:class:`Attention`, :class:`Mlp`); every rank of its group
+    runs the forward on the same images."""
 
-    def __init__(self, cfg: ViTConfig, device=None):
+    def __init__(self, cfg: ViTConfig, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg, device=device)
@@ -428,7 +506,7 @@ class VisionTransformer(nn.Module):
             if cfg.dense_int8_until is not None and not cfg.dense_int8:
                 bc = dataclasses.replace(cfg,
                                          dense_int8=i < cfg.dense_int8_until)
-            self.add_module(f"block_{i}", Block(bc, device=device))
+            self.add_module(f"block_{i}", Block(bc, device=device, tp=tp))
         final = "ln_post" if cfg.pre_post_norm else "norm"
         self.add_module(final, LayerNorm(cfg.width, cfg.norm_eps,
                                          device=device))
@@ -476,9 +554,9 @@ class VisionTransformerWithLinear(nn.Module):
     the max-softmax OSR thresholding downstream."""
 
     def __init__(self, cfg: ViTConfig, num_classes: int = 1000,
-                 device=None):
+                 device=None, tp=None):
         super().__init__()
-        self.base_vit = VisionTransformer(cfg, device=device)
+        self.base_vit = VisionTransformer(cfg, device=device, tp=tp)
         self.linear = Dense(cfg.output_proj or cfg.width, num_classes,
                             torch.float32, device=device)
 

@@ -1,6 +1,6 @@
 """Functions each rank of a world runs (``testing/dist.py::spawn``): the
 mesh paths of the port at small sizes, for the CPU tests
-(``tests/test_torch_mesh*.py``) and ``chip_smoke.py``'s phases 13 and 14.
+(``tests/test_torch_mesh*.py``) and ``chip_smoke.py``'s phases 13-15.
 
 Every function takes plain data (numpy arrays, configs), runs on the
 device ``core.multihost.initialize`` bound (``multihost.local_device``),
@@ -64,11 +64,48 @@ def _raised(fn):
         return type(e).__name__, str(e)
 
 
+def tiny_trainers(mesh, heads: int) -> Dict:
+    """The four trainers at a tiny ViT (``heads`` heads of width 8, one
+    block, 16 px) under ``mesh`` (a ``data`` 1 x ``model`` world mesh, or
+    None for one process), on data made from a fixed seed:
+    ``make_gcd_state``'s loss of one step, the bytes of ``GCDTrainer``'s
+    tensor-parallel parameters on this rank, and the one epoch's loss of
+    each e2e trainer."""
+    from scd_tpu_torch.core.config import TrainConfig
+    from scd_tpu_torch.models.params import tp_bytes
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.train import baselines_e2e, gcd
+
+    dev = _device(mesh)
+    vit = ViTConfig(image_size=16, patch_size=8, width=8 * heads, depth=1,
+                    heads=heads)
+    cfg = TrainConfig(grad_from_block=0, proj_dim=16, batch_size=4)
+    rng = np.random.default_rng(5)
+    views = rng.standard_normal((2, 4, 16, 16, 3)).astype(np.float32)
+    labels, mask = np.array([0, 1, 2, 3]), np.array([True, True, False, False])
+    # one trainer serves both: its step is make_gcd_state's
+    tr = gcd.GCDTrainer(vit, cfg, total_steps=4, device=dev, mesh=mesh)
+    batch = {"images": torch.from_numpy(views.reshape(8, 16, 16, 3)).to(dev),
+             "labels": torch.from_numpy(labels).to(dev),
+             "mask_lab": torch.from_numpy(mask).to(dev)}
+    kw = dict(epochs=1, batch_size=4, device=dev, mesh=mesh)
+    return {
+        "make_gcd_state": float(tr.step_fn(tr.model, tr.opt,
+                                           batch)["loss"]),
+        "GCDTrainer": tp_bytes(tr.model),
+        "train_uno_e2e": baselines_e2e.train_uno_e2e(
+            0, views, labels, mask, 2, 2, vit, num_heads=1, lr=0.05,
+            **kw)[2][0]["loss"],
+        "train_autonovel_e2e": baselines_e2e.train_autonovel_e2e(
+            1, views[0], views[1], labels, mask, 2, 2, vit, lr=0.05,
+            **kw)[2][0]["loss"]}
+
+
 def _refusals(mesh, data) -> Dict:
     """The paths that refused a mesh before they ran over ranks, each with
     what it gives now:
-    the four trainers under a mesh of ``data`` 1 x ``model`` world raise
-    the tensor-parallel refusal; ``fit_constrained`` with the exact MCF
+    the four trainers under a mesh of ``data`` 1 x ``model`` world train
+    (:func:`tiny_trainers`); ``fit_constrained`` with the exact MCF
     backend over the world's ``data`` axis raises the JAX package's
     RuntimeError; ``estimate_k`` and ``fit_kmeans_dynamic_k`` over it
     return their results (each rank passes its share of 40 rows).
@@ -76,8 +113,6 @@ def _refusals(mesh, data) -> Dict:
     import importlib
 
     from scd_tpu_torch.cluster.constrained import fit_constrained
-    from scd_tpu_torch.train import baselines_e2e, gcd
-    from scd_tpu_torch.train.gcd import GCDTrainer
 
     ek = importlib.import_module("scd_tpu_torch.cluster.estimate_k")
     x = data["x"][:40]
@@ -93,15 +128,11 @@ def _refusals(mesh, data) -> Dict:
             _share(x, mesh), y, np.ones(40, bool), 2, 8, mesh=mesh)),
         "fit_kmeans_dynamic_k": _raised(lambda: ek.fit_kmeans_dynamic_k(
             gen, _share(x, mesh), 2, 8, mesh=mesh)),
-        "make_gcd_state": _raised(lambda: gcd.make_gcd_state(
-            None, None, mesh=tp)),
-        "GCDTrainer": _raised(lambda: GCDTrainer(
-            None, None, mesh=tp, device=mesh.device)),
     }
-    for name in ("train_uno_e2e", "train_autonovel_e2e"):
-        fn = getattr(baselines_e2e, name)
-        out[name] = _raised(lambda: fn(None, 0, None, None, None, None,
-                                       mesh=tp))
+    kind, got = _raised(lambda: tiny_trainers(tp, mesh.size))
+    for name in ("make_gcd_state", "GCDTrainer", "train_uno_e2e",
+                 "train_autonovel_e2e"):
+        out[name] = (kind, got if kind else got[name])
     return out
 
 
@@ -807,65 +838,203 @@ def _gcd_batch(spec: Dict, step: int, lo: int, hi: int) -> Dict:
             "mask_lab": np.asarray(mask, bool)}
 
 
-def _digest_params(model) -> str:
-    return digest(*[p.detach().cpu().float().numpy()
-                    for p in model.parameters() if p.requires_grad])
+def quick_init_(module, seed: int = 0):
+    """Random weights for the full-width runs on the card, drawn fast:
+    normals from one CPU ``torch.Generator(seed)`` in ``named_parameters``
+    order (``models.params.flax_init_``'s truncated normals take ~15 s a
+    ViT-B/16 on the host): a kernel N(0, 1 / fan_in) (fan_in: every axis
+    but the last, and but the first of a stacked ``Vmap_*`` kernel), a
+    bias or CLS token zeros, a LayerNorm scale ones, anything else
+    N(0, 0.02).  Returns ``module``."""
+    import math
+
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            path = name.split(".")
+            if path[-1] in ("bias", "cls_token"):
+                p.zero_()
+            elif path[-1] == "scale":
+                p.fill_(1.0)
+            else:
+                stacked = any(k.startswith("Vmap_") for k in path[:-1])
+                std = (math.prod(p.shape[1 if stacked else 0:-1]) ** -0.5
+                       if path[-1] == "kernel" else 0.02)
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return module
+
+
+def _init_patch(spec: Dict, module, name: str):
+    """``module.name`` (the initializer a trainer calls) replaced by
+    :func:`quick_init_` when ``spec["quick_init"]``."""
+    if not spec.get("quick_init"):
+        return contextlib.nullcontext()
+    return _patched(module, name, lambda model, seed=0: quick_init_(model,
+                                                                    seed))
+
+
+@contextlib.contextmanager
+def _exact_rows(spec: Dict):
+    """Under ``spec["exact_rows"]``, one process (no ``model`` group)
+    computes its row-parallel layers (proj, fc2) as the tensor-parallel
+    ranks do: f32 products of the compute-dtype operands, the bias, one
+    rounding (``models.vit.Dense.partial``), in place of the GEMM at the
+    compute dtype.  The same model with only those roundings changed: its
+    distance to the plain one process is the noise floor a tensor-parallel
+    run is held to in bf16 (``chip_smoke.py`` phase 15)."""
+    from scd_tpu_torch.models import vit
+
+    if not spec.get("exact_rows"):
+        yield
+        return
+    real = vit.row_parallel
+
+    def exact(dense, x, tp):
+        if tp is not None:
+            return real(dense, x, tp)
+        return (dense.partial(x) + dense.cast_bias().float()).to(
+            dense.compute_dtype)
+
+    with _patched(vit, "row_parallel", exact):
+        yield
+
+
+def _gcd_trainer(spec: Dict, mesh, dev):
+    from scd_tpu_torch.core.config import TrainConfig
+    from scd_tpu_torch.models.vit import ViTConfig
+    from scd_tpu_torch.train.gcd import GCDTrainer
+
+    from scd_tpu_torch.train import gcd
+
+    params = _state_from(spec["params"]) if "params" in spec else None
+    with _init_patch(spec, gcd, "flax_init_"):
+        return GCDTrainer(ViTConfig(**spec["vit"]),
+                          TrainConfig(**spec["train"]),
+                          seed=spec.get("init_seed", 0),
+                          total_steps=spec["total_steps"], device=dev,
+                          mesh=mesh, params=params)
+
+
+def _same_tree(a, b) -> bool:
+    """Two nested states (dicts, lists, tensors, numbers) bitwise equal."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def _checkpoint_round_trip(tr, spec: Dict, mesh, dev) -> Dict:
+    """``tr.state`` (full tensors) written to ``spec["ckpt_dir"]`` through
+    ``CheckpointManager`` (rank 0 writes), restored on every rank into a
+    fresh trainer on the same mesh (each rank its shard) and gathered
+    again: the step and whether the two gathered states are bitwise
+    equal."""
+    from scd_tpu_torch.train.checkpoint import CheckpointManager
+
+    state = tr.state
+    mgr = CheckpointManager(spec["ckpt_dir"], keep=1)
+    mgr.save(tr.opt.count, state)
+    step, restored = mgr.restore()
+    back = _gcd_trainer(spec, mesh, dev)
+    back.load_state(restored)
+    return {"step": step, "equal": _same_tree(state, back.state)}
 
 
 def gcd_steps(spec: Dict) -> Dict:
     """Steps of ``make_gcd_state`` (through ``GCDTrainer``) over the
-    world's ranks, each its block of every global batch of
+    world's ranks (a ``data`` x ``spec["model"]`` mesh, default model 1),
+    each data rank its block of every global batch of
     ``spec["global_batch"]`` images, or alone on the whole batch: each
-    step's loss, a digest of the trainable parameters after each step,
-    the trainable parameters at the start and the end
-    (``spec["return_params"]``; rank 0 only), seconds a step and the
-    attention launches."""
-    from scd_tpu_torch.core.config import TrainConfig
-    from scd_tpu_torch.models.vit import ViTConfig
-    from scd_tpu_torch.ops import attention
-    from scd_tpu_torch.train.gcd import GCDTrainer
+    step's loss, a digest of the (gathered) trainable parameters after
+    each step, the trainable parameters at the start and the end
+    (``spec["return_params"]``; rank 0 only), this rank's bytes of
+    tensor-parallel parameters, its shards of them
+    (``spec["return_shards"]``), a checkpoint round trip
+    (``spec["ckpt_dir"]``), seconds a step and the attention launches,
+    bf16 and f32.  The parameters start from ``spec["params"]`` (a full
+    state dict), else from the seed: ``flax_init_``, or
+    :func:`quick_init_` under ``spec["quick_init"]``; ``spec
+    ["exact_rows"]``: see :func:`_exact_rows`."""
+    from scd_tpu_torch.models.params import tp_bytes
 
-    mesh = _world_mesh()
+    mesh = _world_mesh(spec.get("model", 1))
     dev = _device(mesh)
-    vit = ViTConfig(**spec["vit"])
-    cfg = TrainConfig(**spec["train"])
-    tr = GCDTrainer(vit, cfg, seed=spec.get("init_seed", 0),
-                    total_steps=spec["total_steps"], device=dev, mesh=mesh)
-    if "params" in spec:
-        tr.model.load_state_dict(_state_from(spec["params"]))
-    p0 = _trainable(tr.model) if spec.get("return_params") else None
+    tr = _gcd_trainer(spec, mesh, dev)
+    p0 = _trainable(tr.model, tr.tp) if spec.get("return_params") else None
     n = spec["global_batch"]
-    lo, hi = (0, n) if mesh is None else multihost.share_bounds(
-        n, mesh.n_data, mesh.data_index)
+    dm = tr.data_mesh
+    lo, hi = (0, n) if dm is None else multihost.share_bounds(
+        n, dm.n_data, dm.data_index)
     losses, digests, seconds = [], [], []
-    attention.attention_cuda.launches = 0
-    attention.qkv_attention_bwd_cuda.launches = 0
+    _reset_attention()
     for step in range(spec["steps"]):
         batch = tr.to_device(_gcd_batch(spec, step, lo, hi))
-        metrics, sec = _seconds(
-            lambda: tr.step_fn(tr.model, tr.opt, batch), dev)
+        with _exact_rows(spec):
+            metrics, sec = _seconds(
+                lambda: tr.step_fn(tr.model, tr.opt, batch), dev)
         losses.append(float(metrics["loss"]))
-        digests.append(_digest_params(tr.model))
+        digests.append(digest(*_trainable(tr.model, tr.tp).values()))
         seconds.append(sec)
     out = {"losses": losses, "digests": digests, "seconds": seconds,
-           "launches": {"attention": attention.attention_cuda.launches,
-                        "attention_bwd":
-                        attention.qkv_attention_bwd_cuda.launches}}
-    if spec.get("return_params") and (mesh is None or mesh.data_index == 0):
-        out["params0"] = p0
-        out["params"] = _trainable(tr.model)
+           "launches": _attention_launches(),
+           "tp_bytes": tp_bytes(tr.model)}
+    if spec.get("return_shards"):
+        from scd_tpu_torch.models.params import tp_layout
+
+        out["shards"] = {k: p.detach().cpu().numpy()
+                         for k, p in tr.model.named_parameters()
+                         if tp_layout(k, p.shape) is not None}
+    if "ckpt_dir" in spec:
+        out["ckpt"] = _checkpoint_round_trip(tr, spec, mesh, dev)
+    if spec.get("return_params"):
+        params = _trainable(tr.model, tr.tp)
+        if multihost.process_index() == 0:
+            out["params0"], out["params"] = p0, params
     return out
 
 
-def _trainable(model) -> Dict:
-    return {k: p.detach().float().cpu().numpy()
+def _reset_attention() -> None:
+    from scd_tpu_torch.ops import attention, w8a8
+
+    for fn in (attention.attention_cuda, attention.qkv_attention_bwd_cuda):
+        fn.launches = fn.f32_wgmma_launches = 0
+    w8a8.w8a8_fusedq_cuda.launches = 0
+
+
+def _attention_launches() -> Dict[str, int]:
+    """The training kernels' launches since :func:`_reset_attention`: the
+    attention and its gradient, all and the f32 ones (three TF32 passes
+    at head_dim 64), and the fused W8A8 (the frozen int8 blocks)."""
+    from scd_tpu_torch.ops import attention, w8a8
+
+    fwd, bwd = attention.attention_cuda, attention.qkv_attention_bwd_cuda
+    return {"attention": fwd.launches, "attention_bwd": bwd.launches,
+            "attention_f32": fwd.f32_wgmma_launches,
+            "attention_bwd_f32": bwd.f32_wgmma_launches,
+            "w8a8_fusedq": w8a8.w8a8_fusedq_cuda.launches}
+
+
+def _trainable(model, tp=None) -> Dict:
+    """The trainable parameters as host f32 arrays of their own (no view
+    of a CPU parameter), whole: under ``tp`` gathered over the model group
+    (every rank of it calls)."""
+    from scd_tpu_torch.models.params import gather_tensor
+
+    return {k: np.array(gather_tensor(k, p, tp).detach().float().cpu())
             for k, p in model.named_parameters() if p.requires_grad}
 
 
 def e2e_runs(spec: Dict) -> Dict:
     """``train_uno_e2e`` and ``train_autonovel_e2e`` over the world's ranks
-    or alone, from ``spec["inits"][method]`` (state dicts, or the port's
-    seeded init when absent) on the in-memory ``views`` / ``labels`` /
+    (a ``data`` x ``spec["model"]`` mesh, default model 1) or alone, from
+    ``spec["inits"][method]`` (state dicts, or the port's
+    seeded init when absent; :func:`quick_init_`'s under
+    ``spec["quick_init"]``) on the in-memory ``views`` / ``labels`` /
     ``mask_lab`` (or images made from ``spec["seed"]``), with each
     method's keyword arguments ``spec["kw"][method]``: each method's
     history, best head, predictions on the first view, seconds and f32
@@ -877,7 +1046,7 @@ def e2e_runs(spec: Dict) -> Dict:
     from scd_tpu_torch.train import baselines as B
     from scd_tpu_torch.train import baselines_e2e as E
 
-    mesh = _world_mesh()
+    mesh = _world_mesh(spec.get("model", 1))
     dev = _device(mesh)
     if "views" in spec:
         views, labels, mask = spec["views"], spec["labels"], spec["mask_lab"]
@@ -905,7 +1074,7 @@ def e2e_runs(spec: Dict) -> Dict:
     out = {}
     for method, run in runs.items():
         inits = spec.get("inits", {})
-        patch = contextlib.nullcontext()
+        patch = _init_patch(spec, B, "_init_params")
         if method in inits:
             state = _state_from(inits[method])
             patch = _patched(B, "_init_params", lambda model, _seed: (
@@ -958,25 +1127,50 @@ def metric_learn_run(argv, image_seed=None) -> Dict:
 def train_cases(data: Dict) -> Dict:
     """The training paths over the world's ranks (CPU tests): GCD steps,
     the e2e trainers, ``metric_learn.main`` and ``run_baseline_e2e.main``
-    with ``--mesh_data``, and the tensor-parallel refusals under a mesh of
-    ``data`` 1 x ``model`` world."""
-    from scd_tpu_torch.train import gcd, metric_learn, run_baseline_e2e
+    with ``--mesh_data``, and, under a mesh of ``data`` 1 x ``model``
+    world, one GCD step, the e2e trainers and ``metric_learn.main`` with
+    ``--mesh_model`` (``data["metric_learn_tp"]``)."""
+    from scd_tpu_torch.train import run_baseline_e2e
 
     world = multihost.process_count()
+    dev = multihost.local_device().type
     out = {"gcd": gcd_steps(data["gcd"]), "e2e": e2e_runs(data["e2e"])}
-    mesh_flags = ["--mesh_data", str(world), "--device",
-                  multihost.local_device().type]
+    mesh_flags = ["--mesh_data", str(world), "--device", dev]
     out["metric_learn"] = metric_learn_run(data["metric_learn"] + mesh_flags)
     _res, out["run_baseline_e2e"] = _lines(
         run_baseline_e2e.main, data["run_baseline_e2e"] + mesh_flags)
-    tp = make_mesh(MeshConfig(data=1, model=world))
     out["tp"] = {
-        "make_gcd_state": _raised(lambda: gcd.make_gcd_state(
-            None, None, mesh=tp)),
-        "metric_learn": _raised(lambda: metric_learn.main(
-            data["metric_learn"] + ["--mesh_data", "1", "--mesh_model",
-                                    str(world), "--device",
-                                    multihost.local_device().type]))}
+        "make_gcd_state": gcd_steps(dict(data["gcd"], model=world, steps=1,
+                                         return_params=False)),
+        "e2e": e2e_runs(dict(data["e2e"], model=world)),
+        "metric_learn": metric_learn_run(
+            data["metric_learn_tp"] + ["--mesh_data", "1", "--mesh_model",
+                                       str(world), "--device", dev])}
+    return out
+
+
+def tp_cases(data: Dict) -> Dict:
+    """The tensor-parallel training paths over the world's ranks, on a
+    mesh of ``data["model"]`` model ranks (a world of one runs them alone,
+    the one-process references; CPU tests and ``chip_smoke.py`` phase
+    15): GCD steps of each spec of ``data["steps"]`` (by name), the e2e
+    trainers (``"e2e"``), and ``metric_learn.main`` /
+    ``run_baseline_e2e.main`` with ``--mesh_data world / model
+    --mesh_model model`` (their argv, when given)."""
+    from scd_tpu_torch.train import run_baseline_e2e
+
+    world, model = multihost.process_count(), data["model"]
+    out = {"steps": {name: gcd_steps(dict(spec, model=model))
+                     for name, spec in data.get("steps", {}).items()}}
+    if "e2e" in data:
+        out["e2e"] = e2e_runs(dict(data["e2e"], model=model))
+    flags = ["--mesh_data", str(max(world // model, 1)), "--mesh_model",
+             str(model), "--device", multihost.local_device().type]
+    if "metric_learn" in data:
+        out["metric_learn"] = metric_learn_run(data["metric_learn"] + flags)
+    if "run_baseline_e2e" in data:
+        _res, out["run_baseline_e2e"] = _lines(
+            run_baseline_e2e.main, data["run_baseline_e2e"] + flags)
     return out
 
 

@@ -45,8 +45,18 @@ over the global batch size, and the per-head losses, hence
 ``output1_bar`` are gathered with their gradient,
 ``core.multihost.all_gather_rows``, for the pairwise BCE).  The gradients
 are summed in one packed ``all_reduce`` before each SGD step, and each
-predictor splits its batches over the ranks, as serving does.  A
-``model`` axis above 1 (tensor parallelism) raises: it is the next slice.
+predictor splits its batches over the ranks, as serving does.
+
+A ``model`` axis above 1 is tensor parallelism, the JAX package's
+``_shard_setup`` (``scd_tpu/train/baselines_e2e.py:92-116``): every rank
+builds the full model and keeps its shard of the backbone
+(``models.params.shard_module``, the GCD trainer's layout); the heads
+stay whole (their stacked or differently named parameters match no
+tensor-parallel rule).  The data-parallel collectives above run over
+the ``data`` group alone, and only when it has more than one rank;
+model ranks take the same rows.  A checkpoint's state is gathered whole
+(``models.params.gather_state_dict``, the momentum with
+``train.checkpoint.gather_optimizer_state``).
 """
 
 from __future__ import annotations
@@ -60,10 +70,12 @@ import torch.nn.functional as F
 
 from scd_tpu_torch.core import multihost
 from scd_tpu_torch.core.device import resolve_device
-from scd_tpu_torch.core.mesh import data_parallel
+from scd_tpu_torch.core.mesh import data_mesh, model_group, train_mesh
+from scd_tpu_torch.models.params import gather_state_dict, shard_module
 from scd_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from scd_tpu_torch.pipelines.common import _pod_shard
 from scd_tpu_torch.train import baselines as B
+from scd_tpu_torch.train.checkpoint import gather_optimizer_state
 from scd_tpu_torch.train.gcd import ScheduledSGD
 from scd_tpu_torch.train.schedulers import (cosine_warmup_schedule,
                                             sigmoid_rampup)
@@ -147,13 +159,14 @@ def _run_epochs(epochs: int, epoch_fn, eval_fn, best_metric: str,
 class UNOModel(nn.Module):
     """The backbone, the prototype heads and, with overclustering, the
     second block of heads: the JAX package's ``{"backbone", "heads",
-    "heads_over"}`` tree."""
+    "heads_over"}`` tree.  ``tp``: the backbone's tensor-parallel
+    context."""
 
     def __init__(self, vit_cfg: ViTConfig, num_heads: int, n_protos: int,
-                 n_protos_over: int = 0):
+                 n_protos_over: int = 0, tp=None):
         super().__init__()
         feat_dim = vit_cfg.output_proj or vit_cfg.width
-        self.backbone = VisionTransformer(vit_cfg)
+        self.backbone = VisionTransformer(vit_cfg, tp=tp)
         self.heads = B.MultiHeadPrototypes(feat_dim, num_heads=num_heads,
                                            num_prototypes=n_protos)
         self.heads_over = (B.MultiHeadPrototypes(
@@ -163,13 +176,13 @@ class UNOModel(nn.Module):
 
 class AutoNovelModel(nn.Module):
     """The backbone and the two-head classifier (``{"backbone",
-    "heads"}``)."""
+    "heads"}``); ``tp`` as :class:`UNOModel`'s."""
 
     def __init__(self, vit_cfg: ViTConfig, n_labeled: int,
-                 n_unlabeled: int):
+                 n_unlabeled: int, tp=None):
         super().__init__()
         feat_dim = vit_cfg.output_proj or vit_cfg.width
-        self.backbone = VisionTransformer(vit_cfg)
+        self.backbone = VisionTransformer(vit_cfg, tp=tp)
         self.heads = B.TwoHeadClassifier(feat_dim, n_labeled, n_unlabeled)
 
 
@@ -232,8 +245,10 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
     the optimizer, the best-head index, the best epoch and ``step(views,
     labels, mask_lab) -> (loss, per-head loss)``, one SGD step on device
     tensors; ``predict_fn(images) -> labels`` (numpy) uses the best head.
-    Over a ``mesh``: see the module docstring."""
-    mesh = data_parallel(mesh, "the end-to-end baseline trainers")
+    Over a ``mesh`` (``data x model``): see the module docstring."""
+    mesh = train_mesh(mesh)
+    # the data-parallel collectives run over ``mesh`` from here on
+    tp, mesh = model_group(mesh), data_mesh(mesh)
     dev = resolve_device(device)
     if callable(views):
         if not steps_per_epoch:
@@ -255,9 +270,11 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
 
     n_over = (n_labeled + n_unlabeled * overcluster_factor
               if overcluster_factor > 0 else 0)
-    model = B._trainable(B._init_params(UNOModel(
-        vit_cfg, num_heads, n_labeled + n_unlabeled, n_over), init_seed),
-        dev)
+    model = B._trainable(shard_module(
+        B._init_params(UNOModel(vit_cfg, num_heads, n_labeled + n_unlabeled,
+                                n_over), init_seed),
+        lambda: UNOModel(vit_cfg, num_heads, n_labeled + n_unlabeled,
+                         n_over, tp=tp), tp), dev)
 
     total_steps = epochs * steps_per_epoch
     # short runs: warmup must leave >= 1 decay step
@@ -334,9 +351,11 @@ def train_uno_e2e(init_seed: int, views, labels: np.ndarray = None,
         epochs, epoch_fn,
         (lambda epoch: eval_fn(predict, epoch)) if eval_fn else None,
         best_metric, log_fn, ckpt=ckpt,
-        get_state=lambda: {"model": model.state_dict(),
+        get_state=lambda: {"model": gather_state_dict(model.state_dict(),
+                                                      tp),
                            "best_head": state["best_head"],
-                           "optimizer": opt.sgd.state_dict(),
+                           "optimizer": gather_optimizer_state(
+                               opt.sgd, model, tp),
                            "step": opt.count})
     state["best"] = best
     return state, predict, history
@@ -371,7 +390,8 @@ def train_autonovel_e2e(init_seed: int, images,
     loss``, one SGD step on device tensors; ``predict_fn`` maps images to
     all-classes-head argmax ids (labelled classes first, as the
     reference's eval on ``output1.max(1)``)."""
-    mesh = data_parallel(mesh, "the end-to-end baseline trainers")
+    mesh = train_mesh(mesh)
+    tp, mesh = model_group(mesh), data_mesh(mesh)  # as train_uno_e2e
     dev = resolve_device(device)
     if callable(images):
         batches = images
@@ -388,8 +408,11 @@ def train_autonovel_e2e(init_seed: int, images,
                 idx = _pod_shard(idx, mesh)
                 yield images[idx], images_bar[idx], labels[idx], mask_lab[idx]
 
-    model = B._trainable(B._init_params(AutoNovelModel(
-        vit_cfg, n_labeled, n_unlabeled), init_seed), dev)
+    model = B._trainable(shard_module(
+        B._init_params(AutoNovelModel(vit_cfg, n_labeled, n_unlabeled),
+                       init_seed),
+        lambda: AutoNovelModel(vit_cfg, n_labeled, n_unlabeled, tp=tp), tp),
+        dev)
     opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum,
                           weight_decay=weight_decay, dampening=0.0,
                           nesterov=False)
@@ -435,7 +458,9 @@ def train_autonovel_e2e(init_seed: int, images,
         epochs, epoch_fn,
         (lambda epoch: eval_fn(predict, epoch)) if eval_fn else None,
         best_metric, log_fn, ckpt=ckpt,
-        get_state=lambda: {"model": model.state_dict(),
-                           "optimizer": opt.state_dict()})
+        get_state=lambda: {"model": gather_state_dict(model.state_dict(),
+                                                      tp),
+                           "optimizer": gather_optimizer_state(opt, model,
+                                                               tp)})
     state["best"] = best
     return state, predict, history

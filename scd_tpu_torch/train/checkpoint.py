@@ -20,7 +20,12 @@ Over several ranks (``core.multihost``; data-parallel training holds the
 same state on every rank) every rank calls :meth:`CheckpointManager.save`
 and keeps the manifest in memory, rank 0 alone writes and prunes the
 files, and a ``barrier`` after each save publishes them before any rank
-reads on, as ``core/cache.py`` does.
+reads on, as ``core/cache.py`` does.  Under a ``model`` axis (tensor
+parallelism) the trainers hand it full tensors, gathered over the model
+group, the optimizer's momentum included
+(:func:`gather_optimizer_state`), so rank 0's ``ckpt_<step>.pt``
+restores into one process, and back into a tensor-parallel run through
+:func:`shard_optimizer_state` and ``models.params.shard_state_dict``.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from scd_tpu_torch.core import multihost
+from scd_tpu_torch.models.params import gather_tensor, shard_tensor
 
 
 def _to_host(tree):
@@ -141,6 +147,44 @@ class CheckpointManager:
             raise FileNotFoundError(f"no best checkpoint in {self.directory}")
         return int(self._manifest["best_step"]), torch.load(
             path, map_location="cpu", weights_only=True)
+
+
+def _param_names(opt: torch.optim.Optimizer, model) -> List[str]:
+    """The name in ``model`` of each parameter of ``opt``, in the order
+    of its state dict's indices."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in opt.param_groups for p in g["params"]]
+
+
+def _map_state(sd: Dict, names: List[str], fn) -> Dict:
+    state = {i: {k: fn(names[i], v) if isinstance(v, torch.Tensor) else v
+                 for k, v in sd["state"][i].items()}
+             for i in sorted(sd["state"])}
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+def gather_optimizer_state(opt: torch.optim.Optimizer, model, tp) -> Dict:
+    """``opt.state_dict()`` with each per-parameter tensor (SGD's
+    momentum) of a tensor-parallel parameter gathered whole over ``tp``'s
+    group (``models.params.gather_tensor``; every rank of it calls);
+    ``tp`` None returns the state dict as it is."""
+    sd = opt.state_dict()
+    if tp is None:
+        return sd
+    return _map_state(sd, _param_names(opt, model),
+                      lambda name, t: gather_tensor(name, t, tp))
+
+
+def shard_optimizer_state(state: Dict, opt: torch.optim.Optimizer, model,
+                          tp) -> Dict:
+    """The inverse of :func:`gather_optimizer_state`: a full optimizer
+    state dict with this rank's shard of each per-parameter tensor, for
+    ``opt.load_state_dict``."""
+    if tp is None:
+        return state
+    return _map_state(state, _param_names(opt, model),
+                      lambda name, t: shard_tensor(name, t, tp.size,
+                                                   tp.index))
 
 
 def strip_key_prefix(state_dict: Dict[str, Any],

@@ -36,8 +36,20 @@ into the global view-major order (view, then rank block, then row: the
 JAX layout of ``stage_pod_batch``), so both losses see the global batch
 and the metrics are global; the trainable gradients are summed in one
 packed ``all_reduce`` and :class:`ScheduledSGD` steps identically on
-every rank.  A ``model`` axis above 1 (the JAX package's tensor-parallel
-specs, ``_tp_spec``) raises: tensor parallelism is the next slice.
+every rank.
+
+A ``model`` axis above 1 is tensor parallelism, the JAX package's
+``_tp_spec`` (``scd_tpu/train/gcd.py:113-125``) by its names: every rank
+builds the full model from the seed and keeps its shard
+(``models.params.shard_module``): the backbone's qkv, proj, fc1 and fc2
+and, by the same names, the head's fc1 (columns) and fc2 (rows); fc3
+and ``last_layer`` stay whole.  The optimizer state lives on the shard.
+Ranks that differ only on the ``model`` axis take the same rows, and the
+data-parallel collectives (the projections' gather, the gradient
+``all_reduce``) run over the ``data`` group alone, and only when it has
+more than one rank.  :attr:`GCDTrainer.state` gathers full tensors,
+momentum included (what a checkpoint holds), and
+:meth:`GCDTrainer.load_state` cuts them back.
 """
 
 from __future__ import annotations
@@ -52,12 +64,16 @@ import torch.nn.functional as F
 
 from scd_tpu_torch.core.config import TrainConfig
 from scd_tpu_torch.core.device import resolve_device
-from scd_tpu_torch.core.mesh import data_parallel
+from scd_tpu_torch.core.mesh import data_mesh, model_group, train_mesh
 from scd_tpu_torch.core.multihost import (all_gather, all_gather_rows,
                                           all_reduce_grads,
                                           rows_from_process_local)
-from scd_tpu_torch.models.params import flax_init_
-from scd_tpu_torch.models.vit import Dense, ViTConfig, VisionTransformer
+from scd_tpu_torch.models.params import (flax_init_, gather_state_dict,
+                                         shard_module, shard_state_dict)
+from scd_tpu_torch.models.vit import (Dense, ViTConfig, VisionTransformer,
+                                      column_input, row_parallel, tp_split)
+from scd_tpu_torch.train.checkpoint import (gather_optimizer_state,
+                                            shard_optimizer_state)
 from scd_tpu_torch.train.losses import cross_entropy, info_nce_loss
 from scd_tpu_torch.train.schedulers import cosine_warmup_schedule
 
@@ -72,36 +88,41 @@ class DINOHead(nn.Module):
     ``learn_metric.py:30-77``; the weight-normed last layer keeps g = 1):
     fc1 -> GELU (erf) -> fc2 -> GELU -> fc3 -> L2 norm -> @ the
     column-normalized ``last_layer`` [bottleneck, out].  f32 throughout,
-    Flax names and layouts."""
+    Flax names and layouts.  Under ``tp`` fc1 is column-parallel and fc2
+    row-parallel (their names match ``_tp_spec``'s)."""
 
     def __init__(self, in_dim: int, out_dim: int = 65536,
                  hidden_dim: int = 2048, bottleneck_dim: int = 256,
-                 device=None):
+                 device=None, tp=None):
         super().__init__()
         f32 = torch.float32
-        self.fc1 = Dense(in_dim, hidden_dim, f32, device=device)
-        self.fc2 = Dense(hidden_dim, hidden_dim, f32, device=device)
+        self.tp = tp
+        local = tp_split(hidden_dim, tp, "the head's hidden width")
+        self.fc1 = Dense(in_dim, local, f32, device=device)
+        self.fc2 = Dense(local, hidden_dim, f32, device=device)
         self.fc3 = Dense(hidden_dim, bottleneck_dim, f32, device=device)
         self.last_layer = nn.Parameter(
             torch.zeros(bottleneck_dim, out_dim, device=device),
             requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.gelu(self.fc1(x))
-        x = F.gelu(self.fc2(x))
+        x = F.gelu(self.fc1(column_input(x, self.tp)))
+        x = F.gelu(row_parallel(self.fc2, x, self.tp))
         x = _unit(self.fc3(x), -1)
         return x @ _unit(self.last_layer, 0)
 
 
 class GCDModel(nn.Module):
     """The backbone and the projection head, as ``backbone`` and ``head``
-    (the JAX package's ``{"backbone": ..., "head": ...}`` tree)."""
+    (the JAX package's ``{"backbone": ..., "head": ...}`` tree); ``tp``
+    the tensor-parallel context of both."""
 
-    def __init__(self, vit_cfg: ViTConfig, proj_dim: int, device=None):
+    def __init__(self, vit_cfg: ViTConfig, proj_dim: int, device=None,
+                 tp=None):
         super().__init__()
-        self.backbone = VisionTransformer(vit_cfg, device=device)
+        self.backbone = VisionTransformer(vit_cfg, device=device, tp=tp)
         self.head = DINOHead(vit_cfg.output_proj or vit_cfg.width,
-                             out_dim=proj_dim, device=device)
+                             out_dim=proj_dim, device=device, tp=tp)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.head(self.backbone(images))
@@ -176,7 +197,8 @@ class ScheduledSGD:
 def gcd_loss(model: GCDModel, cfg: TrainConfig, batch: Dict[str, torch.Tensor],
              mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of one batch: ``images`` view-major [n_views*B, H,
-    W, C], ``labels`` [B], ``mask_lab`` [B] bool.  Over a ``mesh`` the
+    W, C], ``labels`` [B], ``mask_lab`` [B] bool.  Over a ``mesh`` (whose
+    ``data`` axis has more than one rank: ``core.mesh.data_mesh``) the
     batch is this rank's block and the loss is the global batch's (see
     the module docstring)."""
     images = batch["images"]
@@ -207,19 +229,31 @@ def gcd_loss(model: GCDModel, cfg: TrainConfig, batch: Dict[str, torch.Tensor],
 
 
 def make_gcd_state(vit_cfg: ViTConfig, cfg: TrainConfig, seed: int = 0,
-                   total_steps: int = 10_000, device="cuda", mesh=None):
+                   total_steps: int = 10_000, device="cuda", mesh=None,
+                   params=None):
     """Build (model, optimizer, step).  ``step(model, optimizer, batch) ->
     metrics`` (0-d tensors on the device) takes one SGD step in place.
-    Over a ``mesh`` (data parallel; ``device`` the rank's own) the batch
-    is this rank's block (:func:`stage_pod_batch`)."""
-    mesh = data_parallel(mesh, "GCD training")
+    The parameters start from Flax's initializers drawn from ``seed``, or
+    from ``params``, a full state dict (``backbone.*``, ``head.*``; a JAX
+    tree through ``models.params.params_from_flax``).  Over a ``mesh``
+    (``data x model``; ``device`` the rank's own) the batch is this rank's
+    block of the ``data`` axis (:func:`stage_pod_batch`) and the model
+    this rank's shard of the ``model`` axis (the module docstring)."""
+    mesh = train_mesh(mesh)
+    dmesh, tp = data_mesh(mesh), model_group(mesh)
     dev = resolve_device(device)
     if cfg.int8_frozen and cfg.grad_from_block > 0:
         # the frozen blocks (< grad_from_block) never take a gradient:
         # their forward runs the W8A8 path
         vit_cfg = dataclasses.replace(vit_cfg,
                                       dense_int8_until=cfg.grad_from_block)
-    model = flax_init_(GCDModel(vit_cfg, cfg.proj_dim), seed).to(dev)
+    full = GCDModel(vit_cfg, cfg.proj_dim)
+    if params is None:
+        flax_init_(full, seed)
+    else:
+        full.load_state_dict(params)
+    model = shard_module(full, lambda: GCDModel(vit_cfg, cfg.proj_dim,
+                                                tp=tp), tp).to(dev)
     trainable = []
     for name, p in model.named_parameters():
         train = _param_label(tuple(name.split(".")),
@@ -235,10 +269,10 @@ def make_gcd_state(vit_cfg: ViTConfig, cfg: TrainConfig, seed: int = 0,
     opt = ScheduledSGD(trainable, schedule, cfg.momentum, cfg.weight_decay)
 
     def step(model, opt, batch):
-        loss, metrics = gcd_loss(model, cfg, batch, mesh)
+        loss, metrics = gcd_loss(model, cfg, batch, dmesh)
         loss.backward()
-        if mesh is not None:
-            all_reduce_grads(trainable, group=mesh.data_group)
+        if dmesh is not None:
+            all_reduce_grads(trainable, group=dmesh.data_group)
         opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -270,24 +304,27 @@ def stage_pod_batch(mesh, batch: Dict, n_views: int,
 class GCDTrainer:
     """Epoch driver (host loop) over a MergedDataset with two augmented
     views per image (reference ``ContrastiveLearningViewGenerator``,
-    ``learn_metric.py:172-181``), on ``device`` (default ``cuda``)."""
+    ``learn_metric.py:172-181``), on ``device`` (default ``cuda``), over
+    an optional ``data x model`` mesh (the module docstring); ``seed`` and
+    ``params`` as :func:`make_gcd_state`'s."""
 
     def __init__(self, vit_cfg: ViTConfig, cfg: TrainConfig,
                  seed: int = 0, total_steps: int = 10_000, mesh=None,
-                 device="cuda"):
-        self.mesh = data_parallel(mesh, "GCD training")
+                 device="cuda", params=None):
+        self.mesh = train_mesh(mesh)
+        self.data_mesh, self.tp = data_mesh(self.mesh), model_group(self.mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model, self.opt, self.step_fn = make_gcd_state(
             vit_cfg, cfg, seed, total_steps, device=self.device,
-            mesh=self.mesh)
+            mesh=self.mesh, params=params)
         self.metrics_log = []
 
     def to_device(self, batch) -> Dict[str, torch.Tensor]:
         """A host batch (numpy arrays) on the trainer's device; over a
         mesh this rank's block, staged by :func:`stage_pod_batch`."""
-        if self.mesh is not None:
-            return stage_pod_batch(self.mesh, batch, self.cfg.n_views,
+        if self.data_mesh is not None:
+            return stage_pod_batch(self.data_mesh, batch, self.cfg.n_views,
                                    self.device)
         return {"images": torch.as_tensor(batch["images"]).to(
                     self.device, torch.float32),
@@ -327,22 +364,33 @@ class GCDTrainer:
     @property
     def state(self) -> Dict:
         """The model's backbone and head state dicts, the optimizer's and
-        the step count (what :class:`CheckpointManager` saves)."""
-        return {"backbone": self.model.backbone.state_dict(),
-                "head": self.model.head.state_dict(),
-                "optimizer": self.opt.sgd.state_dict(),
+        the step count (what :class:`CheckpointManager` saves): full
+        tensors, under a ``model`` axis gathered over its group (every
+        rank calls)."""
+        return {"backbone": gather_state_dict(
+                    self.model.backbone.state_dict(), self.tp),
+                "head": gather_state_dict(self.model.head.state_dict(),
+                                          self.tp),
+                "optimizer": gather_optimizer_state(self.opt.sgd,
+                                                    self.model, self.tp),
                 "step": self.opt.count}
 
     def load_state(self, state: Dict) -> None:
-        self.model.backbone.load_state_dict(state["backbone"])
-        self.model.head.load_state_dict(state["head"])
-        self.opt.sgd.load_state_dict(state["optimizer"])
+        """:attr:`state`'s full tensors back, each rank keeping its
+        shard."""
+        self.model.backbone.load_state_dict(
+            shard_state_dict(state["backbone"], self.tp))
+        self.model.head.load_state_dict(
+            shard_state_dict(state["head"], self.tp))
+        self.opt.sgd.load_state_dict(shard_optimizer_state(
+            state["optimizer"], self.opt.sgd, self.model, self.tp))
         self.opt.count = int(state["step"])
 
     def extract_features(self, batches) -> np.ndarray:
         """L2-normalized backbone features over an iterable of image
         batches (the per-epoch k-means eval, reference
-        ``learn_metric.py:341-383``)."""
+        ``learn_metric.py:341-383``); under a ``model`` axis the sharded
+        forward, every rank of the group on the same batches."""
         out = []
         with torch.no_grad():
             for x in batches:

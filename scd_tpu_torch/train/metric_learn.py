@@ -21,8 +21,14 @@ only its own contiguous block of B / N rows (the host augmentation bounds
 this trainer), the step gathers the projections over the ranks
 (``train/gcd.py``), the per-epoch eval extracts each rank's share of the
 splits and gathers the features, and rank 0 alone prints and writes the
-run directory and the checkpoints.  ``--mesh_model`` above 1 (tensor
-parallelism) raises: it is the next slice.
+run directory and the checkpoints.
+
+Tensor parallel: ``torchrun --nproc_per_node D*M -m
+scd_tpu_torch.train.metric_learn --mesh_data D --mesh_model M ...`` (the
+world is data x model; ``train/gcd.py``): each rank holds 1 / M of the
+backbone's qkv, proj, fc1 and fc2 and of the head's fc1 and fc2, the M
+model ranks of a data index decode the same block, and the checkpoints
+hold full tensors, gathered over the model group.
 """
 
 from __future__ import annotations

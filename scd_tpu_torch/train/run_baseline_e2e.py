@@ -16,8 +16,10 @@ launched rank; ``--device cpu`` runs gloo ranks).  The batch size rounds
 down to a multiple of N (printed, as the JAX CLI prints it), every rank
 draws the same batch indices and decodes only its contiguous block
 (``train/baselines_e2e.py`` holds the rest), and rank 0 alone prints.
-``--mesh_model`` above 1 (tensor parallelism) raises: it is the next
-slice.
+Tensor parallel: ``torchrun --nproc_per_node D*M ... --mesh_data D
+--mesh_model M`` (the world is data x model): each rank holds 1 / M of
+the backbone's qkv, proj, fc1 and fc2, the M model ranks of a data index
+take the same rows, and the batch rounds on D alone.
 
 Run: ``python -m scd_tpu_torch.train.run_baseline_e2e --method uno
 --dataset_name synthetic --vit micro --image_size 32 --epochs 2

@@ -44,6 +44,12 @@ from scd_tpu_torch.testing.dist import spawn
 WORLDS = (2, 3)
 K = 10
 TOPK = 4
+# the tensor-parallel trainers against one process: the GCD step's loss
+# (the same f32 arithmetic, the partial products summed in another
+# order) and the e2e trainers' epoch losses (the JAX package's
+# tolerance for its mesh runs)
+TP_RTOL = {"make_gcd_state": 1e-5, "train_uno_e2e": 2e-4,
+           "train_autonovel_e2e": 2e-4}
 
 
 def _inputs():
@@ -131,6 +137,10 @@ def single(data):
                                       device="cpu")
     out["fit_kmeans_dynamic_k"] = ek.fit_kmeans_dynamic_k(
         torch.Generator().manual_seed(0), x40, 2, 8, device="cpu")
+    # and of the four trainers _refusals runs at data 1 x model 2
+    from scd_tpu_torch.testing.mesh_cases import tiny_trainers
+
+    out["tiny_trainers"] = tiny_trainers(None, heads=2)
     return out
 
 
@@ -304,8 +314,10 @@ def test_whole_runs_match_jax_mesh_by_ari_and_acc(worlds, data, jax_runs,
 def test_not_ported_paths_refuse_a_mesh_of_two(worlds, single, path):
     """The paths that refused a mesh of two ranks before they were ported
     over ranks, each with what it gives now: the four trainers under a
-    mesh of ``data`` 1 x ``model`` 2 raise the tensor-parallel refusal
-    (tensor parallelism is not ported); ConSSKM's exact MCF backend over
+    mesh of ``data`` 1 x ``model`` 2 train tensor-parallel (one GCD
+    step's loss and each e2e trainer's epoch loss equal on both ranks
+    and within LOSS_RTOL / 2e-4 of one process; each rank holds half the
+    tensor-parallel bytes); ConSSKM's exact MCF backend over
     the ``data`` axis raises the JAX package's RuntimeError; estimate_k
     and the dynamic-K fit over it return the one-process result (labels
     equal, inertia within 1e-5 relative: per-rank sums merged)."""
@@ -324,8 +336,13 @@ def test_not_ported_paths_refuse_a_mesh_of_two(worlds, single, path):
             np.testing.assert_array_equal(got[0], single[path][0])
             assert got[1] == pytest.approx(single[path][1], rel=1e-5)
         else:
-            assert kind == "NotImplementedError"
-            assert "tensor parallelism" in got
+            assert kind == "", got
+            assert got == worlds[2][0]["refusals"][path][1]
+            want = single["tiny_trainers"][path]
+            if path == "GCDTrainer":
+                assert 2 * got == want
+            else:
+                assert got == pytest.approx(want, rel=TP_RTOL[path])
 
 
 @pytest.mark.parametrize("n,m", [(0, 4), (1, 4), (8, 4), (13, 3), (401, 8)])

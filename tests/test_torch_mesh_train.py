@@ -1,7 +1,10 @@
 """Data-parallel training over 2 gloo ranks on the CPU: GCD steps
 (``make_gcd_state`` through ``GCDTrainer``), the end-to-end UNO and
 AutoNovel trainers, ``metric_learn.main`` and ``run_baseline_e2e.main``
-with ``--mesh_data``, and the tensor-parallel refusal.
+with ``--mesh_data``, and the same world as ``data`` 1 x ``model`` 2
+(tensor parallelism: a GCD step, the e2e trainers, ``metric_learn``;
+``tests/test_torch_mesh_tp.py`` holds the GCD steps to the JAX
+package's dp+tp step).
 
 One world runs ``scd_tpu_torch.testing.mesh_cases.train_cases``
 (``testing/dist.py::spawn``) while the JAX side compiles and runs its
@@ -22,13 +25,18 @@ Parity contract, with the tolerances' reasons:
   on both);
 - UNO and AutoNovel: each epoch's loss over 2 ranks within E2E_RTOL of the
   JAX single-device run from the same parameters and the best head equal
-  (``tests/test_baselines_e2e.py``'s own contract for its mesh runs);
+  (``tests/test_baselines_e2e.py``'s own contract for its mesh runs),
+  as data parallel (``data`` 2) and as tensor parallel (``model`` 2);
 - the entry points with ``--mesh_data 2``: exit normally, rank 0 alone
   prints and writes the run directory and the checkpoints, the ranks end
   on the same metrics; ``run_baseline_e2e`` prints the JAX CLI's batch
   rounding line;
-- a mesh of ``data`` 1 x ``model`` 2 raises the tensor-parallel refusal,
-  and ``_mesh_batch_size`` rounds and raises as the JAX package's.
+- a mesh of ``data`` 1 x ``model`` 2 (it raised the tensor-parallel
+  refusal before tensor parallelism was ported): one GCD step's loss
+  within LOSS_RTOL of the one process's and the ranks' gathered
+  parameters equal; ``metric_learn.main --mesh_model 2`` exits normally
+  and rank 0 alone writes the run;
+- ``_mesh_batch_size`` rounds and raises as the JAX package's.
 """
 
 import os
@@ -127,6 +135,9 @@ def runs(tmp_path_factory):
     data = {"gcd": gcd, "e2e": e2e,
             "metric_learn": ENTRY + ["--batch_size", "16", "--proj_dim",
                                      "64", "--exp_root", str(tmp / "ml")],
+            "metric_learn_tp": ENTRY + ["--batch_size", "16", "--proj_dim",
+                                        "64", "--exp_root",
+                                        str(tmp / "ml_tp")],
             "run_baseline_e2e": ENTRY + ["--method", "uno", "--batch_size",
                                          "15"]}
     with ThreadPoolExecutor(1) as pool:
@@ -182,11 +193,10 @@ def test_gcd_steps_over_ranks_match_one_process_and_jax(runs):
                                                    rel=1e-3), name
 
 
-@pytest.mark.parametrize("method", ["uno", "autonovel"])
-def test_e2e_trainers_over_ranks_match_jax(runs, method):
+def _e2e_matches_jax(runs, method, tp):
     want = runs["jax"][method]
     for rank in runs["ranks"]:
-        got = rank["e2e"][method]
+        got = (rank["tp"] if tp else rank)["e2e"][method]
         assert len(got["history"]) == len(want) == 2
         for hg, hw in zip(got["history"], want):
             np.testing.assert_allclose(hg["loss"], hw["loss"], rtol=E2E_RTOL)
@@ -194,8 +204,22 @@ def test_e2e_trainers_over_ranks_match_jax(runs, method):
                 assert hg["best_head"] == hw["best_head"]
         assert got["preds"].shape == (N_CLS * N_PER,)
         assert got["preds"].max() < N_CLS
-        np.testing.assert_array_equal(got["preds"],
-                                      runs["ranks"][0]["e2e"][method]["preds"])
+        first = runs["ranks"][0]
+        np.testing.assert_array_equal(
+            got["preds"], (first["tp"] if tp else first)["e2e"][method][
+                "preds"])
+
+
+@pytest.mark.parametrize("method", ["uno", "autonovel"])
+def test_e2e_trainers_over_ranks_match_jax(runs, method):
+    _e2e_matches_jax(runs, method, tp=False)
+
+
+@pytest.mark.parametrize("method", ["uno", "autonovel"])
+def test_e2e_trainers_tensor_parallel_match_jax(runs, method):
+    """``data`` 1 x ``model`` 2: each rank holds half the backbone's
+    tensor-parallel parameters and both run every row."""
+    _e2e_matches_jax(runs, method, tp=True)
 
 
 def test_metric_learn_over_ranks_writes_once(runs):
@@ -222,10 +246,25 @@ def test_run_baseline_e2e_over_ranks_prints_once(runs):
 
 @pytest.mark.parametrize("path", ["make_gcd_state", "metric_learn"])
 def test_model_axis_raises_the_tensor_parallel_refusal(runs, path):
-    for rank in runs["ranks"]:
-        kind, msg = rank["tp"][path]
-        assert kind == "NotImplementedError"
-        assert "tensor parallelism" in msg
+    """Named for the refusal these paths gave a ``model`` axis before
+    tensor parallelism was ported; at ``data`` 1 x ``model`` 2 they now
+    train: the GCD step as the one process's, ``metric_learn`` with rank
+    0 alone writing."""
+    ranks = [rank["tp"][path] for rank in runs["ranks"]]
+    if path == "make_gcd_state":
+        for got in ranks:
+            np.testing.assert_allclose(got["losses"],
+                                       runs["single"]["losses"][:1],
+                                       rtol=LOSS_RTOL)
+            assert got["digests"] == ranks[0]["digests"]
+        return
+    r0, r1 = ranks
+    assert r0["log_dir"] == r1["log_dir"]
+    assert os.listdir(runs["tmp"] / "ml_tp" / "metric_learn" / "log") == [
+        os.path.basename(r0["log_dir"])]
+    assert "ckpt_0.pt" in r0["files"]
+    assert r0["last"] == r1["last"]
+    assert all(np.isfinite(v) for v in r0["last"].values())
 
 
 def test_mesh_batch_size_rounds_and_raises_as_jax():

@@ -23,9 +23,9 @@ Phases, each printing its own lines and seconds:
    attention at a training step's shape, B 256 x L 197 x H 12 x d 64 bf16,
    at L 208 with l_valid 197, in f32 at head_dim 64 (L 1, 65, 197, 257,
    577) and at head_dim 128 and 40 (SIMT), at L 1, 17 and 256, at L 257,
-   325 and 577 (B 32: image 256, 288, 384), and the shapes it does not take
-   raising), with the stated tolerances; every kernel must also repeat
-   its bits exactly;
+   325 and 577 (B 32: image 256, 288, 384), and the shapes it does not take,
+   a misaligned head_dim-64 view and head_dim 288, raising), with the
+   stated tolerances; every kernel must also repeat its bits exactly;
 3. the warm main path: an ImageNet-100-scale root fabricated from
    ``--seed`` (N = 130,048 images, 768-d / 512-d features, V = 68,000
    nouns) and ``scd_tpu_torch.pipelines.unsup.run_unsup`` from the stage
@@ -87,7 +87,7 @@ Phases, each printing its own lines and seconds:
    [50, 1,200], n_init 10, max_iterations 10): every unlabelled cluster
    size within the bounds, its E-steps' count, seconds, dual iterations
    and MCF fallbacks printed.  Then the exact MCF track at full width
-   over half the 97,536 unlabelled rows, cut to n_init 1 and
+   over a quarter of the 97,536 unlabelled rows, cut to n_init 1 and
    max_iterations 1 (the host solver takes ~47 s an E-step over all of
    them), the solver's
    and the device step's seconds per iteration; the MCF track on the
@@ -267,9 +267,31 @@ Phases, each printing its own lines and seconds:
    ``--int8_frozen``, with (a)'s gates; before the worlds, fc2's bf16
    product at (a)'s rows as one GEMM and as two f32 partial sums (the
    share of elements apart printed); (d)
-   ``graft_entry.dryrun_multichip(8)`` on the card.  Each rank's ms a
+   ``graft_entry.dryrun_multichip(4)`` on the card.  Each rank's ms a
    step, bytes and launches are printed beside the card's name and power
    limit.
+16. attention at every head_dim and under causal, the scripts'
+   counterparts, the prefix-KV build over ranks: (a) the forward's bf16
+   SIMT route (head_dim 8, 16, 32 and 128 at L 1, 5, 17, 197 and 300,
+   causal and not, l_valid < L), f32 rows past shared memory, and the
+   gradient's new routes (bf16 at head_dim 32 at the micro ViT's B 256 x
+   L 197 x H 2, f32 at head_dim 32 at L 290 and 785, causal at head_dim
+   64 in bf16 and f32 on ``wgmma`` and at head_dim 32 on SIMT), each
+   against its plain version and timed beside SDPA's forward or backward
+   and its bound, a line a shape; (b) ``DEVICE=cuda bash
+   scd_tpu_torch/scripts/smoke_all.sh`` (its gpu suite left to a call of
+   its own, ``SMOKE_GPU_SUITE=0``), each CLI's seconds, then
+   ``metric_learn.main --vit micro`` (bf16) and ``run_baseline_e2e.main
+   --vit micro --image_size 136`` (f32, L 290) in this process, counted,
+   every kernel call held against its plain version; (c)
+   ``scd_tpu_torch.scripts.multihost_smoke --launch 2`` in its four modes
+   (stages, ``--pipeline unsup|ptsup|train``) at once, gloo ranks sharing
+   the card, each world's digests agreeing; (d)
+   ``build_zeroshot_weights_prefix`` over 2 gloo ranks against one
+   process at phase 12's CLIP ViT-B/16 text tower (bf16), 2,048 names x
+   80 templates, min column cosine >= PREFIX_COS_TOL; (e)
+   ``scd_tpu_torch.scripts.scale_smoke --small`` on the card against
+   ``tests/test_scale_smoke.py``'s thresholds.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that never launched fails
@@ -292,7 +314,10 @@ its launches: ``fused_em_step`` in its ``estimate_k`` search, the
 attention and its gradient in its GCD steps, their f32 kernels in its
 end-to-end trainers; so does phase 15's rank 0 (the attention and its
 gradient in (a) and (c), ``w8a8_fusedq`` in (c), the f32 kernels in
-(b)).
+(b)), and phase 16's micro main paths theirs; its two rows of their own,
+``attention_simt_bf16`` (the forward's bf16 launches of the SIMT kernel)
+and ``attention_bwd_simt`` (the gradient's SIMT route), carry those runs'
+launches and phase 16's times at the micro ViT's training shape.
 Phase 8 reads its own launches (``topk_softmax`` and ``fused_em_step``
 in its ``run_ptsup``) and prints them on a line of their own; so do
 phase 13 (each rank's) and
@@ -337,8 +362,9 @@ COLD_IMAGES, COLD_VOCAB, BATCH, L_PAD, L_VIT = 10_000, 8_000, 128, 208, 197
 # 5,120 prompts took ~240 s of a ~880 s smoke on an H100's host (16 took
 # 57.1 s with the 8 images' features, and the unpadded DINO pass's 256
 # images 50.0 s, on an H100 host whose smoke ran 1,197.6 s: the CPU side
-# of that pass holds its first COLD_CPU_PAD0_IMAGES)
-COLD_CPU_COLUMNS = 8
+# of that pass holds its first COLD_CPU_PAD0_IMAGES); 4 since phase 16
+# came (8 columns and the 8 images' features took 27.2 s)
+COLD_CPU_COLUMNS = 4
 COLD_CPU_PAD0_IMAGES = 32
 # a ViT-B/16 tower at image 256: 16 x 16 patches + class token
 IMAGE_LONG, L_257 = 256, 257
@@ -530,9 +556,11 @@ def phase_build():
                       f"{src}: ptxas serializes the {kern}'s wgmma")
     if "attention_bwd" in reports:  # built now: its ptxas report is here
         lines = ptxas_summary(reports["attention_bwd"])
-        for kern in BWD_WGMMA_KERNELS:
-            check(any(ln.startswith(f"{kern}:") and "spill 0 / 0 bytes" in ln
-                      for ln in lines), f"attention_bwd: the {kern} spills")
+        for kern in BWD_WGMMA_KERNELS:  # every instance (dQ: causal or not)
+            mine = [ln for ln in lines if ln.startswith((f"{kern}:",
+                                                         f"{kern}<"))]
+            check(mine and all("spill 0 / 0 bytes" in ln for ln in mine),
+                  f"attention_bwd: an instance of the {kern} spills")
             check(not any("wgmma" in ln and kern in ln for ln in lines),
                   f"attention_bwd: ptxas serializes the {kern}'s wgmma")
     hmma = sass_counts(build.library_path("prefix_attention"), ("HMMA",))
@@ -958,7 +986,7 @@ def attention_parity(b, length, h, d, dtype, gen, causal=False, l_valid=None,
 
 
 def attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=None, tag="",
-                         inputs=None, scale=None):
+                         inputs=None, scale=None, causal=False):
     """The gradient kernel (``qkv_attention_bwd_cuda``) against autograd
     of ``attention_plain`` on the card (``qkv_attention_bwd_plain``), from
     a random packed qkv and output gradient, or ``inputs`` (qkv, dout) a
@@ -978,15 +1006,15 @@ def attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=None, tag="",
                            device="cuda").to(dtype)
     else:
         qkv, dout = inputs
-    got = A.qkv_attention_bwd_cuda(qkv, dout, h, scale, False, l_valid)
-    again = A.qkv_attention_bwd_cuda(qkv, dout, h, scale, False, l_valid)
+    got = A.qkv_attention_bwd_cuda(qkv, dout, h, scale, causal, l_valid)
+    again = A.qkv_attention_bwd_cuda(qkv, dout, h, scale, causal, l_valid)
     torch.cuda.synchronize()
     name = f"attention_bwd {tag}"
     check(torch.equal(got, again), f"{name}: two runs differ")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite gradient")
-    want = A.qkv_attention_bwd_plain(qkv, dout, h, scale, False, l_valid)
+    want = A.qkv_attention_bwd_plain(qkv, dout, h, scale, causal, l_valid)
     lv = length if l_valid is None else l_valid
-    bound = grad_bound(qkv, dout, h, scale, lv, want)
+    bound = grad_bound(qkv, dout, h, scale, lv, want, causal)
     errs = []
     for part, g, w, m in zip("qkv", A._heads(got, h), A._heads(want, h),
                              A._heads(bound, h)):
@@ -1000,7 +1028,8 @@ def attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=None, tag="",
                and (A._heads(got, h)[2][:, lv:] == 0).all()),
           f"{name}: nonzero dK or dV at a masked key")
     print(f"  {name} B={b} L={length} H={h} d={d} {str(dtype)[6:]} "
-          f"l_valid={l_valid}: max abs err dq/dk/dv "
+          f"causal={causal} l_valid={l_valid} "
+          f"route={A.bwd_route(dtype, d)}: max abs err dq/dk/dv "
           + " / ".join(f"{e:.3e} (max {m:.3e}, {r:.3f} of bound)"
                        for e, m, r in errs))
     return max(e for e, _m, _r in errs)
@@ -1048,17 +1077,12 @@ def parity_attention_bwd(seed: int):
     check(_counts()["attention_bwd_f32"] - before == n,
           "attention_bwd: an f32 shape at another head_dim took the f32 "
           "kernels at head_dim 64")
-    qkv = torch.zeros(2, 257, 3 * 64, device="cuda", dtype=bf16)
-    dout = torch.zeros(2, 257, 64, device="cuda", dtype=bf16)
+    dout = torch.zeros(2, 16, 288, device="cuda", dtype=bf16)
     off = torch.zeros(2 * 16 * 3 * 64 + 1, device="cuda")[1:].view(2, 16, 192)
-    for args, what in (((qkv[..., :96].float(), dout[..., :32].float(), 1,
-                         0.125), "f32 L 257 head_dim 32"),
-                       ((qkv[:, :16], dout[:, :16], 1, 0.125, True),
-                        "causal"),
-                       ((qkv[:, :16], dout[:, :16], 2, 0.125),
-                        "bf16 head_dim 32"),
-                       ((off, dout[:, :16].float(), 1, 0.125),
-                        "a misaligned f32 head_dim-64 view")):
+    wide = torch.zeros(2, 16, 3 * 288, device="cuda", dtype=bf16)
+    for args, what in (((off, dout[..., :64].float(), 1, 0.125),
+                        "a misaligned f32 head_dim-64 view"),
+                       ((wide, dout, 1, 0.125), "head_dim 288")):
         try:
             A.qkv_attention_bwd_cuda(*args)
         except (NotImplementedError, ValueError):
@@ -1381,8 +1405,10 @@ def _counters():
     ``attention``) and of those the bf16 ``wgmma`` long path's, the f32
     attention forward's and gradient's launches at head_dim 64 (three TF32
     passes on ``wgmma``; also in ``attention`` and ``attention_bwd``), the
-    top-k route past the kernel (k > 16), and the prefix attention's
-    launches and of those the ``mma.sync`` kernel's."""
+    top-k route past the kernel (k > 16), the prefix attention's
+    launches and of those the ``mma.sync`` kernel's, the attention's bf16
+    launches of the SIMT kernel (head_dim != 64), and the gradient's
+    launches on the SIMT route and under ``causal``."""
     from scd_tpu_torch.ops import attention, distance, em, topk, w8a8
 
     return {"topk_softmax": (topk.topk_softmax_cuda, "launches"),
@@ -1401,6 +1427,12 @@ def _counters():
                               "launches"),
             "attention_bwd_f32": (attention.qkv_attention_bwd_cuda,
                                   "f32_wgmma_launches"),
+            "attention_simt_bf16": (attention.attention_cuda,
+                                    "simt_bf16_launches"),
+            "attention_bwd_simt": (attention.qkv_attention_bwd_cuda,
+                                   "simt_launches"),
+            "attention_bwd_causal": (attention.qkv_attention_bwd_cuda,
+                                     "causal_launches"),
             "prefix_attention": (attention.prefix_attention_cuda,
                                  "launches"),
             "prefix_attention_mma": (attention.prefix_attention_cuda,
@@ -2234,7 +2266,7 @@ def phase_runners(seed: int, workdir: str):
 # main_unsup.py:219-220) at ImageNet-100 scale; on the small root, bounds
 # its ~3,000 unlabelled rows over 100 clusters can meet
 SIZE_MIN, SIZE_MAX, SMALL_SIZE_MIN, SMALL_SIZE_MAX = 50, 1_200, 5, 100
-MCF_ROWS = (N_IMAGES - 32_512) // 2  # the MCF track's unlabelled rows
+MCF_ROWS = (N_IMAGES - 32_512) // 4  # the MCF track's unlabelled rows
 # the ptsup commands of scripts/smoke_all.sh (ConSSKM) and
 # scripts/evaluate_partial_supervised.sh (SSKM), asset-free
 SMOKE_PTSUP = ["--dataset_name", "synthetic", "--cluster", "ConSSKM",
@@ -2535,10 +2567,10 @@ def phase_ptsup(seed: int, cfg, workdir: str):
     for name, ms, count in top:
         print(f"  {ms:.2f} ms in {count} launches of {name}")
 
-    # cut: n_init 1, max_iterations 1, half the unlabelled rows (the host
-    # solver took 47.2 s an E-step over all of them on an H100's host,
-    # 76.0 s on a slower H100 host; this keeps the smoke, phases 14-15
-    # included, inside its time)
+    # cut: n_init 1, max_iterations 1, a quarter of the unlabelled rows
+    # (the host solver took 47.2 s an E-step over all of them on an H100's
+    # host, 76.0 s on a slower H100 host, 22.5 s over half on another;
+    # this keeps the smoke, phases 14-16 included, inside its time)
     t0 = time.perf_counter()
     res, counts, wall = mcf_full_width(cfg, "cuda", SIZE_MIN, SIZE_MAX,
                                        rows=MCF_ROWS)
@@ -2834,10 +2866,10 @@ def hold_path_inputs(seen, tag):
     for i, a in enumerate(seen["attention_bwd"].values()):
         qkv, h = a["qkv"], a["heads"]
         b, length, w3 = qkv.shape
-        check(not a["causal"], f"attention_bwd {tag}: a causal call ran")
         attention_bwd_parity(b, length, h, w3 // (3 * h), qkv.dtype, None,
                              a["l_valid"], tag=f"{tag} #{i}",
-                             inputs=(qkv, a["dout"]), scale=a["scale"])
+                             inputs=(qkv, a["dout"]), scale=a["scale"],
+                             causal=a["causal"])
     for i, a in enumerate(seen["w8a8_fusedq"].values()):
         x, wq_t = a["x"], a["wq_t"]
         fusedq_parity(x.shape[0], x.shape[1], wq_t.shape[0], a["act"],
@@ -4341,6 +4373,15 @@ KERNELS = [
     ("prefix_attention", "scd_tpu_torch/csrc/prefix_attention.cu",
      "none: XLA einsums of scd_tpu/models/vit.py:308 (_prefix_attention)",
      "prefix_attention_mma"),
+    # the routes of phase 16, counted apart: the forward's bf16 SIMT
+    # kernel (head_dim != 64: the micro ViT) and the gradient's SIMT
+    # kernels; launches from phase 16's micro main paths, times at the
+    # micro ViT's training shape (B 256 x L 197 x H 2 x d 32, bf16)
+    ("attention_simt_bf16", "scd_tpu_torch/csrc/attention.cu",
+     "scd_tpu/ops/pallas_kernels.py:309", "attention_simt_bf16"),
+    ("attention_bwd_simt", "scd_tpu_torch/csrc/attention_bwd.cu",
+     "none: XLA autodiff of scd_tpu/models/vit.py:338",
+     "attention_bwd_simt"),
 ]
 
 
@@ -4799,7 +4840,9 @@ TP_GCD_IMAGES, TP_GCD_STEPS, TP_GCD32_STEPS = 32, 3, 2
 TP_NOISE = 4.0
 TP_E2E_IMAGES = 16
 TP_MESH_IMAGES, TP_MESH_DEPTH = 16, 2
-TP_DRYRUN_RANKS = 8
+# the dry run's ranks: 8 took 50.2 s on an H100's host (8 interpreters
+# on 8 cores), 4 since phase 16 came
+TP_DRYRUN_RANKS = 4
 TP_DEADLINE = 600
 
 
@@ -5047,6 +5090,450 @@ def phase_tensor_parallel(seed: int):
                 e[m]["launches"]["attention_bwd_f32"] for m in e)}
 
 
+# ------------------------------------------------------------- phase 16
+
+# (a) the attention routes: the forward's head_dims and sequences (bf16,
+# causal and not, l_valid < L), B x H of each case, and the micro ViT's
+# training shape (``metric_learn --vit micro``: width 64 over 2 heads,
+# 128 images x 2 views, at 224 px L 197)
+ROUTE_HDS = (8, 16, 32, 128)
+ROUTE_LS = (1, 5, 17, 197, 300)
+ROUTE_B, ROUTE_H = 8, 3
+MICRO_B, MICRO_H, MICRO_D = 256, 2, 32
+
+
+def _sdpa_mask(length, causal, l_valid):
+    """The boolean mask (True: attend) SDPA takes for this input, or
+    None."""
+    import torch
+
+    if not causal and l_valid >= length:
+        return None
+    col = torch.arange(length, device="cuda")
+    keep = (col < l_valid)[None, :].expand(length, length)
+    if causal:
+        keep = keep & (col[None, :] <= col[:, None])
+    return keep
+
+
+def time_route(kind, b, length, h, d, dtype, causal=False, l_valid=None,
+               gen=None, reps=10):
+    """One route at one shape, timed with CUDA events: the kernel (the
+    forward through ``vit_attention``, or ``qkv_attention_bwd_cuda``),
+    its plain version, SDPA's forward or its backward by autograd (a
+    yardstick, called nowhere in the port) and the bound; prints a line
+    and returns (ms, plain_ms, sdpa_ms, bound_ms, bound_by)."""
+    import torch
+    import torch.nn.functional as F
+
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing import attention_bwd as T
+
+    lv = length if l_valid is None else l_valid
+    f32 = dtype == torch.float32
+    scale = d ** -0.5
+    qkv = torch.randn(b, length, 3 * h * d, generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = A._heads(qkv, h)
+    mask = _sdpa_mask(length, causal, lv)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if kind == "fwd":
+        route = A.attention_route(dtype, d, length)
+
+        def kern():
+            return A.vit_attention(q, k, v, scale, causal, lv)
+
+        def plain():
+            return A.attention_plain(q, k, v, scale, causal, lv)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, mask,
+                                                  scale=scale)
+
+        bound, by = _attention_bound(b, length, h, d, causal, lv, f32)
+    else:
+        route = A.bwd_route(dtype, d)
+        dout = torch.randn(b, length, h * d, generator=gen,
+                           device="cuda").to(dtype)
+        do_t = dout.view(b, length, h, d).transpose(1, 2)
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        out = F.scaled_dot_product_attention(*leaves, mask, scale=scale)
+
+        def kern():
+            return A.qkv_attention_bwd_cuda(qkv, dout, h, scale, causal, lv)
+
+        def plain():
+            return A.qkv_attention_bwd_plain(qkv, dout, h, scale, causal, lv)
+
+        def lib():
+            return torch.autograd.grad(out, leaves, do_t, retain_graph=True)
+
+        bound, by = T.bound_ms(b, length, h, d, lv, f32, causal)
+    ms = cuda_ms(kern, reps=reps, warmup=2)
+    plain_ms = cuda_ms(plain, reps=3)
+    lib_ms = cuda_ms(lib, reps=reps, warmup=2)
+    print(f"  time {kind} {route} B={b} L={length} H={h} d={d} "
+          f"{str(dtype)[6:]} causal={causal} l_valid={lv}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+          f"bound {bound:.5f} ms ({by}); {ms / bound:.1f} x the bound, "
+          f"{ms / lib_ms:.2f} x SDPA", flush=True)
+    return ms, plain_ms, lib_ms, bound, by
+
+
+def attention_routes(seed: int):
+    """(a): every new route of the attention and its gradient against its
+    plain version (phases 2 and 5's tolerances), each timed
+    (``time_route``).  The forward in bf16 at head_dim 8, 16, 32 and 128
+    and L 1, 5, 17, 197 and 300, causal and not, l_valid < L where L > 1
+    (the key-tiled SIMT kernel), f32 at L <= 256 whose rows do not fit the
+    whole-row kernel (head_dim 128 at L 256: the key-tiled one) and f32 at
+    head_dim 32 (the whole-row one); the gradient in bf16 at head_dim 32
+    (the micro ViT's training shape), f32 at head_dim 32 at L 290 and 785
+    (the SIMT route past 256 keys), and causal at head_dim 64 (bf16 and
+    f32 on ``wgmma``; the text tower's B 64 x L 77 x H 8, and L 300 with
+    l_valid 290 for the tiles the causal mask skips) and 32.  Each route's
+    counter must move by its calls.  Returns ({row: (ms, plain_ms,
+    sdpa_ms, bound_ms, bound_by)}, {row: max abs err}) of the kernels
+    line's two rows of the new routes."""
+    import torch
+
+    from scd_tpu_torch.ops import attention as A
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    c0 = _counts()
+    fwd_err = 0.0
+    for d in ROUTE_HDS:
+        for length in ROUTE_LS:
+            check(A.attention_route(bf16, d, length) == "long_simt",
+                  f"attention: bf16 d {d} L {length} routes to "
+                  f"{A.attention_route(bf16, d, length)}")
+            for causal in (False, True):
+                lv = length - 3 if length > 5 else None
+                fwd_err = max(fwd_err, attention_parity(
+                    ROUTE_B, length, ROUTE_H, d, bf16, gen, causal=causal,
+                    l_valid=lv, tag="route-long_simt"))
+                time_route("fwd", ROUTE_B, length, ROUTE_H, d, bf16, causal,
+                           lv, gen)
+    n = _counts()["attention_simt_bf16"] - c0["attention_simt_bf16"]
+    want = 2 * 2 * len(ROUTE_HDS) * len(ROUTE_LS)
+    check(n >= want, f"attention: {n} launches of the bf16 SIMT route for "
+          f"{want} calls")
+    check(A.attention_route(f32, 128, 256) == "long_simt"
+          and A.attention_route(f32, 32, 197) == "f32_simt",
+          "attention: the f32 routes at L <= 256")
+    attention_parity(4, 256, 3, 128, f32, gen, l_valid=250,
+                     tag="route-long_simt f32 rows past shared memory")
+    attention_parity(4, 197, 3, 32, f32, gen, causal=True,
+                     tag="route-f32_simt")
+    micro_inputs = _attn_inputs(MICRO_B, L_VIT, MICRO_H, MICRO_D, bf16, True,
+                                gen)
+    errs = {"attention_simt_bf16": max(fwd_err, attention_parity(
+        MICRO_B, L_VIT, MICRO_H, MICRO_D, bf16, gen, tag="micro-224",
+        inputs=micro_inputs))}
+    del micro_inputs
+    times = {"attention_simt_bf16": time_route(
+        "fwd", MICRO_B, L_VIT, MICRO_H, MICRO_D, bf16, gen=gen)}
+
+    c1 = _counts()
+    bwd_cases = (  # (b, L, h, d, dtype, causal, l_valid, tag)
+        (MICRO_B, L_VIT, MICRO_H, MICRO_D, bf16, False, None, "micro-224"),
+        (16, 290, 2, 32, f32, False, None, "f32-L290"),
+        (4, 785, 2, 32, f32, False, 770, "f32-L785"),
+        (64, 77, 8, 64, bf16, True, None, "causal-text"),
+        (64, 77, 8, 64, f32, True, None, "causal-text-f32"),
+        (8, 300, 4, 64, bf16, True, 290, "causal-L300"),
+        (8, 300, 4, 64, f32, True, 290, "causal-L300-f32"),
+        (64, 77, 8, 32, bf16, True, None, "causal-d32"),
+        (16, 290, 2, 32, f32, True, 280, "causal-d32-f32"),
+        (5, 1, 3, 32, bf16, False, None, "edge-L1"),
+        (7, 17, 5, 16, bf16, True, 9, "edge-L17-d16"),
+        (3, 65, 2, 128, bf16, False, None, "edge-d128"),
+        (2, 40, 2, 256, f32, True, None, "edge-d256"))
+    bwd_err = 0.0
+    for b, length, h, d, dtype, causal, lv, tag in bwd_cases:
+        err = attention_bwd_parity(b, length, h, d, dtype, gen, l_valid=lv,
+                                   tag=f"route-{tag}", causal=causal)
+        if A.bwd_route(dtype, d) == "simt":
+            bwd_err = max(bwd_err, err)
+        time_route("bwd", b, length, h, d, dtype, causal, lv, gen,
+                   reps=3 if length > 500 else 10)
+    c2 = _counts()
+    n_simt = sum(A.bwd_route(c[4], c[3]) == "simt" for c in bwd_cases)
+    n_causal = sum(c[5] for c in bwd_cases)
+    for key, n in (("attention_bwd_simt", n_simt),
+                   ("attention_bwd_causal", n_causal)):
+        got = c2[key] - c1[key]
+        check(got >= 2 * n, f"{key}: {got} launches for {n} shapes x 2")
+    errs["attention_bwd_simt"] = bwd_err
+    times["attention_bwd_simt"] = time_route(
+        "bwd", MICRO_B, L_VIT, MICRO_H, MICRO_D, bf16, gen=gen)
+    return times, errs
+
+
+# (b) the micro ViT on the card, the fault's reproduction: each CLI of
+# smoke_all.sh's counterpart in a process of its own, then metric_learn
+# (bf16) and run_baseline_e2e (f32 at image 136: L 290, the gradient's
+# SIMT route past 256 keys) in this process, counted
+MICRO_TRAIN = ["--dataset_name", "synthetic", "--vit", "micro",
+               "--epochs", "1", "--device", "cuda"]
+
+
+def _stop_group(proc):
+    """Kill ``proc`` (started with ``start_new_session``) and every process
+    of its session, if it still runs."""
+    import signal
+
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+
+
+class SmokeAllCuda:
+    """``DEVICE=cuda bash scd_tpu_torch/scripts/smoke_all.sh`` (the card's
+    gpu suite left to its own call: ``SMOKE_GPU_SUITE=0``) in the
+    background: started by the constructor, read by a thread that notes
+    each CLI's seconds from the moment its trace line arrives to the next
+    one's; :meth:`join` waits and checks exit 0 and ``ALL CLIS OK``."""
+
+    def __init__(self, pycache: str):
+        import threading
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        # ten interpreters import the same modules: their bytecode is
+        # cached after the first, under the smoke's own directory
+        env = {k: v for k, v in os.environ.items()
+               if k != "PYTHONDONTWRITEBYTECODE"}
+        env.update(DEVICE="cuda", SMOKE_GPU_SUITE="0",
+                   PYTHONPYCACHEPREFIX=os.path.join(pycache, "pycache"))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            ["bash", "scd_tpu_torch/scripts/smoke_all.sh"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=here, start_new_session=True)
+        self.lines, self.seconds = [], []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        last = None
+        for ln in self.proc.stdout:
+            self.lines.append(ln)
+            if ln.startswith(("+ python ", "+ echo ")):
+                now = time.perf_counter()
+                if last is not None:
+                    self.seconds.append((last[1], now - last[0]))
+                words = ln.split()
+                last = (now, words[3] if len(words) > 3 else ln.strip())
+
+    def stop(self):
+        """End the smoke and every process it started."""
+        _stop_group(self.proc)
+
+    def join(self, timeout=600):
+        rc = self.proc.wait(timeout=timeout)
+        self.reader.join(timeout=60)
+        check(rc == 0 and any(ln.strip() == "ALL CLIS OK"
+                              for ln in self.lines),
+              f"smoke_all.sh at DEVICE=cuda: rc {rc}\n"
+              + "".join(self.lines[-40:]))
+        for name, sec in self.seconds:
+            print(f"  smoke_all (cuda) {name}: {sec:.1f} s")
+        print(f"  smoke_all (cuda): ALL CLIS OK in "
+              f"{time.perf_counter() - self.t0:.1f} s (beside (c)-(e))",
+              flush=True)
+
+
+def micro_main_paths(workdir):
+    """``metric_learn.main --vit micro`` (bf16, image 32: L 5) and
+    ``run_baseline_e2e.main --vit micro`` (f32, image 136: L 290) on the
+    card, counts set to 0 just before and read just after each, every
+    kernel call held against its plain version (``path_inputs``).
+    Returns the launches of both runs."""
+    from scd_tpu_torch.train import metric_learn, run_baseline_e2e
+
+    total = {}
+    for tag, fn, argv in (
+            ("metric_learn micro bf16", metric_learn.main,
+             MICRO_TRAIN + ["--image_size", "32", "--batch_size", "8",
+                            "--steps_per_epoch", "2", "--proj_dim", "32",
+                            "--grad_from_block", "0", "--max_kmeans_iter",
+                            "10", "--exp_root", os.path.join(workdir, "ml")]),
+            ("run_baseline_e2e micro f32 at 136 px", run_baseline_e2e.main,
+             MICRO_TRAIN + ["--method", "uno", "--image_size", "136",
+                            "--batch_size", "32", "--num_heads", "2"])):
+        with path_inputs() as seen:
+            _reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fn(argv)
+            sec = time.perf_counter() - t0
+            launches = _counts()
+        print(f"  {tag}: {sec:.1f} s, launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}",
+              flush=True)
+        hold_path_inputs(seen, tag)
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+    check(total["attention_simt_bf16"] > 0,
+          "the micro ViT's bf16 forward launched no SIMT attention")
+    check(total["attention_bwd_simt"] > 0,
+          "the micro ViT's gradients launched no SIMT gradient kernel")
+    return total
+
+
+# (c) the multihost smoke's four modes, two gloo ranks a world, the four
+# worlds at once on the card
+MULTIHOST_MODES = ("", "unsup", "ptsup", "train")
+
+
+def multihost_cuda():
+    """``python -m scd_tpu_torch.scripts.multihost_smoke --launch 2`` in
+    the default mode and ``--pipeline unsup|ptsup|train`` at once: each
+    launcher exits 0 (its ranks' digests agree)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    for mode in MULTIHOST_MODES:
+        procs[mode or "stages"] = subprocess.Popen(
+            [sys.executable, "-m", "scd_tpu_torch.scripts.multihost_smoke",
+             "--launch", "2", "--device", "cuda", "--timeout", "300"]
+            + (["--pipeline", mode] if mode else []),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=here, start_new_session=True)
+    try:
+        for mode, proc in procs.items():
+            out, _ = proc.communicate(timeout=400)
+            ok = [ln for ln in out.splitlines()
+                  if ln.startswith("multihost smoke ok")]
+            check(proc.returncode == 0 and ok,
+                  f"multihost smoke ({mode}): rc {proc.returncode}\n"
+                  + out[-3000:])
+            print(f"  multihost ({mode}): {ok[0][:200]}")
+    finally:
+        for proc in procs.values():
+            _stop_group(proc)
+    print(f"  multihost smoke, 4 worlds of 2 ranks at once: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# (d) the prefix-KV build over 2 gloo ranks against one process: phase
+# 12's shapes cut to 2,048 names
+PREFIX_RANK_NAMES = 2_048
+
+
+def prefix_over_ranks(seed, workdir):
+    """Phase 12's cold root and CLIP ViT-B/16 text tower (bf16), 2,048 of
+    its short names x the 80 templates: ``build_zeroshot_weights_prefix``
+    in this process and over 2 gloo ranks on the card
+    (``testing/mesh_cases.py::prefix_vocab_build``); every rank's [512,
+    2,048] equal to the other's and at min column cosine >=
+    PREFIX_COS_TOL to this process's; the prefix kernel launched on the
+    ``mma.sync`` kernel in each rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from scd_tpu_torch.models import clip_vit_b16_config, dino_vit_b16_config
+    from scd_tpu_torch.naming import zeroshot as zs
+    from scd_tpu_torch.naming.templates import IMAGENET_TEMPLATES
+    from scd_tpu_torch.pipelines.unsup import build_encoders
+    from scd_tpu_torch.testing.dist import spawn
+    from scd_tpu_torch.testing.fabricate import (cold_config,
+                                                 fabricate_cold_root,
+                                                 short_names)
+
+    cfg = cold_config(os.path.join(workdir, "prefix"), dense_int8=False,
+                      batch_size=BATCH, num_workers=1)
+    cfg = cfg.replace(feature=dataclasses.replace(cfg.feature,
+                                                  feat_model="clip"))
+    fabricate_cold_root(cfg, clip_vit_b16_config(),
+                        dino_vit_b16_config(gelu_tanh=cfg.feature.gelu_tanh),
+                        seed=seed, n_images=100, vocab=PREFIX_RANK_NAMES)
+    enc = build_encoders(cfg, {}, device="cuda")[2]
+    names = short_names(enc.tokenize, PREFIX_RANK_NAMES, seed)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        one = zs.build_zeroshot_weights_prefix(
+            enc.forward, enc.prefix_forward, enc.suffix_forward,
+            enc.variables, enc.tokenize, names, IMAGENET_TEMPLATES)
+    t_one = time.perf_counter() - t0
+    del enc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn("scd_tpu_torch.testing.mesh_cases.prefix_vocab_build",
+                  world=2, backend="gloo", device="cuda",
+                  args=({"pipeline": cfg, "cases": {
+                      "cached": (names, IMAGENET_TEMPLATES, 8_192)}},),
+                  timeout=300)
+    t_ranks = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        check(res["cached"].shape == one.shape == (D_CLIP, len(names)),
+              f"prefix over ranks: rank {r} shape {res['cached'].shape}")
+        check(np.array_equal(res["cached"], ranks[0]["cached"]),
+              f"prefix over ranks: rank {r}'s columns differ from rank 0's")
+        check(res["launches"]["prefix_attention_mma"] > 0
+              and res["launches"]["prefix_attention_mma"]
+              == res["launches"]["prefix_attention"],
+              f"prefix over ranks: rank {r} launches {res['launches']}")
+    cos = _row_cos(ranks[0]["cached"].T, one.T)
+    print(f"  prefix build over 2 ranks ({len(names)} names x "
+          f"{len(IMAGENET_TEMPLATES)} templates): column cosine to one "
+          f"process min {cos.min().item():.7f} (tolerance {PREFIX_COS_TOL}); "
+          f"one process {t_one:.2f} s (first build, cold), the world "
+          f"{t_ranks:.2f} s start-up included; launches a rank "
+          f"{ranks[0]['launches']}", flush=True)
+    check(cos.min().item() >= PREFIX_COS_TOL,
+          "prefix over ranks disagrees with one process")
+
+
+def phase_scripts_and_routes(seed: int, workdir: str):
+    """Phase 16: (a) the attention routes (:func:`attention_routes`), (b)
+    ``smoke_all.sh``'s counterpart at ``DEVICE=cuda`` and the micro ViT's
+    main paths in this process, (c) the multihost smoke's four modes, (d)
+    the prefix-KV build over 2 ranks, (e) the scale smoke at ``--small``.
+    Returns (times, errs, launches) for the kernels line."""
+    from scd_tpu_torch.scripts import scale_smoke
+
+    t0 = time.perf_counter()
+    times, errs = attention_routes(seed)
+    print(f"phase 16 (a) {time.perf_counter() - t0:.1f} s", flush=True)
+    # (a) timed the kernels alone on the card; the rest shares it: the
+    # smoke's CLIs, one process after another, run beside (b)-(e)
+    smoke = SmokeAllCuda(workdir)
+    try:
+        t0 = time.perf_counter()
+        launches = micro_main_paths(workdir)
+        print(f"phase 16 (b) {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        multihost_cuda()
+        print(f"phase 16 (c) {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        prefix_over_ranks(seed, workdir)
+        print(f"phase 16 (d) {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            res = scale_smoke.main(["--small", "--device", "cuda"])
+        for ln in buf.getvalue().splitlines():
+            print(f"  {ln}")
+        lo, hi = res["consskm_sizes"]
+        check(res["sskm_acc"][0] > 0.9 and lo >= 30 and hi <= 2000
+              and res["topk_hit"] > 0.9 and res["voting_sacc"] > 0.9
+              and res["ub"] >= res["lb"] - 1e-9,
+              f"scale smoke (--small, cuda): {res}")
+        print(f"phase 16 (e) {time.perf_counter() - t0:.1f} s", flush=True)
+    except BaseException:
+        smoke.stop()
+        raise
+    smoke.join()
+    return times, errs, launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5175,7 +5662,20 @@ def main(argv=None) -> int:
     for key, n in tp_launches.items():
         launches[key] += n
     print(f"launches in phase 15's rank 0: {json.dumps(tp_launches)}")
-    print(f"phase 15 {time.perf_counter() - t0:.1f} s; total "
+    print(f"phase 15 {time.perf_counter() - t0:.1f} s")
+    section("phase 16: attention at every head_dim and under causal, the "
+            "scripts' counterparts, the prefix-KV build over ranks")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        route_times, route_errs, route_launches = phase_scripts_and_routes(
+            args.seed, workdir)
+    times.update(route_times)
+    errs.update(route_errs)
+    for key, n in route_launches.items():
+        launches[key] = launches.get(key, 0) + n
+    print(f"launches in phase 16's micro main paths: "
+          f"{json.dumps({k: v for k, v in route_launches.items() if v})}")
+    print(f"phase 16 {time.perf_counter() - t0:.1f} s; total "
           f"{time.perf_counter() - t_all:.1f} s")
 
     rows = []

@@ -138,17 +138,6 @@ def check_mesh(mesh) -> Optional[MeshContext]:
         f"{type(mesh).__name__}")
 
 
-def refuse_mesh(mesh, what: str, later: str) -> None:
-    """Raise where a mesh of more than one rank reaches a path that is not
-    ported over ranks yet; nothing runs rank-alone or on rank 0 alone.  A
-    mesh of one rank runs the single-device path."""
-    if not single_rank(mesh):
-        raise NotImplementedError(
-            f"{what} over a mesh of more than one rank is not ported yet "
-            f"(multi-device: {later}, ROADMAP queue 1); run it with "
-            "mesh=None or on one rank")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelGroup:
     """What a tensor-parallel layer carries: the process group of this

@@ -59,8 +59,10 @@
 // f32 at head_dim 64, any L (the end-to-end NCD baselines train ViT-B/16
 // in f32): attn_f32_wgmma_kernel, below, on three TF32 passes.  f32 at
 // another head_dim takes a plain SIMT kernel with the same contract at
-// L <= 256 (32 queries per block, scores staged in shared memory, fmaf
-// dot products) and the key-tiled SIMT kernel past it.
+// L <= 256 when its K, V, Q and score rows fit in shared memory (32
+// queries per block, scores staged there, fmaf dot products;
+// f32_short_smem counts the bytes before any launch), else the key-tiled
+// SIMT kernel (head_dim <= 256).
 //
 // Long sequences (L > 256: a tower at image 256, 288, 384 or 448 gives
 // L 257, 325, 577 or 785) take one of two long paths, chosen by shape in
@@ -82,8 +84,10 @@
 // heads stream their key tiles through the same buffers in chunks of 13,
 // reloaded per sweep.
 //
-// f32 at L > 256 and another head_dim, and bf16 at another head_dim (no
-// shipped config), take a key-tiled SIMT kernel: a block owns 32 queries
+// bf16 at another head_dim, at any L (the micro ViT, width 64 over 2
+// heads: head_dim 32), f32 at another head_dim past L 256, and f32 at
+// L <= 256 whose rows do not fit the whole-row kernel take a key-tiled
+// SIMT kernel, head_dim <= 256: a block owns 32 queries
 // of one (batch, head) (4 per warp) and sweeps the keys in tiles of 32
 // (one per lane) three times, recomputing the same scores in each: first
 // the row max, then the row sum of exp(s - max), then p = e / sum (IEEE
@@ -1268,6 +1272,12 @@ attn_f32_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_const
   }
 }
 
+// attn_f32_kernel's shared memory: K, V, the block's Q rows and their
+// score rows (ops/attention.py::attention_route counts the same bytes)
+constexpr long long f32_short_smem(int L, int hd) {
+  return 4LL * (L * (hd + 1) + L * hd + FQT * (hd + 1) + FQT * L);
+}
+
 __global__ void __launch_bounds__(FTHREADS)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, Strides sq,
@@ -1337,7 +1347,8 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- the SIMT long path: L > 256, f32 (or bf16 at head_dim != 64), head_dim <= 32 * LMAXC
+// ---- the SIMT long path: bf16 at head_dim != 64 at any L, f32 at head_dim != 64 past
+// L 256 or whose rows do not fit attn_f32_kernel; head_dim <= 32 * LMAXC
 
 constexpr int LQ = 4;                // query rows per warp
 constexpr int LWARPS = 8;
@@ -1653,7 +1664,8 @@ int launch_f32_wgmma(const void* q, const void* k, const void* v, void* out, Str
 // hd == 64 with every stride and base 16-byte aligned: bf16 the wgmma
 // path (L <= 256) or the wgmma long path, f32 the three-pass TF32 kernel
 // at any L.  Another hd: f32 at L <= 256 any hd whose rows fit in shared
-// memory (SIMT); past L 256, f32 and bf16 the SIMT long path, hd <= 256.
+// memory (SIMT, whole rows); else, f32 and bf16 at any L, the SIMT long
+// path, hd <= 256.
 // Launches on `stream` and returns the CUDA error code
 // (cudaErrorInvalidValue for a shape no path takes).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out,
@@ -1677,8 +1689,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
     return launch_long<float>(q, k, v, out, sq, sk, sv, so, batch, heads, L, hd, l_valid, causal,
                               scale, stream);
   }
+  if (is_bf16 && hd != HD)  // the SIMT long kernel at any L
+    return launch_long<__nv_bfloat16>(q, k, v, out, sq, sk, sv, so, batch, heads, L, hd, l_valid,
+                                      causal, scale, stream);
   if (is_bf16) {
-    if (hd != HD) return (int)cudaErrorInvalidValue;
     const int kt = (L + 15) / 16;
     if (kt <= 1)
       return launch_bf16<1>(q, k, v, out, sq, sk, sv, so, batch, heads, L, l_valid, causal,
@@ -1699,8 +1713,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                            scale, stream);
   }
   if (hd < 1) return (int)cudaErrorInvalidValue;
-  const long long smem = 4LL * (L * (hd + 1) + L * hd + FQT * (hd + 1) + FQT * L);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // the SM's 227 KB
+  const long long smem = f32_short_smem(L, hd);
+  if (smem > SMEM_MAX)  // the rows do not fit: the key-tiled kernel
+    return launch_long<float>(q, k, v, out, sq, sk, sv, so, batch, heads, L, hd, l_valid, causal,
+                              scale, stream);
   cudaError_t err = cudaFuncSetAttribute(attn_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

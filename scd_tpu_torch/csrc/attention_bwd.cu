@@ -1,6 +1,9 @@
-// The gradient of masked softmax attention (non-causal), on [B, L, H, d]
+// The gradient of masked softmax attention, causal or not, on [B, L, H, d]
 // views with any batch, sequence and head strides (the last dimension
-// contiguous).
+// contiguous).  Routes (ops/attention.py::bwd_route): bf16 at head_dim 64
+// the two wgmma kernels, f32 at head_dim 64 their three-pass TF32 twins,
+// any L; bf16 or f32 at another head_dim (1 to 256), any L, the two SIMT
+// kernels at the end of the file.
 //
 // Replaces no TPU kernel: the JAX package differentiates its attention with
 // XLA autodiff and has no Pallas backward.  The port's forward is the
@@ -9,7 +12,8 @@
 // exact gradient of the forward's arithmetic, with the forward's rounding of
 // p to v's type taken as the identity, as autodiff of a cast takes it (and,
 // as autodiff does, the cotangent of that rounded p rounded to v's type):
-//   s = scale * (q . k^T) in f32, keys >= l_valid at -inf;
+//   s = scale * (q . k^T) in f32, keys >= l_valid and, under causal,
+//     keys after the query at -inf;
 //   p = exp(s - rowmax) / rowsum in f32 (IEEE division);
 //   dV = T(p)^T . dO;
 //   dP = T(dO . V^T);
@@ -19,6 +23,15 @@
 // l_valid get dK = dV = 0.  No kernel uses atomics: every output element is
 // summed by one thread (or one warpgroup's tensor-core products) in a fixed
 // order, so a repeat gives the same bits.
+//
+// Causal (the text tower's mask), on every route: a query tile sweeps no
+// key tile wholly past its last row, a key tile visits no query tile
+// wholly before its first key, and the tile on the diagonal masks its
+// keys after the row with -inf before the exp, in the same select as the
+// l_valid mask (key_limit: a row sees keys [0, min(l_valid, row + 1))).
+// The bf16 dQ kernel is a template on it: the non-causal instance keeps
+// four blocks an SM, the causal one runs at three (its row limits do not
+// fit the 128-register bound).
 //
 // What bounds it on an H100: at the training shape (B 256, L 197, H 12,
 // d 64, bf16) the bytes (q, k, v and dO read, dq, dk, dv written once) are
@@ -105,12 +118,23 @@
 //      their transposes; S^T and dP^T (m64n32), P^T and dS^T split in
 //      registers, dV += P^T . dO, dK += dS^T . Q.
 //
-// f32 at another head_dim <= 128, L <= 256: two SIMT kernels with f32
-// products kept exact: attn_bwd_dq_simt_kernel, one block per 32-query
-// tile (score and dP rows against every key, row statistics, dS, dQ =
-// dS . K), and attn_bwd_dkv_simt_kernel, one block per 32-key tile (p and
-// dS recomputed by the same instructions, dV, dK), fmaf products in f32.
-// bf16 at another head_dim, and f32 past those limits, are refused.
+// bf16 or f32 at another head_dim (the micro ViT's 32; 1 to 256), any L:
+// two SIMT kernels, a template on T, inputs staged in f32, every product
+// an fmaf in f32 (exact for bf16 inputs), the keys streamed through
+// shared memory in tiles of 32, so no score row is held whole:
+// attn_bwd_dq_simt_kernel, one block per 32-query tile, sweeps the key
+// tiles twice (sweep 1: per row the online max, sum of exp(s - max) and
+// sum of exp(s - max) * T(dP), merged over the warp, D = that sum / the
+// row sum, stored in the (max, sum, D) planes; sweep 2: p = exp(s - max)
+// / sum (IEEE division), dS = p * (T(dP) - D) in f32, dQ += dS . K), and
+// attn_bwd_dkv_simt_kernel, one block per 32-key tile, streams the query
+// tiles that see its keys (p and dS recomputed by the same instructions;
+// dV += T(p) . dO, dK += dS . Q).  dS is not rounded to T here: the
+// contract above, with no extra rounding.  What bounds it: at the micro
+// ViT's B 256 x L 197 x H 2 x d 32 (bf16) the bytes are 0.013 ms at 3.35
+// TB/s, and the kernels took 3.6 ms there on an H100 (PERF.md): a simple
+// kernel that is right, its SIMT products and staging left for a later
+// redesign.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -147,7 +171,14 @@ constexpr int DKV_SMEM = 1024 + 2 * TILE_BYTES + NS * DKV_STAGE + 64;
 struct Shape {
   int heads, L, lv, tiles;  // lv = min(l_valid, L); tiles = ceil(L / 64)
   float scale;
+  int causal;  // keys after the query masked
 };
+
+// The keys a row sees are [0, key_limit): those before l_valid and,
+// under causal, none after the row itself.
+__device__ __forceinline__ int key_limit(int row, int lv, int causal) {
+  return causal ? min(lv, row + 1) : lv;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
@@ -358,22 +389,24 @@ __device__ __forceinline__ void merge_state(float& m, float& sum, float& wsum, f
 }
 
 // The scaled scores of one tile of 8 NC keys (64 by default) starting at
-// key k0, keys >= lv at -inf.  Thread (lane 4g + t) holds rows g (s[4c],
-// s[4c + 1]) and g + 8 (s[4c + 2], s[4c + 3]) of its warp's 16 at keys
+// key k0, keys at or past the row's limit (key_limit: la for row a, lb
+// for row b) at -inf.  Thread (lane 4g + t) holds rows g (a: s[4c],
+// s[4c + 1]) and g + 8 (b: s[4c + 2], s[4c + 3]) of its warp's 16 at keys
 // k0 + 8c + 2t + {0, 1}.
 // A masked score is 1 * -inf: the mask picks the operands of the one
 // multiply (a select of the result, or a branch around the masking, has
 // ptxas serialize the wgmma that wrote s, C7514).
 template <int NC = 8>
-__device__ __forceinline__ void scale_mask(float* s, int k0, int lv, int t, float scale) {
+__device__ __forceinline__ void scale_mask(float* s, int k0, int la, int lb, int t,
+                                           float scale) {
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const bool keep = k0 + c * 8 + 2 * t + e < lv;
-      const float m = keep ? scale : -INFINITY;
-      s[4 * c + e] = __fmul_rn(keep ? s[4 * c + e] : 1.f, m);
-      s[4 * c + 2 + e] = __fmul_rn(keep ? s[4 * c + 2 + e] : 1.f, m);
+      const int key = k0 + c * 8 + 2 * t + e;
+      const bool ka = key < la, kb = key < lb;
+      s[4 * c + e] = __fmul_rn(ka ? s[4 * c + e] : 1.f, ka ? scale : -INFINITY);
+      s[4 * c + 2 + e] = __fmul_rn(kb ? s[4 * c + 2 + e] : 1.f, kb ? scale : -INFINITY);
     }
 }
 
@@ -393,7 +426,12 @@ __device__ __forceinline__ void load_pair(const CUtensorMap* m1, const CUtensorM
 // sweep 2 reads the stages sweep 1 filled.  Item i lives in stage i % NS,
 // its load completing phase i / NS of that stage's mbarrier; a stage is
 // refilled with item i + NS once every thread is done with item i.
-__global__ void __launch_bounds__(THREADS, PER_SM)
+// CAUSAL (1: keys after the row masked) is a template argument: the
+// non-causal kernel (every training step) keeps its 128-register bound
+// and four blocks an SM; the causal one's row limits take registers that
+// bound leaves no room for, so it runs at three blocks an SM (168).
+template <int CAUSAL>
+__global__ void __launch_bounds__(THREADS, CAUSAL ? 3 : PER_SM)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
                    __nv_bfloat16* __restrict__ dq, float4* __restrict__ stats, Strides sdq,
@@ -410,11 +448,15 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   const int b = bh / sh.heads, h = bh % sh.heads;
   const int q0 = tile * TR;
   const int lv = sh.lv;
-  const int nkt = (lv + TR - 1) / TR;  // key tiles with a valid key
+  // key tiles with a key some row of the tile sees (causal: none past the
+  // diagonal tile)
+  const int nkt = (key_limit(q0 + TR - 1, lv, CAUSAL) + TR - 1) / TR;
   const bool resident = nkt <= NS;
   const int items = resident ? nkt : 2 * nkt;
   const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // row a's key limit; row b's (8 rows on) is min(lim_a + 8, lv)
+  const int lim_a = key_limit(q0 + 16 * warp + g, lv, CAUSAL);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s <= NS; ++s) mbar_init(smem_u32(&bars[s]), 1);
@@ -450,7 +492,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     float s[32], dp[32];
     two_products<64>(s, dp, dq_a, desc_sw128(st), do_a, desc_sw128(st + TILE_BYTES));
     release(j);
-    scale_mask(s, j * TR, lv, t, sh.scale);
+    scale_mask(s, j * TR, lim_a, min(lim_a + 8, lv), t, sh.scale);
     float ta = -INFINITY, tb = -INFINITY;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -503,7 +545,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     const uint32_t st = acquire(item);
     float s[32], dp[32];
     two_products<64>(s, dp, dq_a, desc_sw128(st), do_a, desc_sw128(st + TILE_BYTES));
-    scale_mask(s, j * TR, lv, t, sh.scale);
+    scale_mask(s, j * TR, lim_a, min(lim_a + 8, lv), t, sh.scale);
     uint32_t ds[4][4];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -544,11 +586,13 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
   }
 }
 
-// Kernel 2: dK and dV of one 64-key tile.  Query tile i lives in stage
-// i % NS (Q, dO, then its 64 rows' statistics), its loads completing phase
-// i / NS of that stage's mbarrier; the stage is refilled with tile i + NS
-// once every thread is done with tile i.  A thread holds keys k0 + 16 warp
-// + g (a) and + 8 (b) against queries q0 + 8c + 2t + {0, 1}.
+// Kernel 2: dK and dV of one 64-key tile.  The query tiles it visits are
+// i0 .. tiles - 1 (i0 = 0, or under causal the key tile's own: earlier
+// queries see none of its keys); visit n (tile i0 + n) lives in stage
+// n % NS (Q, dO, then its 64 rows' statistics), its loads completing phase
+// n / NS of that stage's mbarrier; the stage is refilled with visit n + NS
+// once every thread is done with visit n.  A thread holds keys k0 + 16
+// warp + g (a) and + 8 (b) against queries q0 + 8c + 2t + {0, 1}.
 __global__ void __launch_bounds__(THREADS, PER_SM)
 attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
@@ -566,15 +610,16 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   const int b = bh / sh.heads, h = bh % sh.heads;
   const int k0 = tile * TR;
   const int lv = sh.lv;
-  const int nqt = k0 < lv ? sh.tiles : 0;  // a tile of masked keys visits none
+  const int i0 = sh.causal ? tile : 0;
+  const int nqt = k0 < lv ? sh.tiles - i0 : 0;  // a tile of masked keys visits none
   const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float4* stats_bh = stats + (long long)bh * sh.tiles * TR;
 
-  auto load_q = [&](int i) {
-    const uint32_t st = ring + (i % NS) * DKV_STAGE, bar = smem_u32(&bars[1 + i % NS]);
-    load_pair(&mq, &mo, st, bar, i * TR, b, h, STAT_BYTES);
-    bulk_load(st + 2 * TILE_BYTES, stats_bh + i * TR, STAT_BYTES, bar);
+  auto load_q = [&](int n) {
+    const uint32_t st = ring + (n % NS) * DKV_STAGE, bar = smem_u32(&bars[1 + n % NS]);
+    load_pair(&mq, &mo, st, bar, (i0 + n) * TR, b, h, STAT_BYTES);
+    bulk_load(st + 2 * TILE_BYTES, stats_bh + (i0 + n) * TR, STAT_BYTES, bar);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s <= NS; ++s) mbar_init(smem_u32(&bars[s]), 1);
@@ -594,6 +639,7 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     const uint32_t st = ring + (i % NS) * DKV_STAGE;
     const float4* rs = reinterpret_cast<const float4*>(ring_ptr + (i % NS) * DKV_STAGE +
                                                        2 * TILE_BYTES);
+    const int qt0 = (i0 + i) * TR;  // the tile's first query
 #pragma unroll
     for (int hq = 0; hq < 2; ++hq) {  // queries 32 hq .. 32 hq + 31 of the tile
       const uint32_t qo = hq * 32 * ROW_BYTES;
@@ -608,10 +654,13 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             // query 32 hq + 16 jj + 8 cb + 2t + e: (max, sum, 1 / sum, D)
-            const float4 r = rs[32 * hq + 16 * jj + 8 * cb + 2 * t + e];
+            const int qi = 32 * hq + 16 * jj + 8 * cb + 2 * t + e;
+            const float4 r = rs[qi];
             const int ia = 8 * jj + 4 * cb + e, ib = ia + 2;  // keys a, b
-            const float pa = keep_a ? prob(s[ia], r, sh.scale) : 0.f;
-            const float pb = keep_b ? prob(s[ib], r, sh.scale) : 0.f;
+            const bool sa = keep_a && k0 + ra < key_limit(qt0 + qi, lv, sh.causal);
+            const bool sb = keep_b && k0 + rb < key_limit(qt0 + qi, lv, sh.causal);
+            const float pa = sa ? prob(s[ia], r, sh.scale) : 0.f;
+            const float pb = sb ? prob(s[ib], r, sh.scale) : 0.f;
             pv[4 * cb + e] = pa;
             pv[4 * cb + 2 + e] = pb;
             dsv[4 * cb + e] = __fmul_rn(pa, __fsub_rn(round_bf16(dp[ia]), r.w));
@@ -725,22 +774,23 @@ bool make_map(CUtensorMap* map, const void* ptr, Strides st, int batch, int L, i
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
                 void* dv, float* stats, Strides sq, Strides sk, Strides sv, Strides so,
                 Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L, int lv,
-                float scale, cudaStream_t stream) {
-  Shape sh{heads, L, lv, (L + TR - 1) / TR, scale};
+                int causal, float scale, cudaStream_t stream) {
+  Shape sh{heads, L, lv, (L + TR - 1) / TR, scale, causal};
   const long long blocks = (long long)batch * heads * sh.tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mo;
   if (!make_map(&mq, q, sq, batch, L, heads) || !make_map(&mk, k, sk, batch, L, heads) ||
       !make_map(&mv, v, sv, batch, L, heads) || !make_map(&mo, dout, so, batch, L, heads))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  auto dq_kernel = causal ? attn_bwd_dq_kernel<1> : attn_bwd_dq_kernel<0>;
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DQ_SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
   float4* st4 = reinterpret_cast<float4*>(stats);
-  attn_bwd_dq_kernel<<<(unsigned)blocks, THREADS, DQ_SMEM, stream>>>(
+  dq_kernel<<<(unsigned)blocks, THREADS, DQ_SMEM, stream>>>(
       mq, mk, mv, mo, static_cast<__nv_bfloat16*>(dq), st4, sdq, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1011,7 +1061,12 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
   const int tq = 2 * tp + wg, q0 = tq * TR;
   const bool has = tq < sh.tiles;  // uniform in the warpgroup
   const int lv = sh.lv;
-  const int nu = (lv + FU - 1) / FU;  // key units with a valid key
+  // key units with a key some row of the pair sees; under causal a
+  // warpgroup skips the units past its own tile's last row (uniform in it)
+  const int nu = (key_limit(min(sh.L, 2 * tp * TR + 2 * TR) - 1, lv, sh.causal) + FU - 1) / FU;
+  const int ulast = (key_limit(q0 + TR - 1, lv, sh.causal) - 1) / FU;
+  const int ra = 16 * warp + g, rb = ra + 8;  // rows in the tile
+  const int lim_a = key_limit(q0 + ra, lv, sh.causal), lim_b = key_limit(q0 + rb, lv, sh.causal);
   int ld = 0;                         // thread 0: the next item to land (unit ld % nu)
   auto land_next = [&]() {
     if (ld >= 2 * nu) return;
@@ -1068,7 +1123,7 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, ua = 0.f, ub = 0.f;
   for (int u = 0; u < nu; ++u) {
     take_unit(u, false);
-    if (has) {
+    if (has && u <= ulast) {
       uint32_t ka = k_hi, va = v_hi;
       asm volatile("" : "+r"(ka), "+r"(va));  // descriptors formed here
       float s[16], dp[16];
@@ -1079,7 +1134,7 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
       wg_wait_all();
       acc_fence<16>(s);
       acc_fence<16>(dp);
-      scale_mask<4>(s, u * FU, lv, t, sh.scale);
+      scale_mask<4>(s, u * FU, lim_a, lim_b, t, sh.scale);
       float ta = -INFINITY, tb = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -1119,7 +1174,6 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
   }
   const float ia = __frcp_rn(la), ib = __frcp_rn(lb);
   const float da = __fdiv_rn(ua, la), db = __fdiv_rn(ub, lb);
-  const int ra = 16 * warp + g, rb = ra + 8;  // rows in the tile
   if (has && t == 0) {
     float4* out = stats + ((long long)bh * sh.tiles + tq) * TR;
     out[ra] = make_float4(ma, la, ia, da);
@@ -1130,7 +1184,7 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
   float acc[32];
   for (int u = 0; u < nu; ++u) {
     take_unit(nu + u, true);
-    if (has) {
+    if (has && u <= ulast) {
       uint32_t ka = k_hi, va = v_hi, kta = kt_hi;
       asm volatile("" : "+r"(ka), "+r"(va), "+r"(kta));
       float s[16], dp[16];
@@ -1141,7 +1195,7 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
       wg_wait_all();
       acc_fence<16>(s);
       acc_fence<16>(dp);
-      scale_mask<4>(s, u * FU, lv, t, sh.scale);
+      scale_mask<4>(s, u * FU, lim_a, lim_b, t, sh.scale);
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const bool row_b = e & 2;  // elements 2, 3 of each 4 are row g + 8
@@ -1221,10 +1275,13 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
   const int lv = sh.lv;
   const bool has = kt < sh.tiles && k0 < lv;  // a key tile with a valid key
   // the first tile of the pair has a valid key: the block visits every
-  // query unit (rows past L are zeros from TMA and add exactly 0)
+  // query unit (rows past L are zeros from TMA and add exactly 0) from u0
+  // on (causal: the pair's first key; a warpgroup starts at its own, at
+  // ustart, uniform in it)
+  const int u0 = sh.causal ? 2 * tp * TR / FU : 0, ustart = sh.causal ? k0 / FU : 0;
   const int nu = 2 * tp * TR < lv ? (sh.L + FU - 1) / FU : 0;
   const float4* stats_bh = stats + (long long)bh * sh.tiles * TR;
-  int ld = 0;  // thread 0: the next unit to land
+  int ld = u0;  // thread 0: the next unit to land
   auto land_next = [&]() {
     if (ld >= nu) return;
     mbar_expect_tx(land_bar, 2 * F_UNIT + F_STATS);
@@ -1259,9 +1316,9 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
   const bool keep_a = k0 + ra < lv, keep_b = k0 + rb < lv;
 
   float adk[32], adv[32];
-  for (int u = 0; u < nu; ++u) {
+  for (int u = u0; u < nu; ++u) {
     __syncthreads();  // every warpgroup is done with the last split unit
-    mbar_wait(land_bar, u & 1);
+    mbar_wait(land_bar, (u - u0) & 1);
     {
       const float4* lq = reinterpret_cast<const float4*>(land_p);
       float4* up = reinterpret_cast<float4*>(unit_p);
@@ -1276,7 +1333,7 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
     fence_async_smem();
     __syncthreads();  // the split unit is whole; the landing buffer is free
     if (tid == 0) land_next();
-    if (has) {
+    if (has && u >= ustart) {
       uint32_t ka = k_hi, va = v_hi, qa = q_hi, oa = o_hi, qta = qt_hi, ota = ot_hi;
       asm volatile("" : "+r"(ka), "+r"(va), "+r"(qa), "+r"(oa), "+r"(qta), "+r"(ota));
       float s[16], dp[16];
@@ -1292,10 +1349,12 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           // query 8c + 2t + e of the unit: (max, sum, 1 / sum, D)
-          const float4 r = ustats[8 * c + 2 * t + e];
+          const int qi = 8 * c + 2 * t + e;
+          const float4 r = ustats[qi];
           const int ia = 4 * c + e, ib = ia + 2;  // keys a, b
-          const float pa = keep_a ? prob(s[ia], r, sh.scale) : 0.f;
-          const float pb = keep_b ? prob(s[ib], r, sh.scale) : 0.f;
+          const int lim = key_limit(u * FU + qi, lv, sh.causal);
+          const float pa = keep_a && k0 + ra < lim ? prob(s[ia], r, sh.scale) : 0.f;
+          const float pb = keep_b && k0 + rb < lim ? prob(s[ib], r, sh.scale) : 0.f;
           s[ia] = pa;
           s[ib] = pb;
           dp[ia] = __fmul_rn(pa, __fsub_rn(dp[ia], r.w));
@@ -1309,8 +1368,8 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
       reg_fence<16>(&dh[0][0]);
       reg_fence<16>(&dl[0][0]);
       wg_fence();
-      rs_products3(adv, ph, pl, ota, u == 0);
-      rs_products3(adk, dh, dl, qta, u == 0);
+      rs_products3(adv, ph, pl, ota, u == ustart);
+      rs_products3(adk, dh, dl, qta, u == ustart);
       wg_commit();
       wg_wait_all();
       acc_fence<32>(adv);
@@ -1348,8 +1407,8 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
 int launch_f32_wgmma(const void* q, const void* k, const void* v, const void* dout, void* dq,
                      void* dk, void* dv, float* stats, Strides sq, Strides sk, Strides sv,
                      Strides so, Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L,
-                     int lv, float scale, cudaStream_t stream) {
-  const Shape sh{heads, L, lv, (L + TR - 1) / TR, scale};
+                     int lv, int causal, float scale, cudaStream_t stream) {
+  const Shape sh{heads, L, lv, (L + TR - 1) / TR, scale, causal};
   const int tpairs = (sh.tiles + 1) / 2;
   const long long blocks = (long long)batch * heads * tpairs;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -1373,23 +1432,32 @@ int launch_f32_wgmma(const void* q, const void* k, const void* v, const void* do
   return (int)cudaGetLastError();
 }
 
-// ---- the f32 path at another head_dim: SIMT, L <= 256, head_dim <= 128
+// ---- the SIMT route: bf16 or f32 at another head_dim (<= 256), any L
 
-constexpr int MAX_L_F32 = 256;
-constexpr int MAX_HD_F32 = 128;
-constexpr int FTR = 32;             // queries (kernel 1) or keys (kernel 2) per block
+constexpr int MAX_HD_SIMT = 256;
+constexpr int FTR = 32;             // queries (kernel 1) or keys (kernel 2) per block; keys a tile
 constexpr int FWARPS = 8;
 constexpr int FTHREADS = 32 * FWARPS;
 constexpr int RPW = FTR / FWARPS;   // rows of a tile per warp: 4
-constexpr int MAXC = MAX_HD_F32 / 32;  // output columns per lane
+constexpr int MAXC = MAX_HD_SIMT / 32;  // output columns per lane
 
-// Rows [row0, row0 + FTR) of one (batch, head) of x into dst [FTR][ld],
-// zeros past L.
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* base, long long sl,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_t(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_t(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// x rounded to T's precision and back: p as dV's product takes it, dP as
+// its cotangent reaches the softmax
+__device__ __forceinline__ float round_t(float x, const float*) { return x; }
+__device__ __forceinline__ float round_t(float x, const __nv_bfloat16*) { return round_bf16(x); }
+
+// Rows [row0, row0 + FTR) of one (batch, head) of x into dst [FTR][ld] in
+// f32, zeros past L.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* base, long long sl,
                                            int row0, int L, int hd) {
   for (int i = threadIdx.x; i < FTR * hd; i += FTHREADS) {
     const int r = i / hd, c = i % hd;
-    dst[r * ld + c] = row0 + r < L ? base[(long long)(row0 + r) * sl + c] : 0.f;
+    dst[r * ld + c] = row0 + r < L ? to_f32(base[(long long)(row0 + r) * sl + c]) : 0.f;
   }
 }
 
@@ -1408,36 +1476,42 @@ __device__ __forceinline__ void row_dots(float (&out)[RPW], const float* A, int 
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// p of one score from its row's max and sum, as both kernels form it
+// p of one scaled score from its row's max and sum, as both kernels form it
 __device__ __forceinline__ float prob_f32(float s, float m, float sum) {
   return __fdiv_rn(expf(__fsub_rn(s, m)), sum);
 }
 
+// (m, sum, wsum) of two partial softmax states with expf: merge_state's
+// rule (a state with m = -inf adds nothing)
+__device__ __forceinline__ void merge_exact(float& m, float& sum, float& wsum, float m2,
+                                            float sum2, float wsum2) {
+  const float mn = fmaxf(m, m2);
+  const float ms = mn == -INFINITY ? 0.f : mn;
+  const float c1 = expf(m - ms), c2 = expf(m2 - ms);
+  sum = sum * c1 + sum2 * c2;
+  wsum = wsum * c1 + wsum2 * c2;
+  m = mn;
+}
+
+// Kernel 1: dQ and the row statistics of one 32-query tile.  The key tiles
+// of 32 that some row of the tile sees stream through shared memory twice.
+// Sweep 1: per (row, lane) the online max, sum of e = exp(s - max) and sum
+// of e * T(dP) over the lane's keys, merged over the warp: D = that sum /
+// the row sum; (max, sum, D) to the stats planes.  Sweep 2: p =
+// exp(s - max) / sum (IEEE division), dS = p * (T(dP) - D) in f32, dQ +=
+// dS . K in key order (each lane its columns, dS broadcast by shuffle).
+template <typename T>
 __global__ void __launch_bounds__(FTHREADS)
-attn_bwd_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        float* __restrict__ dq, float* __restrict__ stats, Strides sq, Strides sk,
+attn_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        T* __restrict__ dq, float* __restrict__ stats, Strides sq, Strides sk,
                         Strides sv, Strides sdo, Strides sdq, int heads, int L, int hd, int lv,
-                        float scale, int qtiles, int lp, long long bhl) {
+                        int causal, float scale, int qtiles, long long bhl) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // [FTR][hd]
   float* dOs = Qs + FTR * hd;       // [FTR][hd]
   float* Ks = dOs + FTR * hd;       // [FTR][hd + 1]
   float* Vs = Ks + FTR * (hd + 1);  // [FTR][hd + 1]
-  float* S = Vs + FTR * (hd + 1);   // [FTR][lp]: scores, then p
-  float* G = S + FTR * lp;          // [FTR][lp]: dP, then dS
 
   const int tile = blockIdx.x % qtiles;
   const int bh = blockIdx.x / qtiles;
@@ -1445,103 +1519,119 @@ attn_bwd_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int q0 = tile * FTR;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = warp * RPW;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const float* ob = dout + b * sdo.b + h * sdo.h;
-  const int ntiles = (lv + FTR - 1) / FTR;  // key tiles with a valid key
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const T* ob = dout + b * sdo.b + h * sdo.h;
+  // the keys some row of the block sees, in tiles: uniform in the block
+  const int kend = key_limit(q0 + FTR - 1, lv, causal);
+  const int ntiles = (kend + FTR - 1) / FTR;
+  int lim[RPW];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) lim[r] = key_limit(q0 + r0 + r, lv, causal);
 
   stage_rows(Qs, hd, qb, sq.l, q0, L, hd);
   stage_rows(dOs, hd, ob, sdo.l, q0, L, hd);
-  // scores and dP against every key tile with a valid key
-  for (int t = 0; t < ntiles; ++t) {
+  // this warp's rows against key t * FTR + lane: scaled, masked scores and
+  // T(dP), by the same instructions in both sweeps and in kernel 2
+  auto scores = [&](int t, float (&s)[RPW], float (&dp)[RPW]) {
     __syncthreads();  // the last tile's readers are done
     stage_rows(Ks, hd + 1, kb, sk.l, t * FTR, L, hd);
     stage_rows(Vs, hd + 1, vb, sv.l, t * FTR, L, hd);
     __syncthreads();
-    float s[RPW], dp[RPW];
     row_dots(s, Qs, r0, Ks, hd, lane);
     row_dots(dp, dOs, r0, Vs, hd, lane);
     const int key = t * FTR + lane;
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
-      S[(r0 + r) * lp + key] = key < lv ? __fmul_rn(s[r], scale) : -INFINITY;
-      G[(r0 + r) * lp + key] = dp[r];
+      s[r] = key < lim[r] ? __fmul_rn(s[r], scale) : -INFINITY;
+      dp[r] = round_t(dp[r], q);
+    }
+  };
+
+  // ---- sweep 1: the row statistics
+  float m[RPW], sum[RPW], wsum[RPW];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    m[r] = -INFINITY;
+    sum[r] = 0.f;
+    wsum[r] = 0.f;
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    float s[RPW], dp[RPW];
+    scores(t, s, dp);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) merge_exact(m[r], sum[r], wsum[r], s[r], 1.f, dp[r]);
+  }
+  float dd[RPW];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      merge_exact(m[r], sum[r], wsum[r], __shfl_xor_sync(0xffffffffu, m[r], off),
+                  __shfl_xor_sync(0xffffffffu, sum[r], off),
+                  __shfl_xor_sync(0xffffffffu, wsum[r], off));
+    dd[r] = __fdiv_rn(wsum[r], sum[r]);  // every row sees key 0: sum >= 1
+    if (lane == 0 && q0 + r0 + r < L) {
+      const long long row = (long long)bh * L + q0 + r0 + r;
+      stats[row] = m[r];
+      stats[bhl + row] = sum[r];
+      stats[2 * bhl + row] = dd[r];
     }
   }
-  __syncthreads();
 
-  // per row (each warp its own RPW rows): max, sum, p, D, dS
-  for (int r = r0; r < r0 + RPW; ++r) {
-    float* srow = S + r * lp;
-    float* grow = G + r * lp;
-    float m = -INFINITY;
-    for (int c = lane; c < lv; c += 32) m = fmaxf(m, srow[c]);
-    m = warp_max(m);  // key 0 is valid, so finite
-    float sum = 0.f;
-    for (int c = lane; c < lv; c += 32) sum += expf(__fsub_rn(srow[c], m));
-    sum = warp_sum(sum);
-    float dsum = 0.f;
-    for (int c = lane; c < lv; c += 32) {
-      const float p = prob_f32(srow[c], m, sum);
-      srow[c] = p;
-      dsum = fmaf(p, grow[c], dsum);
-    }
-    dsum = warp_sum(dsum);
-    for (int c = lane; c < lv; c += 32) grow[c] = __fmul_rn(srow[c], __fsub_rn(grow[c], dsum));
-    if (lane == 0 && q0 + r < L) {
-      const long long row = (long long)bh * L + q0 + r;
-      stats[row] = m;
-      stats[bhl + row] = sum;
-      stats[2 * bhl + row] = dsum;
-    }
-  }
-
-  // dQ = scale * dS . K over the valid keys, K staged again
+  // ---- sweep 2: dQ = scale * dS . K
   float acc[RPW][MAXC];
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) acc[r][c] = 0.f;
   for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();
-    stage_rows(Ks, hd + 1, kb, sk.l, t * FTR, L, hd);
-    __syncthreads();
-    const int nk = min(FTR, lv - t * FTR);
+    float s[RPW], dp[RPW], ds[RPW];
+    scores(t, s, dp);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+      ds[r] = __fmul_rn(prob_f32(s[r], m[r], sum[r]), __fsub_rn(dp[r], dd[r]));
+    const int nk = min(FTR, kend - t * FTR);
     for (int j = 0; j < nk; ++j) {
       const float* krow = Ks + j * (hd + 1);
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
-        const float ds = G[(r0 + r) * lp + t * FTR + j];
+        const float dsj = __shfl_sync(0xffffffffu, ds[r], j);
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
-          if (lane + 32 * c < hd) acc[r][c] = fmaf(ds, krow[lane + 32 * c], acc[r][c]);
+          if (lane + 32 * c < hd) acc[r][c] = fmaf(dsj, krow[lane + 32 * c], acc[r][c]);
       }
     }
   }
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     if (q0 + r0 + r >= L) continue;
-    float* orow = dq + b * sdq.b + (long long)(q0 + r0 + r) * sdq.l + h * sdq.h;
+    T* orow = dq + b * sdq.b + (long long)(q0 + r0 + r) * sdq.l + h * sdq.h;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
-      if (lane + 32 * c < hd) orow[lane + 32 * c] = __fmul_rn(acc[r][c], scale);
+      if (lane + 32 * c < hd) store_t(orow + lane + 32 * c, __fmul_rn(acc[r][c], scale));
   }
 }
 
+// Kernel 2: dK and dV of one 32-key tile.  The query tiles of 32 that see
+// a key of the tile (causal: from the tile's own first key on) stream
+// through shared memory with their rows' statistics; p and dS as kernel 1
+// forms them, dV += T(p) . dO and dK += dS . Q in query order.
+template <typename T>
 __global__ void __launch_bounds__(FTHREADS)
-attn_bwd_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         float* __restrict__ dk, float* __restrict__ dv,
+attn_bwd_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         T* __restrict__ dk, T* __restrict__ dv,
                          const float* __restrict__ stats, Strides sq, Strides sk, Strides sv,
                          Strides sdo, Strides sdk, Strides sdv, int heads, int L, int hd, int lv,
-                         float scale, int ktiles, long long bhl) {
+                         int causal, float scale, int ktiles, long long bhl) {
   extern __shared__ float smem[];
   float* Ks = smem;                  // [FTR][hd + 1]
   float* Vs = Ks + FTR * (hd + 1);   // [FTR][hd + 1]
   float* Qs = Vs + FTR * (hd + 1);   // [FTR][hd]
   float* dOs = Qs + FTR * hd;        // [FTR][hd]
-  float* Ps = dOs + FTR * hd;        // [FTR queries][FTR + 1 keys]: p
+  float* Ps = dOs + FTR * hd;        // [FTR queries][FTR + 1 keys]: T(p)
   float* Gs = Ps + FTR * (FTR + 1);  // [FTR][FTR + 1]: dS
   float* rm = Gs + FTR * (FTR + 1);  // [FTR] row max, sum and D of the query tile
   float* rs = rm + FTR;
@@ -1553,10 +1643,10 @@ attn_bwd_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int k0 = tile * FTR;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j0 = warp * RPW;  // this warp's keys in the tile, for the sums
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const float* ob = dout + b * sdo.b + h * sdo.h;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const T* ob = dout + b * sdo.b + h * sdo.h;
 
   float adk[RPW][MAXC], adv[RPW][MAXC];
 #pragma unroll
@@ -1568,8 +1658,7 @@ attn_bwd_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
     stage_rows(Ks, hd + 1, kb, sk.l, k0, L, hd);
     stage_rows(Vs, hd + 1, vb, sv.l, k0, L, hd);
     const int key = k0 + lane;
-    const bool keep = key < lv;
-    for (int i0 = 0; i0 < L; i0 += FTR) {
+    for (int i0 = causal ? k0 : 0; i0 < L; i0 += FTR) {
       __syncthreads();  // the last query tile's readers are done
       stage_rows(Qs, hd, qb, sq.l, i0, L, hd);
       stage_rows(dOs, hd, ob, sdo.l, i0, L, hd);
@@ -1588,9 +1677,11 @@ attn_bwd_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const int i = warp * RPW + r;
-        const float p = keep ? prob_f32(__fmul_rn(s[r], scale), rm[i], rs[i]) : 0.f;
-        Ps[i * (FTR + 1) + lane] = p;
-        Gs[i * (FTR + 1) + lane] = __fmul_rn(p, __fsub_rn(dp[r], rd[i]));
+        const float p = key < key_limit(i0 + i, lv, causal)
+                            ? prob_f32(__fmul_rn(s[r], scale), rm[i], rs[i])
+                            : 0.f;
+        Ps[i * (FTR + 1) + lane] = round_t(p, q);
+        Gs[i * (FTR + 1) + lane] = __fmul_rn(p, __fsub_rn(round_t(dp[r], q), rd[i]));
       }
       __syncthreads();
       const int ni = min(FTR, L - i0);
@@ -1617,47 +1708,48 @@ attn_bwd_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int key = k0 + j0 + r;
     if (key >= L) continue;
     const bool keep = key < lv;
-    float* krow = dk + b * sdk.b + (long long)key * sdk.l + h * sdk.h;
-    float* vrow = dv + b * sdv.b + (long long)key * sdv.l + h * sdv.h;
+    T* krow = dk + b * sdk.b + (long long)key * sdk.l + h * sdk.h;
+    T* vrow = dv + b * sdv.b + (long long)key * sdv.l + h * sdv.h;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       if (lane + 32 * c < hd) {
-        krow[lane + 32 * c] = keep ? __fmul_rn(adk[r][c], scale) : 0.f;
-        vrow[lane + 32 * c] = keep ? adv[r][c] : 0.f;
+        store_t(krow + lane + 32 * c, keep ? __fmul_rn(adk[r][c], scale) : 0.f);
+        store_t(vrow + lane + 32 * c, keep ? adv[r][c] : 0.f);
       }
     }
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-               void* dv, float* stats, Strides sq, Strides sk, Strides sv, Strides sdo,
-               Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L, int hd, int lv,
-               float scale, cudaStream_t stream) {
-  const int lp = (L + FTR - 1) / FTR * FTR;
-  const int tiles = lp / FTR;
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                void* dk, void* dv, float* stats, Strides sq, Strides sk, Strides sv,
+                Strides sdo, Strides sdq, Strides sdk, Strides sdv, int batch, int heads, int L,
+                int hd, int lv, int causal, float scale, cudaStream_t stream) {
+  if (hd < 1 || hd > MAX_HD_SIMT) return (int)cudaErrorInvalidValue;
+  const int tiles = (L + FTR - 1) / FTR;
   const long long bhl = (long long)batch * heads * L;
   const long long blocks = (long long)batch * heads * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int smem1 = 4 * (2 * FTR * hd + 2 * FTR * (hd + 1) + 2 * FTR * lp);
+  const int smem1 = 4 * (2 * FTR * hd + 2 * FTR * (hd + 1));
   const int smem2 = 4 * (2 * FTR * (hd + 1) + 2 * FTR * hd + 2 * FTR * (FTR + 1) + 3 * FTR);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_simt_kernel,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_simt_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_simt_kernel,
+  err = cudaFuncSetAttribute(attn_bwd_dkv_simt_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return (int)err;
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* ot = static_cast<const float*>(dout);
-  attn_bwd_dq_simt_kernel<<<(unsigned)blocks, FTHREADS, (size_t)smem1, stream>>>(
-      qt, kt, vt, ot, static_cast<float*>(dq), stats, sq, sk, sv, sdo, sdq, heads, L, hd, lv,
-      scale, tiles, lp, bhl);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(dout);
+  attn_bwd_dq_simt_kernel<T><<<(unsigned)blocks, FTHREADS, (size_t)smem1, stream>>>(
+      qt, kt, vt, ot, static_cast<T*>(dq), stats, sq, sk, sv, sdo, sdq, heads, L, hd, lv, causal,
+      scale, tiles, bhl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkv_simt_kernel<<<(unsigned)blocks, FTHREADS, (size_t)smem2, stream>>>(
-      qt, kt, vt, ot, static_cast<float*>(dk), static_cast<float*>(dv), stats, sq, sk, sv, sdo,
-      sdk, sdv, heads, L, hd, lv, scale, tiles, bhl);
+  attn_bwd_dkv_simt_kernel<T><<<(unsigned)blocks, FTHREADS, (size_t)smem2, stream>>>(
+      qt, kt, vt, ot, static_cast<T*>(dk), static_cast<T*>(dv), stats, sq, sk, sv, sdo, sdk, sdv,
+      heads, L, hd, lv, causal, scale, tiles, bhl);
   return (int)cudaGetLastError();
 }
 
@@ -1665,11 +1757,11 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, vo
 
 // q, k, v (the forward's inputs), dout (the gradient of its output) and dq,
 // dk, dv (written): [batch, L, heads, hd] views with element strides (b, l, h)
-// each and the last dimension contiguous, all bf16 or all f32 (is_bf16).
-// hd == 64 (bf16 or f32), any L >= 1, every base and stride 16-byte
-// aligned; stats: 4 * batch * heads * ceil(L / 64) * 64 floats of scratch,
-// 16-byte aligned.  f32 at another hd takes 1 <= L <= 256, 1 <= hd <= 128;
-// stats: 3 * batch * heads * L floats.  1 <= l_valid, causal 0;
+// each and the last dimension contiguous, all bf16 or all f32 (is_bf16);
+// 1 <= l_valid, causal 0 or 1, any L >= 1.  hd == 64 (bf16 or f32): every
+// base and stride 16-byte aligned; stats: 4 * batch * heads * ceil(L / 64)
+// * 64 floats of scratch, 16-byte aligned.  Another hd, 1 <= hd <= 256
+// (the SIMT kernels): stats: 3 * batch * heads * L floats.
 // cudaErrorInvalidValue for anything else.  Launches two kernels on
 // `stream` and returns the CUDA error code.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* dout,
@@ -1681,20 +1773,20 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
                              long long dksl, long long dksh, long long dvsb, long long dvsl,
                              long long dvsh, int batch, int heads, int L, int hd, int l_valid,
                              int causal, float scale, cudaStream_t stream) {
-  if (batch < 1 || heads < 1 || L < 1 || l_valid < 1 || causal != 0)
+  if (batch < 1 || heads < 1 || L < 1 || l_valid < 1 || (causal != 0 && causal != 1))
     return (int)cudaErrorInvalidValue;
   const int lv = l_valid < L ? l_valid : L;
   const Strides sq{qsb, qsl, qsh}, sk{ksb, ksl, ksh}, sv{vsb, vsl, vsh}, so{osb, osl, osh};
   const Strides sdq{dqsb, dqsl, dqsh}, sdk{dksb, dksl, dksh}, sdv{dvsb, dvsl, dvsh};
-  if (is_bf16) {
-    if (hd != HD) return (int)cudaErrorInvalidValue;
+  if (hd == HD && is_bf16)
     return launch_bf16(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch,
-                       heads, L, lv, scale, stream);
-  }
+                       heads, L, lv, causal, scale, stream);
   if (hd == HD)
     return launch_f32_wgmma(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch,
-                            heads, L, lv, scale, stream);
-  if (L > MAX_L_F32 || hd < 1 || hd > MAX_HD_F32) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv, batch, heads,
-                    L, hd, lv, scale, stream);
+                            heads, L, lv, causal, scale, stream);
+  if (is_bf16)
+    return launch_simt<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk,
+                                      sdv, batch, heads, L, hd, lv, causal, scale, stream);
+  return launch_simt<float>(q, k, v, dout, dq, dk, dv, stats, sq, sk, sv, so, sdq, sdk, sdv,
+                            batch, heads, L, hd, lv, causal, scale, stream);
 }

@@ -289,20 +289,34 @@ def build_zeroshot_weights_prefix(forward, prefix_forward, suffix_forward,
     accumulate through full-row ``forward`` steps; names with a
     punctuation hazard at a boundary, or too long for the suffix bucket,
     go through :func:`build_zeroshot_weights_sharded`.  Port of
-    ``scd_tpu/naming/zeroshot.py::build_zeroshot_weights_prefix`` on one
-    device (``mesh``: None or a mesh of one rank; more ranks raise, and
-    :func:`build_zeroshot_weights` never sends them here); the last chunk
-    is not padded to the chunk size, since eager PyTorch compiles nothing
-    per shape.
-    """
-    from scd_tpu_torch.core.mesh import refuse_mesh
+    ``scd_tpu/naming/zeroshot.py::build_zeroshot_weights_prefix``; the
+    last chunk is not padded to the chunk size, since eager PyTorch
+    compiles nothing per shape.
 
-    refuse_mesh(mesh, "the prefix-KV vocabulary build", "a later slice")
+    Over a ``mesh`` of more than one rank (a direct call:
+    :func:`build_zeroshot_weights` keeps ranks on the full-row build, as
+    the JAX package keeps its multi-controller processes) every rank plans
+    the same split and encodes the prefix KV of every cached template
+    (small, replicated), then the suffix rows of its contiguous share of
+    the length-sorted cached names over the ``data`` axis (padded with a
+    repeat of the last name to equal shares, dropped after); one
+    ``all_gather`` brings every rank's columns to every rank in name
+    order, and the fallback names and templates take
+    :func:`build_zeroshot_weights_sharded` over the same mesh.  Every rank
+    returns the whole [D, V], as the JAX function's single-controller mesh
+    returns it replicated.
+    """
+    from scd_tpu_torch.core.mesh import check_mesh, single_rank
+
+    mesh = check_mesh(mesh)
+    if single_rank(mesh):
+        mesh = None
     cached, fallback_t, cached_n, fallback_n, name_toks, s_cap = \
         prefix_plan(tokenize, classnames, templates)
     if not cached or not cached_n:
         return build_zeroshot_weights_sharded(forward, variables, tokenize,
-                                              classnames, templates)
+                                              classnames, templates,
+                                              mesh=mesh)
     max_plen = max(len(prow) for prow, _ in cached)
 
     # ---- one pass encodes every cached template's prefix KV
@@ -314,26 +328,31 @@ def build_zeroshot_weights_prefix(forward, prefix_forward, suffix_forward,
     k_all, v_all = prefix_forward(variables, prow_mat)
 
     order = sorted(cached_n, key=lambda ni: len(name_toks[ni]))
-    chunk = max(min(names_per_chunk, len(order)), 1)
-    results = []  # (device weights [n, D], name indices)
-    weights = None
+    share = order  # this rank's names, in the sorted order
+    if mesh is not None:  # a contiguous share, padded with a repeat
+        per = -(-len(order) // mesh.n_data)
+        share = (order + order[-1:] * (per * mesh.n_data - len(order)))[
+            mesh.data_index * per:(mesh.data_index + 1) * per]
+    chunk = max(min(names_per_chunk, len(share)), 1)
+    results = []  # (device weights [n, D], rows of `mine`)
+    mine = None  # [len(share), D]: the columns of this rank's names
 
     def drain(upto: int):
-        nonlocal weights
+        nonlocal mine
         while len(results) > upto:
-            w_dev, idxs = results.pop(0)
+            w_dev, rows = results.pop(0)
             w = w_dev.cpu().numpy()
-            if weights is None:
-                weights = np.zeros((len(classnames), w.shape[1]), np.float32)
-            weights[idxs] = w
+            if mine is None:
+                mine = np.zeros((len(share), w.shape[1]), np.float32)
+            mine[rows] = w
 
     def add(acc, emb):
         emb = emb.float()
         emb = emb / emb.norm(dim=-1, keepdim=True)
         return emb if acc is None else acc + emb
 
-    for start in range(0, len(order), chunk):
-        idxs = order[start:start + chunk]
+    for start in range(0, len(share), chunk):
+        idxs = share[start:start + chunk]
         n = len(idxs)
         nlen = np.fromiter((len(name_toks[i]) for i in idxs), np.int64, n)
         max_n = int(nlen.max())
@@ -368,14 +387,23 @@ def build_zeroshot_weights_prefix(forward, prefix_forward, suffix_forward,
                 acc = add(acc, forward(variables, truncate_to_eot_bucket(
                     np.ascontiguousarray(fb[:, j]))))
         mean = acc / len(templates)
-        results.append((mean / mean.norm(dim=-1, keepdim=True), idxs))
+        results.append((mean / mean.norm(dim=-1, keepdim=True),
+                        slice(start, start + n)))
         drain(2)  # two chunks in flight; the host assembles ahead
     drain(0)
+    if mesh is not None:  # every rank's share, in the sorted order
+        from scd_tpu_torch.core.multihost import all_gather
+
+        mine = torch.cat(all_gather(torch.from_numpy(mine),
+                                    group=mesh.data_group)).numpy()
+    weights = np.zeros((len(classnames), mine.shape[1]), np.float32)
+    weights[order] = mine[:len(order)]
 
     # ---- fallback names take the full-row build
     if fallback_n:
         w_fb = build_zeroshot_weights_sharded(
             forward, variables, tokenize,
-            [classnames[i] for i in fallback_n], templates)  # [D, M]
+            [classnames[i] for i in fallback_n], templates,
+            mesh=mesh)  # [D, M]
         weights[fallback_n] = w_fb.T
     return weights.T.astype(np.float32)  # [D, V], the reference layout

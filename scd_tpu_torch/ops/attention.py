@@ -16,14 +16,16 @@ sum); round p to v's type; and accumulate p . v in f32, stored in v's type.
 Dispatch by device: a CUDA tensor runs the hand-written kernels
 (``csrc/attention.cu``; one library for both entry points, since a packed
 qkv is three strided [B, L, H, d] views of one buffer), chosen by shape in
-the C entry point.  At head_dim 64 (every shipped tower) the tensor-core
-paths, which take 16-byte-aligned views and raise on others: bf16 at L <=
-256 the whole-row ``wgmma`` path, past it the key-tiled ``wgmma`` long
-path; f32 at any L one kernel whose products are three TF32 passes on
-``wgmma`` (below).  Another head_dim takes the SIMT kernels: f32 at L <=
-256 the whole-row one, f32 or bf16 past it the key-tiled one.  A CPU
-tensor runs :func:`attention_plain`.  There is no fallback: a CUDA tensor
-no kernel takes raises.
+the C entry point by the rules of :func:`attention_route`.  At head_dim 64
+(every shipped image and text tower) the tensor-core paths, which take
+16-byte-aligned views and raise on others: bf16 at L <= 256 the whole-row
+``wgmma`` path, past it the key-tiled ``wgmma`` long path; f32 at any L
+one kernel whose products are three TF32 passes on ``wgmma`` (below).
+Another head_dim (the micro ViT's 32) takes the SIMT kernels: f32 at L <=
+256 the whole-row one where its rows fit in shared memory; bf16 at any L,
+and f32 otherwise, the key-tiled one (head_dim <= 256).  A CPU tensor runs
+:func:`attention_plain`.  There is no fallback: a CUDA tensor no kernel
+takes raises.
 
 The f32 products.  Each f32 product is three TF32 products on the tensor
 cores, summed in f32: ``hi = rna_tf32(x)``, ``lo = rna_tf32(x - hi)``,
@@ -44,10 +46,11 @@ requires a gradient (the trainable blocks of a training step); otherwise
 it launches as above, so serving and the pipelines are unchanged.  The
 Function's forward is the dispatch above; its backward is the
 hand-written ``csrc/attention_bwd.cu`` on a CUDA tensor
-(:func:`qkv_attention_bwd_cuda`, non-causal: at head_dim 64 and any L,
-16-byte-aligned views, two ``wgmma`` kernels fed by TMA, bf16 or f32 (the
-f32 ones on three TF32 passes, as the forward); f32 at another head_dim
-<= 128 and L <= 256 on SIMT; anything else raises) and autograd through
+(:func:`qkv_attention_bwd_cuda`, causal or not, by :func:`bwd_route`: at
+head_dim 64 and any L, 16-byte-aligned views, two ``wgmma`` kernels fed by
+TMA, bf16 or f32 (the f32 ones on three TF32 passes, as the forward);
+another head_dim <= 256, bf16 or f32, any L, two SIMT kernels that stream
+the keys in tiles; anything else raises) and autograd through
 :func:`attention_plain` on a CPU tensor (:func:`qkv_attention_bwd_plain`,
 also the card's reference).  The JAX package differentiates its attention
 with XLA autodiff, so the kernel replaces no Pallas kernel.  The gradient
@@ -86,10 +89,40 @@ from scd_tpu_torch.ops import build
 SHORT_MAX_L = 256  # the whole-row paths; longer sequences take a long path
 LONG_MAX_HD = 256  # head_dim the SIMT long path takes
 WGMMA_HD = 64  # head_dim of the tensor-core paths, bf16 and f32, any L
+SMEM_MAX = 232_448  # an H100 SM's shared memory a block may opt into
+F32_ROWS = 32  # query rows a block of the f32 whole-row SIMT kernel holds
+
+BWD_MAX_HD = 256  # head_dim of the gradient's SIMT route, bf16 and f32
 
 
-BWD_MAX_L_F32 = 256  # sequences of the gradient's f32 SIMT path
-BWD_MAX_HD_F32 = 128  # head_dim of its f32 SIMT path; bf16 takes WGMMA_HD
+def attention_route(dtype: torch.dtype, hd: int, length: int) -> str:
+    """The kernel of ``csrc/attention.cu`` that a CUDA call at ``dtype``,
+    head_dim ``hd`` and sequence ``length`` launches: at head_dim 64
+    ``"wgmma"`` (bf16, L <= 256), ``"long_wgmma"`` (bf16 past it) or
+    ``"f32_wgmma"`` (f32, any L); at another head_dim ``"f32_simt"`` (f32
+    at L <= 256 whose K, V, Q and score rows fit in shared memory: the
+    whole-row kernel) or ``"long_simt"`` (the key-tiled kernel, head_dim
+    <= 256: bf16 at any L, f32 otherwise).  The C entry point decides by
+    the same rules."""
+    if hd == WGMMA_HD:
+        if dtype == torch.float32:
+            return "f32_wgmma"
+        return "wgmma" if length <= SHORT_MAX_L else "long_wgmma"
+    if dtype == torch.float32 and length <= SHORT_MAX_L and 4 * (
+            length * (2 * hd + 1) + F32_ROWS * (hd + 1)
+            + F32_ROWS * length) <= SMEM_MAX:
+        return "f32_simt"
+    return "long_simt"
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernels of ``csrc/attention_bwd.cu`` that a CUDA gradient at
+    ``dtype`` and head_dim ``hd`` launches: ``"wgmma"`` (bf16 at head_dim
+    64), ``"f32_wgmma"`` (f32 at head_dim 64, three TF32 passes) or
+    ``"simt"`` (another head_dim <= 256, bf16 or f32, any L)."""
+    if hd == WGMMA_HD:
+        return "wgmma" if dtype == torch.bfloat16 else "f32_wgmma"
+    return "simt"
 
 
 def qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
@@ -161,37 +194,26 @@ def qkv_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
 
 
 def _check_bwd(qkv: torch.Tensor, heads: int, causal: bool) -> None:
-    """Raise for what the gradient kernel does not take: causal attention;
-    bf16 at a head_dim other than 64; at head_dim 64 (bf16 or f32) a view
-    whose base or strides are not 16-byte multiples; f32 at another
-    head_dim past L 256 or head_dim 128."""
+    """Raise for what the gradient kernels do not take: a qkv that is not
+    a bf16 or f32 [B, L, 3W]; L < 1; head_dim > 256; at head_dim 64 (bf16
+    or f32) a view whose base or strides are not 16-byte multiples.
+    Causal or not, any L, any other head_dim pass (:func:`bwd_route`)."""
     if qkv.dim() != 3 or qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the attention gradient kernel takes a bf16 or f32 "
                         f"[B, L, 3W] qkv, got {qkv.dtype} "
                         f"{tuple(qkv.shape)}")
     length, hd = qkv.shape[1], qkv.shape[2] // (3 * heads)
-    if causal:
-        raise NotImplementedError("the attention gradient kernel takes "
-                                  "non-causal attention only")
     if length < 1:
         raise ValueError(f"the attention gradient kernel takes L >= 1, got "
                          f"{length}")
-    kind = "bf16" if qkv.dtype == torch.bfloat16 else "f32"
-    if kind == "bf16" and hd != WGMMA_HD:
-        raise ValueError(f"the bf16 attention gradient kernel takes "
-                         f"head_dim {WGMMA_HD}, got {hd}")
-    if hd == WGMMA_HD:
-        if not _aligned(*_heads(qkv, heads)):
-            raise ValueError(f"the {kind} attention gradient kernel at "
-                             f"head_dim {WGMMA_HD} takes 16-byte-aligned "
-                             f"bases and strides")
-        return
-    if length > BWD_MAX_L_F32:
-        raise NotImplementedError(f"the f32 attention gradient kernel takes "
-                                  f"L <= {BWD_MAX_L_F32}, got {length}")
-    if not 1 <= hd <= BWD_MAX_HD_F32:
-        raise ValueError(f"the f32 attention gradient kernel takes head_dim "
-                         f"<= {BWD_MAX_HD_F32}, got {hd}")
+    if not 1 <= hd <= BWD_MAX_HD:
+        raise ValueError(f"the attention gradient kernel takes head_dim "
+                         f"<= {BWD_MAX_HD}, got {hd}")
+    if hd == WGMMA_HD and not _aligned(*_heads(qkv, heads)):
+        kind = "bf16" if qkv.dtype == torch.bfloat16 else "f32"
+        raise ValueError(f"the {kind} attention gradient kernel at "
+                         f"head_dim {WGMMA_HD} takes 16-byte-aligned "
+                         f"bases and strides")
 
 
 def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
@@ -201,7 +223,9 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
     stream): the gradient [B, L, 3W] of :func:`qkv_attention` at ``qkv``
     for the output gradient ``dout`` [B, L, W], in qkv's dtype.  Takes
     what :func:`_check_bwd` lets through, on one CUDA device; counts each
-    launch in ``qkv_attention_bwd_cuda.launches``."""
+    launch in ``qkv_attention_bwd_cuda.launches``, and apart those of the
+    f32 ``wgmma`` kernels (``.f32_wgmma_launches``), of the SIMT route
+    (``.simt_launches``) and under ``causal`` (``.causal_launches``)."""
     if not (qkv.is_cuda and dout.device == qkv.device):
         raise ValueError("qkv_attention_bwd_cuda takes CUDA tensors on one "
                          "device")
@@ -214,17 +238,20 @@ def qkv_attention_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor,
     if l_valid < 1:
         raise ValueError(f"l_valid must be >= 1, got {l_valid}")
     dqkv = attention_bwd(build.load("attention_bwd"), qkv, dout, heads,
-                         scale, l_valid)
+                         scale, l_valid, causal)
+    route = bwd_route(qkv.dtype, w3 // (3 * heads))
     qkv_attention_bwd_cuda.launches += 1
-    qkv_attention_bwd_cuda.f32_wgmma_launches += (
-        qkv.dtype == torch.float32 and w3 // (3 * heads) == WGMMA_HD)
+    qkv_attention_bwd_cuda.f32_wgmma_launches += route == "f32_wgmma"
+    qkv_attention_bwd_cuda.simt_launches += route == "simt"
+    qkv_attention_bwd_cuda.causal_launches += bool(causal)
     return dqkv
 
 
 def attention_bwd(lib: ctypes.CDLL, qkv: torch.Tensor, dout: torch.Tensor,
-                  heads: int, scale: float, l_valid: int) -> torch.Tensor:
-    """One launch of ``lib``'s C entry point ``attention_bwd`` (non-causal)
-    on a checked CUDA qkv and its output gradient; raises on a CUDA error.
+                  heads: int, scale: float, l_valid: int,
+                  causal: bool = False) -> torch.Tensor:
+    """One launch of ``lib``'s C entry point ``attention_bwd`` on a
+    checked CUDA qkv and its output gradient; raises on a CUDA error.
     Counts nothing."""
     b, length, w3 = qkv.shape
     hd = w3 // (3 * heads)
@@ -232,7 +259,7 @@ def attention_bwd(lib: ctypes.CDLL, qkv: torch.Tensor, dout: torch.Tensor,
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     # row statistics: (max, sum, 1 / sum, D) a row in 64-row tiles at
     # head_dim 64 (the tensor-core kernels), (max, sum, D) planes for the
-    # f32 SIMT kernels
+    # SIMT kernels
     tiles = -(-length // 64)
     stats = torch.empty(4 * b * heads * tiles * 64 if hd == WGMMA_HD
                         else 3 * b * heads * length, dtype=torch.float32,
@@ -249,13 +276,15 @@ def attention_bwd(lib: ctypes.CDLL, qkv: torch.Tensor, dout: torch.Tensor,
         rc = fn(*(t.data_ptr() for t in views[:4]),
                 *(t.data_ptr() for t in views[4:]), stats.data_ptr(),
                 int(qkv.dtype == torch.bfloat16), *strides, b, heads, length,
-                hd, l_valid, 0, float(scale), stream)
+                hd, l_valid, int(bool(causal)), float(scale), stream)
     build.check(rc, "attention_bwd")
     return dqkv
 
 
 qkv_attention_bwd_cuda.launches = 0
 qkv_attention_bwd_cuda.f32_wgmma_launches = 0
+qkv_attention_bwd_cuda.simt_launches = 0
+qkv_attention_bwd_cuda.causal_launches = 0
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -315,17 +344,19 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    l_valid: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel on [B, L, H, d] views (any batch, sequence and
     head strides, the last dimension contiguous), all bf16 or all f32 on
-    one CUDA device.  d = 64 takes the tensor-core paths, with 16-byte-
-    aligned bases and strides (else it raises): bf16 the whole-row path at
-    L <= 256 and the ``wgmma`` long path past it, f32 the three-pass TF32
-    kernel at any L.  Another d: f32 at L <= 256 any d whose K, V, Q and
-    score rows fit in shared memory (else the launch fails); past L 256,
-    f32 and bf16 the SIMT long path, d <= 256; bf16 at L <= 256 raises.
-    Returns a contiguous [B, L, H, d].  Counts every launch in
-    ``attention_cuda.launches``, those at L > 256 also in
-    ``attention_cuda.long_launches``, of those the bf16 ``wgmma`` long
-    path's also in ``attention_cuda.long_wgmma_launches``, and the f32
-    kernel's at d = 64 (any L) in ``attention_cuda.f32_wgmma_launches``."""
+    one CUDA device, by :func:`attention_route`.  d = 64 takes the
+    tensor-core paths, with 16-byte-aligned bases and strides (else it
+    raises): bf16 the whole-row path at L <= 256 and the ``wgmma`` long
+    path past it, f32 the three-pass TF32 kernel at any L.  Another d:
+    f32 at L <= 256 whose K, V, Q and score rows fit in shared memory the
+    whole-row SIMT kernel; else, bf16 at any L and f32, the key-tiled SIMT
+    kernel, d <= 256 (else it raises).  Returns a contiguous [B, L, H, d].
+    Counts every launch in ``attention_cuda.launches``, those at L > 256
+    also in ``attention_cuda.long_launches``, of those the bf16 ``wgmma``
+    long path's also in ``attention_cuda.long_wgmma_launches``, the f32
+    kernel's at d = 64 (any L) in ``attention_cuda.f32_wgmma_launches``,
+    and the bf16 launches of the SIMT kernel (d != 64, any L) in
+    ``attention_cuda.simt_bf16_launches``."""
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError("attention_cuda takes CUDA tensors on one device")
@@ -343,13 +374,11 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(L={length}, l_valid={l_valid})")
     is_bf16 = q.dtype == torch.bfloat16
     long_path = length > SHORT_MAX_L
-    if is_bf16 and not long_path and hd != WGMMA_HD:
-        raise ValueError(f"the bf16 attention kernel takes head_dim "
-                         f"{WGMMA_HD}, got {hd}")
+    route = attention_route(q.dtype, hd, length)
     wgmma = hd == WGMMA_HD  # the tensor-core paths, bf16 and f32
-    if long_path and not wgmma and hd > LONG_MAX_HD:
-        raise ValueError(f"the SIMT long attention path (L > {SHORT_MAX_L})"
-                         f" takes head_dim <= {LONG_MAX_HD}, got {hd}")
+    if route == "long_simt" and not 1 <= hd <= LONG_MAX_HD:
+        raise ValueError(f"the SIMT long attention path takes head_dim <= "
+                         f"{LONG_MAX_HD}, got {hd}")
     if wgmma and not _aligned(q, k, v):
         raise ValueError(f"the {'bf16' if is_bf16 else 'f32'} attention "
                          f"kernel at head_dim {WGMMA_HD} takes 16-byte-"
@@ -360,6 +389,7 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention_cuda.long_launches += long_path
     attention_cuda.long_wgmma_launches += long_path and wgmma and is_bf16
     attention_cuda.f32_wgmma_launches += wgmma and not is_bf16
+    attention_cuda.simt_bf16_launches += is_bf16 and not wgmma
     return out
 
 
@@ -396,6 +426,7 @@ attention_cuda.launches = 0
 attention_cuda.long_launches = 0
 attention_cuda.long_wgmma_launches = 0
 attention_cuda.f32_wgmma_launches = 0
+attention_cuda.simt_bf16_launches = 0
 
 
 PREFIX_MAX_S = 16  # suffix rows the prefix kernels take

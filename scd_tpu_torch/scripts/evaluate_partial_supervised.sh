@@ -1,0 +1,17 @@
+#!/usr/bin/env bash
+# Partially-supervised SCD evaluation (reference scripts/evaluate_partial_supervised.sh).
+# The port's counterpart of scripts/evaluate_partial_supervised.sh;
+# DEVICE=cpu runs it off the card.
+set -e
+python -m scd_tpu_torch.pipelines.ptsup \
+    --batch_size 32 \
+    --root_dir "${ROOT_DIR:-/data}" \
+    --dataset_name "${DATASET:-synthetic}" \
+    --feat_model "${FEAT_MODEL:-synthetic}" \
+    --cluster "${CLUSTER:-SSKM}" \
+    --n_cluster "${N_CLUSTER:-10}" \
+    --topk "${TOPK:-3}" \
+    --num_common_vote "${NUM_COMMON_VOTE:-10}" \
+    --num_common_linear "${NUM_COMMON_LINEAR:-2}" \
+    ${DEVICE:+--device "$DEVICE"} \
+    "$@"

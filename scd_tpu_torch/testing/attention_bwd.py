@@ -37,14 +37,17 @@ SHAPES = (("train", 197, 197), ("train-int8-pad", 208, 197),
 
 
 def bound_ms(b: int, length: int, h: int, d: int, l_valid: int,
-             f32: bool = False) -> tuple:
+             f32: bool = False, causal: bool = False) -> tuple:
     """(least ms, what bounds it): q, k, v and dO read once, dq, dk, dv
     written once; the five products a gradient needs (s = q . k^T again,
     dP = dO . V^T, dV = P^T . dO, dQ = dS . K, dK = dS^T . Q) over the
-    score pairs this input keeps (keys < l_valid): bf16 at the bf16 peak;
-    f32 (4-byte elements) as three TF32 passes at the TF32 peak, the route
-    of the f32 kernels at head_dim 64."""
-    flops = 10.0 * b * h * d * length * l_valid
+    score pairs this input keeps (keys < l_valid; under ``causal`` none
+    after its query): bf16 at the bf16 peak; f32 (4-byte elements) as
+    three TF32 passes at the TF32 peak, the route of the f32 kernels at
+    head_dim 64."""
+    pairs = (sum(min(r + 1, l_valid) for r in range(length)) if causal
+             else length * l_valid)
+    flops = 10.0 * b * h * d * pairs
     t_ops = 3 * flops / PEAK_TF32_FLOPS if f32 else flops / PEAK_BF16_FLOPS
     t_bytes = 7.0 * (4 if f32 else 2) * b * length * h * d / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes

@@ -14,7 +14,8 @@ sum of the absolute values of the terms the element sums:
 M is, with p the softmax and dP = dO . V^T: ``scale * sum_j p (|dP| + A)
 |K|`` for dQ with ``A = rowsum(p |dP|)``, the same over the queries with
 |Q| for dK, and ``sum_i p |dO|`` for dV, computed in f32 on the inputs'
-device.
+device, p under the same key mask (``l_valid``, ``causal``) as the
+gradient.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ F32_MASS = 1e-4
 
 
 def grad_mass(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
-              scale: float, l_valid: Optional[int] = None) -> torch.Tensor:
+              scale: float, l_valid: Optional[int] = None,
+              causal: bool = False) -> torch.Tensor:
     """M per element of the packed gradient of ``qkv`` [B, L, 3W] for the
     output gradient ``dout`` [B, L, W]: [B, L, 3W] f32."""
     b, length, w3 = qkv.shape
@@ -40,6 +42,9 @@ def grad_mass(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     s = torch.matmul(q, k.transpose(-1, -2)) * scale  # [B, H, L, L]
     if lv < length:
         s[..., lv:] = float("-inf")
+    if causal:
+        col = torch.arange(length, device=s.device)
+        s.masked_fill_(col[None, :] > col[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     del s
     dp = torch.matmul(o, v.transpose(-1, -2)).abs_()
@@ -53,11 +58,11 @@ def grad_mass(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
 
 def grad_bound(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                scale: float, l_valid: Optional[int],
-               want: torch.Tensor) -> torch.Tensor:
+               want: torch.Tensor, causal: bool = False) -> torch.Tensor:
     """The largest |kernel - plain| allowed per element of the packed
     gradient, ``want`` being the plain version's (see the module
     docstring): [B, L, 3W] f32."""
-    mass = grad_mass(qkv, dout, heads, scale, l_valid)
+    mass = grad_mass(qkv, dout, heads, scale, l_valid, causal)
     if qkv.dtype == torch.bfloat16:
         return BF16_REL * want.float().abs() + BF16_MASS * mass
     return F32_MASS * mass

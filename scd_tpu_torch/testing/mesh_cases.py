@@ -17,6 +17,7 @@ import dataclasses
 import hashlib
 import io
 import os
+from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
@@ -328,6 +329,53 @@ def _vocabulary(mesh, dev) -> Dict:
     dispatch = build_zeroshot_weights(enc, names, IMAGENET_TEMPLATES,
                                       names_per_batch=6, mesh=mesh)
     return {"single": single, "sharded": sharded, "dispatch": dispatch}
+
+
+def prefix_vocab_build(spec: Dict) -> Dict:
+    """The prefix-KV vocabulary build (``build_zeroshot_weights_prefix``)
+    over the world's ``data`` axis (no mesh at world size 1), for each of
+    ``spec["cases"]`` ({case: (names, templates, names_per_chunk)}), on a
+    text tower made from ``spec``: ``"state"`` (a tiny CLIP's parameters,
+    ``spec["cfg"]`` its config, the hash tokenizer of 512 ids) or
+    ``"pipeline"`` (a cold root's ``PipelineConfig``: ``build_encoders``'
+    bf16 tower with its BPE tokenizer).  Returns {case: [D, V] f32} and,
+    under ``"launches"``, the prefix kernel's launches and its ``mma.sync``
+    kernel's in the builds."""
+    from scd_tpu_torch.naming.zeroshot import build_zeroshot_weights_prefix
+    from scd_tpu_torch.ops import attention
+
+    mesh = _world_mesh()
+    dev = _device(mesh)
+    if "pipeline" in spec:
+        from scd_tpu_torch.pipelines.unsup import build_encoders
+
+        enc = build_encoders(spec["pipeline"], {}, device=dev)[2]
+    else:
+        from scd_tpu_torch.models.clip import CLIPModel
+        from scd_tpu_torch.models.tokenizer import HashTokenizer
+
+        model = CLIPModel(spec["cfg"], device=dev).eval()
+        model.load_state_dict(spec["state"])
+
+        enc = SimpleNamespace(
+            forward=lambda m, t: m.encode_text(torch.as_tensor(t).to(dev)),
+            prefix_forward=lambda m, t: m.encode_text_prefix(
+                torch.as_tensor(t).to(dev)),
+            suffix_forward=lambda m, t, kv, p: m.encode_text_suffix(
+                torch.as_tensor(t).to(dev), kv, p),
+            variables=model, tokenize=HashTokenizer(vocab_size=512))
+    pa = attention.prefix_attention_cuda
+    pa.launches = pa.mma_launches = 0
+    out = {}
+    with torch.inference_mode():
+        for case, (names, templates, chunk) in spec["cases"].items():
+            out[case] = build_zeroshot_weights_prefix(
+                enc.forward, enc.prefix_forward, enc.suffix_forward,
+                enc.variables, enc.tokenize, names, templates, mesh=mesh,
+                names_per_chunk=chunk)
+    out["launches"] = {"prefix_attention": pa.launches,
+                       "prefix_attention_mma": pa.mma_launches}
+    return out
 
 
 def _synthetic_config(cache_dir: str, algorithm: str = "SSKM"):

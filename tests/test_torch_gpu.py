@@ -501,16 +501,20 @@ def test_attention_long_path_matches_plain(cuda, b, length, h, causal,
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """The short bf16 path takes head_dim 64 only; L 300 is no longer
-    refused: it takes the long path (its own counter moves); the SIMT
-    long path takes head_dim <= 256; the bf16 long path, like the short
-    one, refuses a view whose strides are not 16-byte multiples; f16 is
-    refused."""
+    """bf16 at head_dim 32 and L 8 is no longer refused: it takes the
+    key-tiled SIMT kernel (its own counter moves) and agrees with the
+    plain version; L 300 takes the long path (its own counter moves);
+    the SIMT long path takes head_dim <= 256; the bf16 long path, like
+    the short one, refuses a view whose strides are not 16-byte
+    multiples; f16 is refused."""
     from scd_tpu_torch.ops import attention as A
 
-    x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        A.vit_attention(x, x, x, 0.125)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(1, 8, 2, 32, generator=g, device=cuda).to(torch.bfloat16)
+    simt_before = A.attention_cuda.simt_bf16_launches
+    got = A.vit_attention(x, x, x, 0.125)
+    assert A.attention_cuda.simt_bf16_launches == simt_before + 1
+    assert _attention_within(got, A.attention_plain(x, x, x, 0.125), x)
     y = torch.zeros(1, 300, 2, 64, dtype=torch.bfloat16, device=cuda)
     long_before = A.attention_cuda.long_launches
     out = A.vit_attention(y, y, y, 0.125)
@@ -923,16 +927,20 @@ def test_attention_gradient_flows_through_the_function(cuda):
 
 
 def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    """A head_dim-64 view off the 16-byte grid and head_dim 288 raise,
+    through the kernel and through autograd.  What it refused before this
+    slice now runs and agrees with the plain gradient (the bound of
+    ``testing/attention_grad.py``), each on its route: f32 at head_dim 32
+    past L 256 and at head_dim 160, bf16 at head_dim 32 (SIMT), causal at
+    head_dim 64 (``wgmma``)."""
     from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.attention_grad import grad_bound
 
     bf = torch.bfloat16
     for qkv, heads, causal in (
-            (torch.zeros(2, 257, 96, device=cuda), 1, False),
             (torch.zeros(2 * 16 * 192 + 1, device=cuda)[1:].view(2, 16, 192),
              1, False),
-            (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 1, True),
-            (torch.zeros(2, 16, 192, device=cuda, dtype=bf), 2, False),
-            (torch.zeros(2, 16, 3 * 160, device=cuda), 1, False)):
+            (torch.zeros(2, 16, 3 * 288, device=cuda, dtype=bf), 1, True)):
         dout = torch.zeros(*qkv.shape[:2], qkv.shape[2] // 3, device=cuda,
                            dtype=qkv.dtype)
         with pytest.raises((ValueError, NotImplementedError)):
@@ -940,6 +948,81 @@ def test_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
         with pytest.raises((ValueError, NotImplementedError)):
             A.qkv_attention(qkv.requires_grad_(True), heads, 0.125, causal
                             ).float().sum().backward()
+    g = torch.Generator(device=cuda).manual_seed(21)
+    for (b, length, w3, dtype), heads, causal, route in (
+            ((2, 257, 96, torch.float32), 1, False, "simt"),
+            ((2, 16, 192, bf), 1, True, "wgmma"),
+            ((2, 16, 192, bf), 2, False, "simt"),
+            ((2, 16, 3 * 160, torch.float32), 1, False, "simt")):
+        qkv = torch.randn(b, length, w3, generator=g, device=cuda).to(dtype)
+        dout = torch.randn(b, length, w3 // 3, generator=g,
+                           device=cuda).to(dtype)
+        assert A.bwd_route(dtype, w3 // (3 * heads)) == route
+        got = A.qkv_attention_bwd_cuda(qkv, dout, heads, 0.125, causal)
+        want = A.qkv_attention_bwd_plain(qkv, dout, heads, 0.125, causal)
+        bound = grad_bound(qkv, dout, heads, 0.125, None, want, causal)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("b,length,h,d,dtype,causal,l_valid", [
+    (16, 197, 2, 32, torch.bfloat16, False, None),  # micro at 224 px
+    (8, 5, 2, 32, torch.bfloat16, False, None),  # micro at 32 px
+    (4, 290, 2, 32, torch.float32, False, 280),  # e2e micro at 136 px
+    (6, 77, 8, 64, torch.bfloat16, True, None),  # the text tower
+    (6, 77, 8, 64, torch.float32, True, None),
+    (3, 300, 4, 64, torch.bfloat16, True, 290),
+    (3, 300, 4, 64, torch.float32, True, 290),
+    (5, 77, 4, 32, torch.bfloat16, True, 70)])
+def test_attention_bwd_routes_match_plain(cuda, b, length, h, d, dtype,
+                                          causal, l_valid):
+    """The gradient's SIMT route (head_dim != 64, bf16 or f32, any L) and
+    causal on every route against autograd of the plain attention, within
+    ``testing/attention_grad.py``'s bound, the bits repeated, the route's
+    counters moved; keys at or past l_valid get no dK, dV."""
+    from scd_tpu_torch.ops import attention as A
+    from scd_tpu_torch.testing.attention_grad import grad_bound
+
+    g = torch.Generator(device=cuda).manual_seed(length + d)
+    qkv = torch.randn(b, length, 3 * h * d, generator=g,
+                      device=cuda).to(dtype)
+    dout = torch.randn(b, length, h * d, generator=g, device=cuda).to(dtype)
+    simt, caus = (A.qkv_attention_bwd_cuda.simt_launches,
+                  A.qkv_attention_bwd_cuda.causal_launches)
+    got = A.qkv_attention_bwd_cuda(qkv, dout, h, d ** -0.5, causal, l_valid)
+    assert torch.equal(got, A.qkv_attention_bwd_cuda(qkv, dout, h, d ** -0.5,
+                                                     causal, l_valid))
+    assert A.qkv_attention_bwd_cuda.simt_launches == simt + 2 * (d != 64)
+    assert A.qkv_attention_bwd_cuda.causal_launches == caus + 2 * causal
+    want = A.qkv_attention_bwd_plain(qkv, dout, h, d ** -0.5, causal,
+                                     l_valid)
+    bound = grad_bound(qkv, dout, h, d ** -0.5, l_valid, want, causal)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+    lv = length if l_valid is None else l_valid
+    assert not bool(A._heads(got, h)[1][:, lv:].any())
+    assert not bool(A._heads(got, h)[2][:, lv:].any())
+
+
+@pytest.mark.parametrize("length", [1, 5, 17, 197, 300])
+@pytest.mark.parametrize("d", [8, 32, 128])
+def test_attention_bf16_simt_route_matches_plain(cuda, length, d):
+    """bf16 at a head_dim other than 64 takes the key-tiled SIMT kernel at
+    every L (``attention_route``), causal and not, with l_valid < L;
+    within ``_attention_within``."""
+    from scd_tpu_torch.ops import attention as A
+
+    assert A.attention_route(torch.bfloat16, d, length) == "long_simt"
+    g = torch.Generator(device=cuda).manual_seed(length * d)
+    qkv = torch.randn(3, length, 3 * 2 * d, generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = A._heads(qkv, 2)
+    for causal in (False, True):
+        lv = max(1, length - 2)
+        before = A.attention_cuda.simt_bf16_launches
+        got = A.qkv_attention(qkv, 2, d ** -0.5, causal, lv).view(
+            3, length, 2, d)
+        assert A.attention_cuda.simt_bf16_launches == before + 1
+        want = A.attention_plain(q, k, v, d ** -0.5, causal, lv)
+        assert _attention_within(got, want, v)
 
 
 def test_gcd_step_card_matches_cpu(cuda):

@@ -5,8 +5,10 @@ the tokenizer, the kernels' ops, the runners, the serving entry point, the
 ptsup entry point, the constrained and FINCH clusterers, the min-cost-flow
 bridge, the reference-cache importer, the training subpackages ``train``
 and ``utils`` (the runtime, log-parsing and plot modules too), the NCD
-baselines, WTA hashing and the ResNet towers among them, and the mesh
-modules ``core.mesh``, ``core.multihost`` and ``testing.dist``) and
+baselines, WTA hashing and the ResNet towers among them, the mesh
+modules ``core.mesh``, ``core.multihost`` and ``testing.dist``, and the
+scripts' counterparts ``scripts.scale_smoke`` and
+``scripts.multihost_smoke``) and
 ``chip_smoke``, then looks at
 ``sys.modules``.  ``scd_tpu_torch`` itself
 starts with ``scd_tpu``, so the check matches the JAX package by exact name
@@ -53,7 +55,9 @@ def test_port_imports_no_jax_and_no_scd_tpu():
         "scd_tpu_torch.models.resnet", "scd_tpu_torch.models.resnet50",
         "scd_tpu_torch.utils.runtime", "scd_tpu_torch.utils.logparse",
         "scd_tpu_torch.utils.plots", "scd_tpu_torch.core.mesh",
-        "scd_tpu_torch.core.multihost", "scd_tpu_torch.testing.dist"} <= \
+        "scd_tpu_torch.core.multihost", "scd_tpu_torch.testing.dist",
+        "scd_tpu_torch.scripts.scale_smoke",
+        "scd_tpu_torch.scripts.multihost_smoke"} <= \
         set(names.split(","))
 
 

@@ -12,8 +12,14 @@ the port's parameters carried across from the JAX init by
   f32, and the suffix forward against the port's own full-row forward.
 - ``build_zeroshot_weights_prefix`` against the JAX one and the port's
   full-row build (the JAX tests' names and templates, the fallback
-  templates and names included); the dispatch is opt-in; a ``mesh``
-  raises; ``build_encoders`` sets the prefix hooks unless ``dense_int8``.
+  templates and names included); the dispatch is opt-in; a mesh that is
+  not a ``MeshContext`` raises; ``build_encoders`` sets the prefix hooks
+  unless ``dense_int8``.
+- ``build_zeroshot_weights_prefix`` over 2 gloo ranks
+  (``testing/dist.py::spawn``, ``testing/mesh_cases.py::
+  prefix_vocab_build``): every rank's whole [D, V] against the
+  one-process build, the JAX build on a single-controller mesh of 2
+  virtual devices and the full-row build, both cases above.
 
 Tolerance: f32 throughout, atol 1e-5 (the JAX tests' own: sums in another
 order); the pipeline's bf16 towers compare the two builds by column
@@ -29,6 +35,8 @@ import torch
 
 from scd_tpu.models import clip as jclip
 from scd_tpu.models import vit as jvit
+from scd_tpu.core.config import MeshConfig as JMeshConfig
+from scd_tpu.core.mesh import make_mesh as jmake_mesh
 from scd_tpu.models.tokenizer import HashTokenizer as JHashTokenizer
 from scd_tpu.naming import zeroshot as jzs
 from scd_tpu_torch.models import clip as tclip
@@ -37,6 +45,7 @@ from scd_tpu_torch.models.params import params_from_flax
 from scd_tpu_torch.models.tokenizer import HashTokenizer
 from scd_tpu_torch.naming import zeroshot as tzs
 from scd_tpu_torch.ops import attention as A
+from scd_tpu_torch.testing.dist import spawn
 
 TOL = 1e-5
 BF16_COS = 0.999
@@ -218,6 +227,52 @@ class _PerPromptTokenizer:
 
     def __call__(self, texts):
         return self._tok(texts)
+
+
+# (names, templates, names_per_chunk, full-row names_per_batch)
+CASES = {"spliced": (NAMES, TEMPLATES, 16, 16),
+         "fallbacks": (FB_NAMES, FB_TEMPLATES, 8, 4)}
+
+
+@pytest.fixture(scope="module")
+def ranks(tiny):
+    """Both cases built over 2 gloo ranks from the JAX init's parameters:
+    every rank's result."""
+    _, tenc, model = tiny
+    spec = {"cfg": _cfgs()[1], "state": model.state_dict(),
+            "cases": {c: v[:3] for c, v in CASES.items()}}
+    return spawn("scd_tpu_torch.testing.mesh_cases.prefix_vocab_build",
+                 world=2, args=(spec,), timeout=120)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_prefix_build_over_two_ranks(tiny, ranks, case):
+    """Every rank's columns against the one-process prefix build, the JAX
+    build over a single-controller mesh of 2 virtual devices (whose names
+    are sharded over it) and the full-row build, to TOL."""
+    jenc, tenc, _ = tiny
+    names, templates, chunk, per_batch = CASES[case]
+    jmesh = jmake_mesh(JMeshConfig(data=2, model=1),
+                       devices=jax.devices()[:2])
+    want = jzs.build_zeroshot_weights_prefix(
+        jenc.forward, jenc.prefix_forward, jenc.suffix_forward,
+        jenc.variables, jenc.tokenize, names, templates, mesh=jmesh,
+        names_per_chunk=chunk)
+    with torch.no_grad():
+        one = tzs.build_zeroshot_weights_prefix(
+            tenc.forward, tenc.prefix_forward, tenc.suffix_forward,
+            tenc.variables, tenc.tokenize, names, templates,
+            names_per_chunk=chunk)
+        full = tzs.build_zeroshot_weights(lambda t: tenc(t), names,
+                                          templates,
+                                          names_per_batch=per_batch)
+    for rank in ranks:
+        got = rank[case]
+        assert got.shape == (16, len(names)) and got.dtype == np.float32
+        np.testing.assert_allclose(got, one, atol=TOL, rtol=0)
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+        np.testing.assert_allclose(got, full, atol=TOL, rtol=0)
+        np.testing.assert_array_equal(got, ranks[0][case])
 
 
 @pytest.mark.parametrize("case", ["spliced", "fallbacks",
